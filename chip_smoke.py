@@ -1,0 +1,530 @@
+"""Drive the PyTorch/CUDA port of the DAGPS scheduler on one GPU.
+
+Run from the repository root with no arguments:
+
+    python3 chip_smoke.py
+
+It needs one CUDA device and the CUDA toolkit (``nvcc``); it builds the
+placement-scan kernels from ``src/repro_torch/kernels/placement_scan/csrc``
+itself.  Phases, each printing its own lines:
+
+  1. device: name, power limit, kernel build time;
+  2. each kernel against its plain PyTorch version on the card, bitwise, at
+     main-path shapes, with CUDA-event times for both;
+  3. the main path in exact mode: ``run_workload`` of 48 online-mix jobs on
+     2048 machines through the cuda kernels, against its numpy-pinned twin
+     (every JCT, the makespan and the Jain index equal to the last bit);
+  4. the same population in routed mode against its numpy-pinned twin.
+
+Any failed phase exits non-zero before the result line.  The last line is
+``{"ok": true, "device": {...}}``; the line before it lists every kernel
+with its launches on the main path, error, times and bound.  A fuller
+report goes to ``chiprun_out/chip_smoke_report.json``.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+
+#: published H100 SXM peaks (NVIDIA data sheet; dense, at 700 W)
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12          # float32 outside the tensor cores
+F64_OPS_PER_S = 34e12          # float64 outside the tensor cores
+
+N_JOBS = 48
+N_MACHINES = 2048
+SEED = 88
+
+
+class SmokeFailure(RuntimeError):
+    pass
+
+
+def check(cond: bool, what: str) -> None:
+    if not cond:
+        raise SmokeFailure(what)
+
+
+def say(tag: str, **kw) -> None:
+    print(f"[{tag}] " + " ".join(f"{k}={v}" for k, v in kw.items()),
+          flush=True)
+
+
+def cuda_time_ms(fn, reps: int, warmup: int = 2) -> float:
+    """Mean ms per call over ``reps`` back-to-back calls (CUDA events)."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def bound_ms(n_bytes: float, n_ops: float, ops_per_s: float):
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / ops_per_s * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def nbytes(*ts) -> int:
+    return int(sum(t.numel() * t.element_size() for t in ts))
+
+
+# ----------------------------------------------------------------------
+# phase 2: kernels against their plain versions
+# ----------------------------------------------------------------------
+
+def s13_corpus():
+    """The s13 wave corpus: m=2048 machines, n=512 candidates, d=4, seed 13."""
+    import numpy as np
+
+    from repro_torch.core.online import CandidateBatch
+
+    m, d, n = 2048, 4, 512
+    rng = np.random.default_rng(13)
+    batch = CandidateBatch(
+        dem=rng.uniform(0.05, 0.3, (n, d)),
+        pri=rng.uniform(0.5, 2.0, n),
+        srpt=rng.uniform(1.0, 300.0, n),
+        grp=rng.integers(0, 2, n),
+        loc=np.where(rng.random(n) < 0.3, rng.integers(0, m, n), -1),
+        job=np.arange(n), tid=np.arange(n))
+    avail0 = rng.uniform(0.2, 1.0, (m, d))
+    return batch, avail0, np.ones(m, bool)
+
+
+#: scan cases at padded main-path shapes (m, W, L, g bucket, real tasks,
+#: largest k): the path's most launched shape (one task padded to 8), its
+#: long-k bucket (W = 2k, k <= LONG_K = 128) and a full prefetch batch
+SCAN_CASES = (("modal", 4, 192, 256, 8, 1, 64),
+              ("long_k", 4, 256, 384, 8, 8, 128),
+              ("batch32", 4, 192, 256, 32, 32, 64))
+
+
+def scan_case(label, m, W, Lp, gb, g, kmax, seed):
+    """One scan launch as `kernels._scan_on` pads it, against the plain
+    version bitwise, with both timed and the bound of this input's work."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.engine.base import ceil32
+    from repro_torch.kernels.placement_scan import kernel, ref
+
+    d = 4
+    rng = np.random.default_rng(seed)
+    t_live = W + kmax - 1               # the live window, as the adapter reads
+    # free capacity as a grid holds it: mostly room, with rare deep dips
+    live = rng.uniform(0.3, 1.0, (m, t_live, d))
+    dips = rng.random((m, t_live, d)) < 0.005
+    live[dips] = rng.uniform(0.0, 0.3, int(dips.sum()))
+    win = np.full((m, Lp, d), -1.0, dtype=np.float32)
+    win[:, :t_live] = live
+    Vs = np.full((gb, d), 2.0, dtype=np.float32)
+    Vs[:g] = ceil32(rng.uniform(0.01, 0.3, (g, d)))
+    for _ in range(64):                 # cells exactly at a task's demand
+        gi, mi, t = rng.integers(g), rng.integers(m), rng.integers(t_live)
+        win[mi, t] = Vs[gi]
+    ks = np.ones(gb, dtype=np.int32)
+    ks[:g] = rng.integers(1, kmax + 1, g)
+    ks[0] = kmax
+    dev = torch.device("cuda")
+    win_t = torch.from_numpy(win).to(dev)
+    Vs_t = torch.from_numpy(Vs).to(dev)
+    ks_t = torch.from_numpy(ks).to(dev)
+    got = kernel.scan_bitmaps(win_t, Vs_t, ks_t, t_live, W)
+    want = ref.scan_bitmaps(win_t, Vs_t, ks_t, t_live, W)
+    torch.cuda.synchronize()
+    check(torch.equal(got, want), f"scan_bitmaps kernel != plain ({label})")
+    check(bool(got[:g].any()), f"scan case {label} has no feasible start")
+    err = float((got.int() - want.int()).abs().max())
+    ms = cuda_time_ms(lambda: kernel.scan_bitmaps(win_t, Vs_t, ks_t, t_live,
+                                                  W), 200)
+    plain = cuda_time_ms(lambda: ref.scan_bitmaps(win_t, Vs_t, ks_t, t_live,
+                                                  W), 50)
+    # the work this input needs, as a running count along ticks: each real
+    # task's (machine, live tick) cell is d compares and one count update,
+    # and each of its W starts one compare of the count with k; the padded
+    # tasks (demand 2.0 > any cell) need none
+    n_ops = float(g * m * (t_live * (d + 1) + W))
+    b, by = bound_ms(nbytes(win_t, Vs_t, ks_t, got), n_ops, F32_OPS_PER_S)
+    say("kernel", name="scan_bitmaps", case=label,
+        shape=f"m={m},W={W},L={Lp},g={gb}({g} real),kmax={kmax}",
+        bitwise=True, ms=round(ms, 6), plain_ms=round(plain, 6),
+        bound_ms=f"{b:.3e}", bound_by=by)
+    return dict(case=label, shape=(m, W, Lp, gb), max_abs_err=err, ms=ms,
+                plain_ms=plain, bound_ms=b, bound_by=by)
+
+
+def kernel_scan(report: list) -> None:
+    cases = [scan_case(*c, seed=7 + i) for i, c in enumerate(SCAN_CASES)]
+    report.append(dict(
+        name="scan_bitmaps", route="cuda",
+        source="src/repro_torch/kernels/placement_scan/csrc/placement_scan.cu",
+        replaces="src/repro/kernels/placement_scan/kernel.py:57",
+        library_ms=None, cases=cases, **{k: cases[0][k] for k in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")}))
+
+
+def kernel_eligible(report: list) -> None:
+    import numpy as np
+    import torch
+
+    from repro_torch.core.engine import kernels as K
+    from repro_torch.core.engine import packing
+    from repro_torch.core.online import FUNGIBLE, RIGID
+    from repro_torch.kernels.placement_scan import kernel, ref
+
+    batch, avail0, _alive = s13_corpus()
+    fd = np.arange(4)
+    rd = np.asarray(RIGID)
+    gd = np.asarray(FUNGIBLE)
+    args, _empty = K._eligibility_launch_args(avail0, batch.dem, fd, rd, gd,
+                                              0.25, True)
+    dem32, thr_fit, thr_fung, masks = args
+    dev = torch.device("cuda")
+    ts = [torch.from_numpy(a).to(dev)
+          for a in (dem32, thr_fit, thr_fung, *masks)]
+    got = kernel.heartbeat_eligible(*ts)
+    want = ref.heartbeat_eligible(*ts)
+    torch.cuda.synchronize()
+    check(torch.equal(got, want), "heartbeat_eligible kernel != plain version")
+    exact, _ = packing.machines_with_candidates(avail0, batch.dem, fd, rd, gd,
+                                                0.25, True)
+    check(bool((exact <= (got.cpu().numpy() != 0)).all()),
+          "heartbeat_eligible dropped an exactly eligible pair")
+    err = float((got.int() - want.int()).abs().max())
+    ms = cuda_time_ms(lambda: kernel.heartbeat_eligible(*ts), 200)
+    plain = cuda_time_ms(lambda: ref.heartbeat_eligible(*ts), 50)
+    n, m = dem32.shape[0], thr_fit.shape[0]
+    # 3 masked compares per dim per pair plus the or/and
+    b, by = bound_ms(nbytes(*ts, got), float(n * m * (3 * 4 + 2)),
+                     F32_OPS_PER_S)
+    say("kernel", name="heartbeat_eligible", shape=f"n={n},m={m},d=4",
+        bitwise=True, ms=round(ms, 6), plain_ms=round(plain, 6),
+        bound_ms=f"{b:.3e}")
+    report.append(dict(
+        name="heartbeat_eligible", route="cuda",
+        source="src/repro_torch/kernels/placement_scan/csrc/placement_scan.cu",
+        replaces="src/repro/kernels/placement_scan/kernel.py:159",
+        max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b, bound_by=by,
+        library_ms=None))
+
+
+def wave_work(args, kw, got) -> float:
+    """Operations one wave's data needs, from the kernel's own picks.
+
+    Replays the walk the kernel took (machines in visit order, pick
+    iterations on each) and counts, per iteration, the exact eligibility
+    test of every candidate still live and the score of every candidate
+    in the pool, plus each pick's state update.  Taken candidates need no
+    work.  Every pick the kernel made must be in the replayed pool, which
+    checks the replay against the kernel.
+    """
+    import numpy as np
+
+    (avail, order, dem, pri, srpt, gidx, loc, taken0, ema, deficit, share,
+     fd, rd, fg, consts) = [a.cpu().numpy() for a in args]
+    rows, mach = got[3].cpu().numpy(), got[4].cpu().numpy()
+    count = int(got[7])
+    d, G = dem.shape[1], len(deficit)
+    eps, slack, thresh = consts[0], consts[1], consts[4]
+    nf, nr, ng = int(fd.sum()), int(rd.sum()), int(fg.sum())
+    elig_ops = nf + nr + ng + 2                 # compares, then or/and
+    fit_ops = (2 * d + 1 if kw["use_packing"] else 1) + 3 + 1  # score, argmax
+    over_ops = fit_ops + 2 * ng + 4             # + overshoot penalty
+    pick_ops = 6 + 2 * G + 1 + 3 * d            # ema, ledger, local/row
+    taken = taken0.copy()
+    deficit = deficit.copy()
+    n_ops, j = 0, 0
+    for mid in order[order >= 0]:
+        if taken.all():
+            break
+        local = avail[mid].copy()
+        for _ in range(kw["bundle_limit"]):
+            live = ~taken
+            n_ops += int(live.sum()) * elig_ops + 2 * d   # + thresholds
+            thr = local + eps
+            fits = np.all((dem <= thr) | ~fd, axis=1)
+            over = np.zeros_like(fits)
+            if kw["use_overbooking"]:
+                over = (~fits & np.all((dem <= thr) | ~rd, axis=1)
+                        & np.all((dem <= local + slack + eps) | ~fg, axis=1))
+            elig = (fits | over) & live
+            gstar = int(np.argmax(deficit))
+            forced = elig & (gidx == gstar)
+            if forced.any() and deficit[gstar] >= thresh:
+                elig = forced
+            if not elig.any():
+                break
+            pool = elig & fits if (elig & fits).any() else elig
+            n_ops += int((pool & fits).sum()) * fit_ops \
+                + int((pool & ~fits).sum()) * over_ops
+            if j == count or mach[j] != mid:
+                break                           # no finite score: next machine
+            i = int(rows[j])
+            check(bool(pool[i]), "wave replay: a kernel pick outside the pool")
+            j += 1
+            n_ops += pick_ops
+            taken[i] = True
+            w = float(np.max(dem[i])) if kw["drf"] else 1.0
+            deficit = deficit + share * w
+            deficit[gidx[i]] -= w
+            local = np.clip(local - dem[i], 0.0, None)
+    check(j == count, f"wave replay reached {j} of {count} picks")
+    return float(n_ops)
+
+
+def kernel_wave(report: list) -> None:
+    import numpy as np
+    import torch
+
+    from repro_torch.core.engine import kernels as K
+    from repro_torch.core.engine import wave as W
+    from repro_torch.core.online import MatcherConfig
+    from repro_torch.core.shard import ShardedMatcher
+    from repro_torch.kernels.placement_scan import kernel, ref
+
+    batch, avail0, alive = s13_corpus()
+    m, d = avail0.shape
+    cfg = MatcherConfig()
+    shares = {0: 1.0, 1: 1.0}
+    sm = ShardedMatcher(cfg, m, shares, n_shards=1, capacity=float(m))
+    st = W.DeviceWaveState("cuda")
+    args, kw, _ = W.wave_launch_args(st, sm, batch, avail0, alive, "smoke")
+    got = kernel.match_wave_walk(*args, **kw)
+    want = ref.match_wave_walk(*args, **kw)
+    torch.cuda.synchronize()
+    err = 0.0
+    for a, b in zip(got, want):
+        a_np, b_np = a.cpu().numpy(), b.cpu().numpy()
+        check(a_np.tobytes() == b_np.tobytes(),
+              "match_wave_walk kernel != plain version")
+        a64, b64 = a_np.astype(np.float64), b_np.astype(np.float64)
+        same = (a64 == b64) | (np.isnan(a64) & np.isnan(b64))
+        with np.errstate(invalid="ignore"):
+            diff = np.where(same, 0.0, np.abs(a64 - b64))
+        err = max(err, float(np.max(diff, initial=0.0)))
+    count = int(got[7])
+    check(count > 0, "s13 wave picked nothing")
+    # the whole wave through the dispatch layer against the numpy oracle
+    picks = {}
+    for impl in ("numpy", "cuda"):
+        os.environ[K.KERNELS_ENV] = f"match_wave={impl}"
+        with K.use_device("cuda"), \
+                ShardedMatcher(cfg, m, shares, n_shards=1,
+                               capacity=float(m)) as smx:
+            av = avail0.copy()
+            out = []
+
+            def cb(gi, mm, av=av, out=out):
+                out.append((gi, mm))
+                av[mm] -= batch.dem[gi]
+
+            smx.match_wave(av, alive, batch, cb)
+            picks[impl] = (out, av.tobytes(), smx.matcher._ema_score,
+                           smx.matcher._ema_srpt,
+                           dict(smx.matcher.deficits.deficit))
+    os.environ.pop(K.KERNELS_ENV, None)
+    check(picks["cuda"] == picks["numpy"],
+          "cuda wave decisions != numpy wave decisions (s13)")
+    ms = cuda_time_ms(lambda: kernel.match_wave_walk(*args, **kw), 10, 1)
+    plain = cuda_time_ms(lambda: ref.match_wave_walk(*args, **kw), 1, 0)
+    n_ops = wave_work(args, kw, got)
+    in_out = nbytes(*[a for a in args if torch.is_tensor(a)], *got)
+    b, by = bound_ms(in_out, n_ops, F64_OPS_PER_S)
+    say("kernel", name="match_wave_walk", shape=f"m={m},n={len(batch)},d={d}",
+        bitwise=True, picks=count, ops=int(n_ops), ms=round(ms, 6),
+        plain_ms=round(plain, 6), bound_ms=f"{b:.3e}", bound_by=by)
+    report.append(dict(
+        name="match_wave_walk", route="cuda",
+        source="src/repro_torch/kernels/placement_scan/csrc/placement_scan.cu",
+        replaces="src/repro/kernels/placement_scan/kernel.py:102",
+        max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b, bound_by=by,
+        library_ms=None))
+
+
+# ----------------------------------------------------------------------
+# phases 3 and 4: the main path against its numpy-pinned twin
+# ----------------------------------------------------------------------
+
+def run_path(dags, mode: str, pin_numpy: bool):
+    from repro_torch.core.engine import kernels as K
+    from repro_torch.kernels.placement_scan import kernel
+    from repro_torch.sim import run_workload
+
+    if pin_numpy:
+        os.environ[K.KERNELS_ENV] = "all=numpy"
+    else:
+        os.environ.pop(K.KERNELS_ENV, None)
+    K.reset_profile()
+    kernel.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        res = run_workload(dags, "dagps", n_machines=N_MACHINES,
+                           interarrival=0.5, seed=SEED, build_machines=4,
+                           matcher_mode=mode, profile=True, device="cuda")
+    finally:
+        os.environ.pop(K.KERNELS_ENV, None)
+    wall = time.perf_counter() - t0
+    return res, wall, K.profile_snapshot(), kernel.launch_counts()
+
+
+def scan_shapes(summary: dict) -> dict:
+    """Scan launches per padded (m, W, L, g) shape over both main-path runs
+    (the ``scan.cuda.shape.*`` tallies of `kernels._scan_on`)."""
+    out: dict = {}
+    for run in summary.values():
+        for key, (calls, _secs) in run["profile"].items():
+            if key.startswith("scan.cuda.shape."):
+                m, W, L, g = (int(p[1:]) for p in key.split(".")[3:])
+                out[(m, W, L, g)] = out.get((m, W, L, g), 0) + calls
+    return out
+
+
+def decisions(res) -> dict:
+    return {"jcts": {str(j.job_id): repr(j.jct) for j in res.jobs},
+            "makespan": repr(res.makespan),
+            "jain_60": repr(res.jain_index(60.0, {0: 1.0}))}
+
+
+def main_path(mode: str, dags, need: tuple, summary: dict) -> dict:
+    res, wall, prof, launches = run_path(dags, mode, pin_numpy=False)
+    check(len(res.jobs) == len(dags),
+          f"{mode}: {len(res.jobs)} of {len(dags)} jobs completed")
+    bad = [k for k in prof if k.endswith(".demoted")]
+    check(not bad, f"{mode}: demotion: {bad}")
+    for key in need:
+        check(prof.get(key, (0, 0.0))[0] > 0, f"{mode}: {key} never ran")
+    if mode == "exact":
+        # the twin rebuilds every schedule with the numpy scan
+        from repro_torch.sim import clear_schedule_cache
+        clear_schedule_cache()
+    ref_res, ref_wall, ref_prof, _ = run_path(dags, mode, pin_numpy=True)
+    check(not any(k.split(".")[1] in ("cuda", "torch") for k in ref_prof
+                  if k.count(".") >= 1),
+          f"{mode}: the numpy-pinned twin dispatched a kernel")
+    mine, theirs = decisions(res), decisions(ref_res)
+    check(mine == theirs, f"{mode}: results differ from the numpy twin")
+    pt = {k: round(v, 4) for k, v in (res.phase_times or {}).items()}
+    scans = prof.get("scan.cuda", (0, 0.0))
+    waves = res.shard_stats["waves"]
+    secs = {k: round(v[1], 4) for k, v in prof.items() if v[1] > 0}
+    np_secs = {k: round(v[1], 4) for k, v in ref_prof.items() if v[1] > 0}
+    say(f"path:{mode}", jobs=len(res.jobs), identical_to_numpy=True,
+        wall_s=round(wall, 3), numpy_wall_s=round(ref_wall, 3),
+        scan_calls=scans[0], waves=waves,
+        phases=json.dumps(pt, separators=(",", ":")),
+        op_s=json.dumps(secs, separators=(",", ":")),
+        numpy_op_s=json.dumps(np_secs, separators=(",", ":")),
+        makespan=mine["makespan"], jain_60=mine["jain_60"])
+    summary[mode] = dict(
+        wall_s=wall, numpy_wall_s=ref_wall, phase_times=res.phase_times,
+        numpy_phase_times=ref_res.phase_times, scan_calls=scans[0],
+        scan_s=scans[1], waves=waves, launches=launches,
+        profile={k: list(v) for k, v in prof.items()},
+        numpy_profile={k: list(v) for k, v in ref_prof.items()},
+        makespan=mine["makespan"], jain_60=mine["jain_60"])
+    return launches
+
+
+def main() -> int:
+    try:
+        import torch
+    except ImportError:
+        print("chip_smoke: torch is not installed", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this script "
+              "runs only on a CUDA device", file=sys.stderr)
+        return 2
+    src = os.path.join(ROOT, "src")
+    if not os.path.isdir(os.path.join(src, "repro_torch")):
+        print(f"chip_smoke: no src/repro_torch beside {__file__}",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, src)
+    from repro_torch.kernels.placement_scan import kernel
+    from repro_torch.sim import clear_schedule_cache, online_mix_workload
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    name = torch.cuda.get_device_name(0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()
+    smi0 = smi[0] if smi else "nvidia-smi unavailable"
+    t0 = time.perf_counter()
+    path = kernel.build(verbose=True)
+    build_s = time.perf_counter() - t0
+    kernel.lib()
+    say("device", name=name, count=torch.cuda.device_count(),
+        build_s=round(build_s, 3), library=os.path.relpath(path, ROOT))
+    print(smi0, flush=True)
+
+    report: list = []
+    kernel_scan(report)
+    kernel_eligible(report)
+    kernel_wave(report)
+    say("kernels", names=",".join(r["name"] for r in report))
+
+    dags = online_mix_workload(N_JOBS, seed=SEED)
+    summary: dict = {}
+    clear_schedule_cache()
+    exact = main_path("exact", dags, ("scan.cuda", "match_wave.cuda"),
+                      summary)
+    # the routed pair reuses the (bit-identical) schedules phase 3 built
+    routed = main_path("routed", dags, ("machines_with_candidates.cuda",),
+                       summary)
+    launches = {k: exact[k] + routed[k] for k in exact}
+    for r in report:
+        r["launches"] = launches[r["name"]]
+        check(r["launches"] > 0, f"{r['name']} never launched on the path")
+    # the scan's line reports the case the path launched most often
+    shapes = scan_shapes(summary)
+    top = sorted(shapes.items(), key=lambda kv: -kv[1])
+    say("scan_shapes", launches=sum(shapes.values()),
+        top=json.dumps([[list(k), v] for k, v in top[:8]],
+                       separators=(",", ":")))
+    scan = report[0]
+    best = max(scan["cases"], key=lambda c: shapes.get(c["shape"], 0))
+    scan.update({k: best[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                      "bound_ms", "bound_by")})
+    scan["case"] = best["case"]
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    kernels_line = {"kernels": [{k: r[k] for k in keys} for r in report]}
+    out_dir = os.path.join(ROOT, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, "chip_smoke_report.json"), "w") as f:
+        json.dump({"device": name, "nvidia_smi": smi, "build_s": build_s,
+                   "n_jobs": N_JOBS, "n_machines": N_MACHINES,
+                   "kernels": report, "scan_shapes": [
+                       [list(k), v] for k, v in top], "paths": summary},
+                  f, indent=1, default=str)
+    print(json.dumps(kernels_line), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name,
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    try:
+        sys.exit(main())
+    except SmokeFailure as exc:
+        print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
+        sys.exit(1)

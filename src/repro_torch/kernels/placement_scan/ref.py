@@ -1,0 +1,174 @@
+"""Plain PyTorch versions of the three placement-scan kernels.
+
+Each function computes exactly what its CUDA kernel computes, with plain
+tensor ops on whatever device its inputs lie on.  The wrappers in
+``ops.py`` use them for CPU tensors; ``chip_smoke.py`` holds the kernels
+against them on the card.
+
+  * ``scan_bitmaps`` — feasible-start bitmaps: bit (g, w, machine) says
+    whether task g's demand fits the machine for ks[g] consecutive ticks
+    from window offset w, counting only ticks < t_live.
+  * ``heartbeat_eligible`` — sound-superset heartbeat eligibility over
+    directed-rounded float32 operands.
+  * ``match_wave_walk`` — one heartbeat wave: machines in host order, a
+    bundling loop of picks per machine, all in float64.
+
+The first two are integer/boolean pipelines over float32 comparisons; the
+wave repeats the numpy matcher's float64 ops one by one (PyTorch's CPU and
+CUDA elementwise kernels round each product before the add that consumes
+it), so all three are bit-identical to the reference implementations.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def scan_bitmaps(win: torch.Tensor, Vs: torch.Tensor, ks: torch.Tensor,
+                 t_live: int, W: int) -> torch.Tensor:
+    """win (m, L, d) f32; Vs (g, d) f32; ks (g,) i32 -> (g, W, m) int8.
+
+    Requires L >= W + max(ks) so every run read stays in bounds; ticks at
+    index >= t_live never count toward a run (grid-edge truncation).
+    """
+    m, L, _d = win.shape
+    g = Vs.shape[0]
+    dev = win.device
+    ok = (win[None, :, :, :] >= Vs[:, None, None, :]).all(dim=3)   # (g, m, L)
+    ok = ok & (torch.arange(L, device=dev) < int(t_live))[None, None, :]
+    cz = torch.zeros((g, m, L + 1), dtype=torch.int32, device=dev)
+    cz[:, :, 1:] = torch.cumsum(ok.to(torch.int32), dim=2, dtype=torch.int32)
+    ends = torch.arange(W, device=dev)[None, :] + ks.to(torch.int64)[:, None]
+    take = ends[:, None, :].expand(g, m, W)
+    run = torch.gather(cz, 2, take) - cz[:, :, :W]
+    good = run == ks[:, None, None]                                 # (g, m, W)
+    return good.transpose(1, 2).contiguous().to(torch.int8)         # (g, W, m)
+
+
+def heartbeat_eligible(dem32: torch.Tensor, thr_fit: torch.Tensor,
+                       thr_fung: torch.Tensor, fd_mask: torch.Tensor,
+                       rd_mask: torch.Tensor,
+                       gd_mask: torch.Tensor) -> torch.Tensor:
+    """dem32 (n, d); thr_* (m, d); *_mask (d,) f32 {0,1} -> (n, m) int8.
+
+    eligible = fits-on-all-fit-dims OR (rigid dims fit AND fungible dims
+    fit within slack); masked-out dims compare against +inf.
+    """
+    inf = torch.tensor(float("inf"), dtype=torch.float32, device=dem32.device)
+    tf = torch.where(fd_mask > 0, thr_fit, inf)[None, :, :]
+    tr = torch.where(rd_mask > 0, thr_fit, inf)[None, :, :]
+    tg = torch.where(gd_mask > 0, thr_fung, inf)[None, :, :]
+    dm = dem32[:, None, :]
+    fits = (dm <= tf).all(dim=2)
+    rigid = (dm <= tr).all(dim=2)
+    fung = (dm <= tg).all(dim=2)
+    return (fits | (rigid & fung)).to(torch.int8)
+
+
+#: consts vector layout (core/engine/wave.py _C_*): eps, overbook slack,
+#: remote penalty, eta_m, must-serve threshold, EMA step a, 1 - a, srpt floor
+_C_EPS, _C_SLACK, _C_RP, _C_ETA_M, _C_THRESH, _C_A, _C_1MA, _C_FLOOR = \
+    range(8)
+
+
+def match_wave_walk(avail, order, dem, pri, srpt, gidx, loc, taken0, ema,
+                    deficit, share, fd_mask, rd_mask, fg_mask, consts, *,
+                    bundle_limit: int, use_packing: bool, use_srpt: bool,
+                    use_overbooking: bool, drf: bool):
+    """One fused heartbeat wave, op for op the numpy matcher's wave.
+
+    Shapes: avail (m, d) f64; order (m,) i32 visit order, -1-padded (a
+    visit is decision-free for a machine the host would have skipped);
+    dem (n, d) f64 with pad rows pre-taken (taken0); pri/srpt (n,) f64;
+    gidx/loc (n,) i32; ema (2,) f64; deficit/share (G,) f64, deficit pads
+    -inf; masks (d,) bool; consts (8,) f64.
+
+    Returns (avail', ema', deficit', rows, machines, over, obs, count):
+    the pick list in pick order, each pick's observed score ``pri*base``
+    and the pick count as a 0-d int32 tensor.  Inputs are not modified.
+    """
+    dev = avail.device
+    f64 = torch.float64
+    n, d = dem.shape
+    avail = avail.clone()
+    taken = taken0.clone()
+    ema_s, ema_r = ema[0].clone(), ema[1].clone()
+    deficit = deficit.clone()
+    rows = torch.zeros(n, dtype=torch.int32, device=dev)
+    mach = torch.zeros(n, dtype=torch.int32, device=dev)
+    overf = torch.zeros(n, dtype=torch.int8, device=dev)
+    obs = torch.zeros(n, dtype=f64, device=dev)
+    c = consts
+    neg_inf = torch.tensor(float("-inf"), dtype=f64, device=dev)
+    zero = torch.zeros((), dtype=f64, device=dev)
+    fd, rd, fg = fd_mask[None, :], rd_mask[None, :], fg_mask[None, :]
+    cnt = 0
+    active = int((~taken).sum())
+    for mid in order.tolist():
+        if mid < 0 or active == 0:
+            break
+        row = avail[mid].clone()
+        local = row.clone()
+        rp = torch.where((loc >= 0) & (loc != mid), c[_C_RP],
+                         torch.ones((), dtype=f64, device=dev))
+        for _j in range(bundle_limit):
+            thr = local + c[_C_EPS]
+            fits = torch.where(fd, dem <= thr[None, :], True).all(dim=1)
+            if use_overbooking:
+                thr_g = (local + c[_C_SLACK]) + c[_C_EPS]
+                over = (~fits
+                        & torch.where(rd, dem <= thr[None, :], True).all(dim=1)
+                        & torch.where(fg, dem <= thr_g[None, :],
+                                      True).all(dim=1))
+            else:
+                over = torch.zeros(n, dtype=torch.bool, device=dev)
+            eligible = (fits | over) & ~taken
+            gstar = int(torch.argmax(deficit))
+            forced = eligible & (gidx == gstar)
+            if bool(deficit[gstar] >= c[_C_THRESH]) and bool(forced.any()):
+                eligible = forced
+            if not bool(eligible.any()):
+                break
+            if use_packing:
+                av = torch.clamp(local, min=0.0)
+                acc = dem[:, 0] * av[0]
+                for k in range(1, d):
+                    acc = acc + dem[:, k] * av[k]
+                dot = acc * rp
+            else:
+                dot = rp.expand(n)
+            overshoot = torch.clamp(
+                torch.where(fg, dem - local[None, :], neg_inf).amax(dim=1),
+                min=0.0)
+            base = torch.where(fits, dot,
+                               dot * torch.clamp(1.0 - overshoot, min=0.05))
+            if use_srpt:
+                eta = c[_C_ETA_M] * ema_s / torch.maximum(ema_r, c[_C_FLOOR])
+            else:
+                eta = zero
+            perf = pri * base - eta * srpt
+            pool_fit = eligible & fits
+            pool = pool_fit if bool(pool_fit.any()) else eligible
+            score = torch.where(pool, perf, neg_inf)
+            i = int(torch.argmax(score))
+            if not bool(torch.isfinite(score[i])):
+                break
+            obs_i = pri[i] * base[i]
+            w = dem[i].max() if drf else torch.ones((), dtype=f64, device=dev)
+            taken[i] = True
+            ema_s = c[_C_1MA] * ema_s + c[_C_A] * obs_i
+            ema_r = c[_C_1MA] * ema_r + c[_C_A] * torch.maximum(srpt[i],
+                                                                c[_C_FLOOR])
+            deficit = deficit + share * w
+            deficit[gidx[i]] += -w
+            local = torch.clamp(local - dem[i], min=0.0)
+            row = row - dem[i]
+            rows[cnt] = i
+            mach[cnt] = mid
+            overf[cnt] = over[i].to(torch.int8)
+            obs[cnt] = obs_i
+            cnt += 1
+            active -= 1
+        avail[mid] = row
+    return (avail, torch.stack([ema_s, ema_r]), deficit, rows, mach, overf,
+            obs, torch.tensor(cnt, dtype=torch.int32, device=dev))

@@ -1,0 +1,233 @@
+"""The port's CUDA kernels on a card, against their plain PyTorch versions.
+
+Every case is marked ``gpu`` and skips without a CUDA device: the kernels
+have no CPU mode.  This file imports only the port (no JAX, no reference
+package), so it also runs on a machine that has PyTorch and the CUDA
+toolkit alone:
+
+    PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
+
+Inputs are made from numpy seeds; every comparison is bitwise.
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core.engine import kernels as tk
+from repro_torch.core.engine import packing
+from repro_torch.core.engine import wave as twave
+from repro_torch.core.engine.base import ceil32
+from repro_torch.core.online import (CandidateBatch, MatcherConfig,
+                                     drf_fairness, slot_fairness)
+from repro_torch.core.shard import ShardedMatcher
+from repro_torch.kernels.placement_scan import ref as tref
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def kernel():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from repro_torch.kernels.placement_scan import kernel as k
+    return k
+
+
+def _grid(seed, m=4, T=160, d=4):
+    rng = np.random.default_rng(seed)
+    avail = rng.uniform(0.0, 1.0, (m, T, d)).astype(np.float32)
+    g = int(rng.integers(2, 33))
+    Vs = ceil32(rng.uniform(0.05, 0.7, (g, d)))
+    for _ in range(3 * T):                 # cells exactly at a demand
+        avail[rng.integers(m), rng.integers(T)] = Vs[rng.integers(g)]
+    ks = rng.integers(1, 129, g)
+    return avail, Vs, ks, rng
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_scan_kernel_matches_plain_and_numpy(kernel, seed):
+    avail, Vs, ks, rng = _grid(seed)
+    T = avail.shape[1]
+    plo = int(rng.integers(0, 16))
+    phi = int(rng.integers(plo + 8, T))
+    for rev in (False, True):
+        want = tk.scan_starts(avail, Vs, ks, plo, phi, rev)
+        for dev in ("cuda", "cpu"):
+            got = tk._scan_on(avail, Vs, ks, plo, phi, rev, device=dev)
+            assert got.tobytes() == want.tobytes(), (dev, rev)
+    # the kernel alone on an unpadded window: L = 160 >= W + max(ks)
+    win = torch.from_numpy(avail).cuda()
+    Vs_t = torch.from_numpy(Vs.astype(np.float32)).cuda()
+    ks_t = torch.from_numpy(np.minimum(ks, 32).astype(np.int32)).cuda()
+    assert torch.equal(kernel.scan_bitmaps(win, Vs_t, ks_t, 150, 128),
+                       tref.scan_bitmaps(win, Vs_t, ks_t, 150, 128))
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_heartbeat_kernel_matches_plain_and_is_superset(kernel, seed):
+    rng = np.random.default_rng(seed)
+    n, m = int(rng.integers(1, 600)), int(rng.integers(1, 3000))
+    avail = rng.uniform(-0.05, 1.0, (m, 4))
+    dem = rng.uniform(0.0, 0.9, (n, 4))
+    avail[0] = dem[0]
+    fd, rd, gd = np.arange(4), np.array([0, 1]), np.array([2, 3])
+    slack, ob = float(rng.uniform(0.0, 0.5)), bool(seed % 2)
+    args, _ = tk._eligibility_launch_args(avail, dem, fd, rd, gd, slack, ob)
+    ts = [torch.from_numpy(a).cuda() for a in (*args[:3], *args[3])]
+    got = kernel.heartbeat_eligible(*ts)
+    assert torch.equal(got, tref.heartbeat_eligible(*ts))
+    exact, _ = packing.machines_with_candidates(avail, dem, fd, rd, gd, slack,
+                                                ob)
+    assert (exact <= (got.cpu().numpy() != 0)).all()
+
+
+def _corpus(seed, m=None):
+    """A random wave: candidates, config, machine state, carried ledgers."""
+    rng = np.random.default_rng(seed)
+    n = int(rng.integers(1, 300))
+    m = m or int(rng.integers(5, 400))
+    n_groups = int(rng.integers(1, 4))
+    quant = rng.random() < 0.5            # coarse values force score ties
+    dem = rng.uniform(0.02, 0.6, (n, 4))
+    pri = rng.uniform(0.0, 2.0, n)
+    if quant:
+        dem = np.round(dem * 5) / 5 + 0.01
+        pri = np.round(pri, 1)
+    batch = CandidateBatch(
+        dem=dem, pri=pri, srpt=rng.uniform(0.5, 300.0, n),
+        grp=rng.integers(0, n_groups, n),
+        loc=np.where(rng.random(n) < 0.3, rng.integers(0, m, n), -1),
+        job=np.arange(n), tid=np.arange(n))
+    cfg = MatcherConfig(
+        eta_m=float(rng.choice([0.05, 0.2, 0.5])),
+        remote_penalty=float(rng.choice([0.5, 0.8, 1.0])),
+        kappa=float(rng.choice([0.02, 0.1, 10.0])),
+        max_overbook=float(rng.choice([1.0, 1.25, 1.5])),
+        fairness=drf_fairness if rng.random() < 0.5 else slot_fairness,
+        use_priority=bool(rng.random() < 0.8),
+        use_packing=bool(rng.random() < 0.8),
+        use_srpt=bool(rng.random() < 0.8),
+        use_overbooking=bool(rng.random() < 0.7),
+        bundle_limit=int(rng.choice([2, 8, 64])),
+        fit_dims=tuple(rng.choice(4, size=int(rng.integers(1, 5)),
+                                  replace=False).tolist()))
+    shares = {g: 1.0 for g in range(n_groups)}
+    avail0 = rng.uniform(0.0, 1.2, (m, 4))
+    alive = rng.random(m) < 0.9
+    ledger = [(int(rng.integers(n_groups)), float(rng.uniform(0.5, 2.0)))
+              for _ in range(int(rng.integers(0, 6)))]
+    return batch, cfg, shares, avail0, alive, ledger
+
+
+def _matcher(cfg, shares, m, ledger, n_shards=1):
+    sm = ShardedMatcher(cfg, m, shares, n_shards=n_shards, capacity=float(m))
+    for g, w in ledger:
+        sm.matcher.deficits.allocated(g, w)
+    return sm
+
+
+@pytest.mark.parametrize("seed", range(12))
+def test_wave_kernel_matches_plain(kernel, seed):
+    batch, cfg, shares, avail0, alive, ledger = _corpus(seed)
+    m = avail0.shape[0]
+    sm = _matcher(cfg, shares, m, ledger)
+    st = twave.DeviceWaveState("cuda")
+    args, kw, _ = twave.wave_launch_args(st, sm, batch, avail0, alive, "test")
+    got = kernel.match_wave_walk(*args, **kw)
+    want = tref.match_wave_walk(*args, **kw)
+    for g, w in zip(got, want):
+        assert g.cpu().numpy().tobytes() == w.cpu().numpy().tobytes(), seed
+
+
+@pytest.mark.parametrize("n_shards", [1, 2])
+def test_cuda_wave_matches_numpy_wave_over_carried_waves(kernel, n_shards,
+                                                         monkeypatch):
+    for seed in range(6):
+        batch, cfg, shares, avail0, alive, ledger = _corpus(100 + seed)
+        m = avail0.shape[0]
+        runs = {}
+        for impl in ("numpy", "cuda"):
+            monkeypatch.setenv(tk.KERNELS_ENV, f"match_wave={impl}")
+            sm = _matcher(cfg, shares, m, ledger, n_shards)
+            avail = avail0.copy()
+            picks = []
+
+            def cb(gi, mm, avail=avail, picks=picks):
+                picks.append((gi, mm))
+                avail[mm] -= batch.dem[gi]
+
+            with tk.use_device("cuda"), sm:
+                for _ in range(3):
+                    sm.match_wave(avail, alive, batch, cb)
+            runs[impl] = (picks, avail.tobytes(), sm.matcher._ema_score,
+                          sm.matcher._ema_srpt, sm.matcher.deficits.deficit)
+        assert runs["cuda"] == runs["numpy"], (seed, n_shards)
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_cuda_wave_unknown_group_and_custom_fairness(kernel, seed,
+                                                     monkeypatch):
+    """A group outside the ledger stays on the kernel (unpicked it changes
+    nothing, picked it raises the ledger's KeyError like the numpy wave);
+    a fairness function with no device form raises."""
+    batch, cfg, shares, avail0, alive, ledger = _corpus(200 + seed)
+    m = avail0.shape[0]
+    batch.grp[::3] = max(shares) + 5
+    for scale in (50.0, 1.0):
+        b = CandidateBatch(*(np.array(getattr(batch, f.name), copy=True)
+                             for f in dataclasses.fields(batch)))
+        b.dem[b.grp > max(shares)] *= scale
+        runs = {}
+        for impl in ("numpy", "cuda"):
+            monkeypatch.setenv(tk.KERNELS_ENV, f"match_wave={impl}")
+            sm = _matcher(cfg, shares, m, ledger)
+            avail = avail0.copy()
+            picks = []
+
+            def cb(gi, mm, avail=avail, picks=picks, b=b):
+                picks.append((gi, mm))
+                avail[mm] -= b.dem[gi]
+
+            with tk.use_device("cuda"), sm:
+                try:
+                    for _ in range(2):
+                        sm.match_wave(avail, alive, b, cb)
+                    runs[impl] = (picks, avail.tobytes(),
+                                  sm.matcher._ema_score,
+                                  sm.matcher.deficits.deficit)
+                except KeyError as exc:
+                    runs[impl] = ("KeyError", exc.args)
+        assert runs["cuda"] == runs["numpy"], (seed, scale)
+    monkeypatch.delenv(tk.KERNELS_ENV)
+    odd = dataclasses.replace(cfg, fairness=lambda dem: float(dem.sum()))
+    with tk.use_device("cuda"), _matcher(odd, shares, m, ledger) as sm:
+        with pytest.raises(NotImplementedError, match="fairness"):
+            sm.match_wave(avail0.copy(), alive, batch, lambda gi, mm: None)
+
+
+@pytest.mark.parametrize("mode", ["exact", "routed"])
+def test_sim_on_cuda_matches_numpy_pinned(kernel, mode, monkeypatch):
+    from repro_torch.sim import make_workload, run_workload
+
+    dags = make_workload("tpch", 4, seed=5)
+    out = {}
+    for pin in ("", "all=numpy"):
+        monkeypatch.setenv(tk.KERNELS_ENV, pin)
+        tk.reset_profile()
+        res = run_workload(dags, "dagps", n_machines=64, interarrival=2.0,
+                           seed=5, n_groups=2, matcher_shards=2,
+                           matcher_mode=mode, schedule_cache=False,
+                           device="cuda")
+        out[pin] = ({j.job_id: repr(j.jct) for j in res.jobs},
+                    repr(res.makespan))
+        prof = tk.profile_snapshot()
+        if not pin:
+            assert not any(k.endswith(".demoted") for k in prof)
+            assert prof["scan.cuda"][0] > 0
+            key = "match_wave.cuda" if mode == "exact" \
+                else "machines_with_candidates.cuda"
+            assert prof[key][0] > 0
+    assert out[""] == out["all=numpy"]

@@ -1,0 +1,86 @@
+"""The port stands alone and never runs on the CPU unasked.
+
+  * No module under ``src/repro_torch/`` and not ``chip_smoke.py`` imports
+    jax or anything of the reference package ``repro`` (an AST scan).
+  * ``device="cuda"`` without a CUDA device raises at every entry point,
+    and ``chip_smoke.py`` exits non-zero without printing a result, both
+    here and from a directory that holds nothing else of the repository.
+"""
+
+import ast
+import os
+import shutil
+import subprocess
+import sys
+
+import pytest
+import torch
+
+ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
+PORT = os.path.join(ROOT, "src", "repro_torch")
+SMOKE = os.path.join(ROOT, "chip_smoke.py")
+FORBIDDEN = ("jax", "jaxlib", "repro")
+
+
+def _sources():
+    out = [SMOKE]
+    for base, _dirs, files in os.walk(PORT):
+        out += [os.path.join(base, f) for f in files if f.endswith(".py")]
+    return sorted(out)
+
+
+def _imported_roots(path):
+    tree = ast.parse(open(path).read(), filename=path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield (node.module or "").split(".")[0]
+
+
+def test_port_imports_neither_jax_nor_reference():
+    files = _sources()
+    assert len(files) > 20, "the scan found too few port modules"
+    bad = {os.path.relpath(p, ROOT): sorted(set(_imported_roots(p))
+                                            & set(FORBIDDEN))
+           for p in files}
+    assert not {k: v for k, v in bad.items() if v}
+
+
+def _no_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: device='cuda' is valid here")
+
+
+def test_cuda_without_a_card_raises_at_every_entry_point():
+    _no_card()
+    from repro_torch.core import build_schedule
+    from repro_torch.launch import TPUJob, schedule_cluster
+    from repro_torch.sim import ClusterSim, SimConfig, make_workload, \
+        run_workload, scheme
+
+    dag = make_workload("tpch", 1, seed=0)[0]
+    with pytest.raises(RuntimeError, match="cuda"):
+        build_schedule(dag, 2)
+    with pytest.raises(RuntimeError, match="cuda"):
+        run_workload([dag], "dagps", n_machines=4)
+    with pytest.raises(RuntimeError, match="cuda"):
+        ClusterSim(SimConfig(n_machines=4), scheme("tez")).run([(0.0, dag, 0)])
+    with pytest.raises(RuntimeError, match="cuda"):
+        schedule_cluster([TPUJob("j", "a", [dict(seconds=5.0)])], n_slices=4)
+
+
+@pytest.mark.parametrize("where", ["repo", "alone"])
+def test_chip_smoke_refuses_without_a_card(where, tmp_path):
+    _no_card()
+    script = SMOKE
+    if where == "alone":
+        script = str(tmp_path / "chip_smoke.py")
+        shutil.copy(SMOKE, script)
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    proc = subprocess.run([sys.executable, script], capture_output=True,
+                          text=True, timeout=120, cwd=os.path.dirname(script),
+                          env=env)
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout

@@ -1,0 +1,137 @@
+"""The port's placement-scan ops against the reference package.
+
+``repro_torch.kernels.placement_scan`` has a CUDA kernel and a plain
+PyTorch version per op.  Here, on the CPU, the plain versions (and the
+dispatch adapters around them) are held bit for bit against the JAX
+package's Pallas kernels in interpret mode and against the numpy oracles
+(``tests/test_torch_gpu.py`` holds the kernels against the plain versions
+on a card).  Inputs come from numpy seeds and reach both packages as numpy
+arrays.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from repro.core.engine import kernels as jk
+from repro.core.engine import packing as jpacking
+from repro.kernels.placement_scan import ops as jops
+
+from repro_torch.core.engine import kernels as tk
+from repro_torch.core.engine import packing as tpacking
+from repro_torch.core.engine.base import ceil32
+from repro_torch.kernels.placement_scan import ops as tops
+from repro_torch.kernels.placement_scan import ref as tref
+
+# the tensors here are tiny: one intra-op thread is several times
+# faster than a pool, and leaves the other test workers their cores
+torch.set_num_threads(1)
+
+FD, RD, GD = np.arange(4), np.array([0, 1]), np.array([2, 3])
+
+
+def _grid(seed, m=3, T=64, d=4):
+    """A float32 grid with cells planted exactly at ceil32 demands."""
+    rng = np.random.default_rng(seed)
+    avail = rng.uniform(0.0, 1.0, (m, T, d)).astype(np.float32)
+    g = int(rng.integers(2, 10))
+    Vs = ceil32(rng.uniform(0.05, 0.7, (g, d)))
+    for _ in range(3 * T):
+        avail[rng.integers(m), rng.integers(T)] = Vs[rng.integers(g)]
+    ks = rng.integers(1, 12, g)
+    return avail, Vs, ks, rng
+
+
+def _padded(seed):
+    avail, Vs, ks, rng = _grid(seed)
+    m, T, d = avail.shape
+    W, L = 48, 96
+    win = np.full((m, L, d), -1.0, dtype=np.float32)
+    win[:, :T] = avail
+    return (win, Vs.astype(np.float32), ks.astype(np.int32),
+            int(rng.integers(T // 2, T + 1)), W)
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_scan_ref_matches_pallas_interpret(seed):
+    win, Vs, ks, t_live, W = _padded(seed)
+    want = np.asarray(jops.scan_bitmaps(win, Vs, ks, np.int32(t_live), W=W))
+    got = tref.scan_bitmaps(torch.from_numpy(win), torch.from_numpy(Vs),
+                            torch.from_numpy(ks), t_live, W).numpy()
+    assert got.dtype == np.int8 and got.shape == want.shape
+    assert got.tobytes() == want.astype(np.int8).tobytes()
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_scan_dispatch_matches_numpy_and_pallas(seed):
+    """The torch impl (padding, ceil32, reverse flip) ≡ scan_starts ≡ the
+    reference's pallas adapter, on grids with cells exactly at ceil32."""
+    avail, Vs, ks, rng = _grid(seed)
+    T = avail.shape[1]
+    plo = int(rng.integers(0, 8))
+    phi = int(rng.integers(plo + 4, T))
+    for rev in (False, True):
+        want = jk.scan_starts(avail, Vs, ks, plo, phi, rev)
+        assert np.array_equal(tk.scan_starts(avail, Vs, ks, plo, phi, rev),
+                              want)
+        got = tk._scan_on(avail, Vs, ks, plo, phi, rev, device="cpu")
+        assert got.tobytes() == want.tobytes()
+        pal = jk._scan_pallas(avail, Vs, ks, plo, phi, rev)
+        assert got.tobytes() == pal.tobytes()
+
+
+def _elig_state(seed, n=12, m=20, d=4):
+    rng = np.random.default_rng(seed)
+    avail = rng.uniform(-0.05, 1.0, (m, d))
+    dem = rng.uniform(0.0, 0.9, (n, d))
+    avail[0, 0] = dem[0, 0]              # an exact boundary pair
+    return avail, dem, float(rng.uniform(0.0, 0.5)), bool(rng.integers(0, 2))
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_heartbeat_eligible_ref_matches_pallas_interpret(seed):
+    avail, dem, slack, ob = _elig_state(seed)
+    args, _ = tk._eligibility_launch_args(avail, dem, FD, RD, GD, slack, ob)
+    want = np.asarray(jops.heartbeat_eligible(*args[:3], *args[3]))
+    got = tref.heartbeat_eligible(*[torch.from_numpy(a) for a in
+                                    (*args[:3], *args[3])]).numpy()
+    assert got.tobytes() == want.astype(np.int8).tobytes()
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_heartbeat_superset_of_exact_eligibility(seed):
+    avail, dem, slack, ob = _elig_state(100 + seed)
+    exact, any_exact = tpacking.machines_with_candidates(
+        avail, dem, FD, RD, GD, slack, ob)
+    ref_exact, _ = jpacking.machines_with_candidates(avail, dem, FD, RD, GD,
+                                                     slack, ob)
+    assert np.array_equal(exact, ref_exact)
+    sup, any_sup = tk._machines_with_candidates_on(
+        avail, dem, FD, RD, GD, slack, ob, device="cpu")
+    assert (exact <= sup).all(), "dropped an exactly eligible pair"
+    assert (any_exact <= any_sup).all()
+    pal, _ = jk._machines_with_candidates_pallas(avail, dem, FD, RD, GD,
+                                                 slack, ob)
+    assert np.array_equal(sup, pal)
+
+
+def test_ops_reject_other_devices():
+    t = torch.zeros((1, 4, 1), device="meta")
+    with pytest.raises(ValueError):
+        tops.scan_bitmaps(t, t, t, 1, W=1)
+
+
+def test_dispatch_device_rule_and_pins(monkeypatch):
+    """cpu -> torch impls; a pin wins; numpy-only ops stay numpy."""
+    monkeypatch.delenv(tk.KERNELS_ENV, raising=False)
+    with tk.use_device("cpu"):
+        act = tk.active()
+        assert act["scan"] == act["machines_with_candidates"] \
+            == act["match_wave"] == "torch"
+        for op in tk.EXPLICIT_ONLY:
+            assert act[op] == "numpy"
+        monkeypatch.setenv(tk.KERNELS_ENV, "all=numpy")
+        assert set(tk.active().values()) == {"numpy"}
+        monkeypatch.setenv(tk.KERNELS_ENV, "scan=xla")
+        with pytest.raises(ValueError):
+            tk.resolve("scan")

@@ -1,0 +1,135 @@
+"""The port's main path as a whole, on the CPU, against the reference.
+
+The simulator run end to end on ``device="cpu"`` (the kernels' plain torch
+versions) must reproduce the committed goldens and the reference package's
+own runs to the last bit: JCTs, makespan and Jain index by ``repr``,
+placements by ``==``.  The builder reproduces ``golden_builder.json``, DAG
+digests match the reference byte for byte, and an injected ``kernel_impl``
+fault demotes an implementation without changing a decision.
+"""
+
+import json
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from repro.core.dag import dag_digest as j_digest
+from repro.sim import make_workload as j_make_workload
+from repro.sim import run_workload as j_run_workload
+
+from repro_torch.core import build_schedule
+from repro_torch.core.dag import dag_digest, dag_from_arrays
+from repro_torch.core.engine import kernels as tk
+from repro_torch.launch import TPUJob, schedule_cluster
+from repro_torch.sim import make_workload, run_workload
+from repro_torch.sim.workload import production_dag, query_dag
+
+# the tensors here are tiny: one intra-op thread is several times
+# faster than a pool, and leaves the other test workers their cores
+torch.set_num_threads(1)
+
+DATA = os.path.join(os.path.dirname(__file__), "data")
+
+
+def _port(dags):
+    return [dag_from_arrays(d.duration, d.demand, d.stage_of, d.parents,
+                            d.name) for d in dags]
+
+
+def _decisions(res):
+    return ({str(j.job_id): repr(j.jct) for j in res.jobs},
+            repr(res.makespan), repr(res.jain_index(60.0, {0: 1.0, 1: 1.0})),
+            res.placements)
+
+
+@pytest.mark.parametrize("name,bench,n,sch,kw", [
+    ("tpch_tez", "tpch", 8, "tez",
+     dict(n_machines=10, interarrival=8.0, seed=3)),
+    ("prod_tetris", "production", 6, "tez+tetris",
+     dict(n_machines=10, interarrival=6.0, seed=5)),
+    ("prod_churn", "production", 5, "dagps",
+     dict(n_machines=10, interarrival=5.0, seed=9, failure_rate=1 / 150.0,
+          repair_time=60.0, straggle_prob=0.08, straggle_factor=(4.0, 8.0))),
+])
+def test_golden_sim_on_cpu(name, bench, n, sch, kw):
+    golden = json.load(open(os.path.join(DATA, "golden_sim.json")))[name]
+    tk.reset_profile()
+    res = run_workload(make_workload(bench, n, seed=kw["seed"]), sch,
+                       device="cpu", **kw)
+    assert {str(j.job_id): repr(j.jct) for j in res.jobs} == golden["jcts"]
+    assert repr(res.makespan) == golden["makespan"]
+    assert repr(res.jain_index(60.0, {0: 1.0, 1: 1.0})) == golden["jain_60"]
+    assert res.speculative_launches == golden["spec"]
+    assert res.failed_tasks_requeued == golden["requeued"]
+    prof = tk.profile_snapshot()
+    assert prof["match_wave.torch"][0] > 0      # the plain wave really ran
+    if sch == "dagps":
+        assert prof["scan.torch"][0] > 0
+
+
+@pytest.mark.parametrize("name", ["production-0", "production-7", "tpcds-0"])
+def test_golden_builder_on_cpu(name):
+    golden = {e["name"]: e for e in json.load(
+        open(os.path.join(DATA, "golden_builder.json")))["entries"]}[name]
+    kind, seed = name.split("-")
+    rng = np.random.default_rng(int(seed))
+    dag = (production_dag(rng, scale=0.35, share=3) if kind == "production"
+           else query_dag(rng, preset="tpcds"))
+    s = build_schedule(dag, golden["m"], ticks=golden["ticks"], device="cpu")
+    assert s.tick == golden["tick"]
+    assert [float(x) for x in s.start] == golden["start"]
+    assert [int(x) for x in s.machine] == golden["machine"]
+
+
+def test_dag_digest_matches_reference():
+    for bench in ("production", "tpcds", "tpch", "periodic", "workflow"):
+        ref_dags = j_make_workload(bench, 3, seed=17)
+        for rd, pd in zip(ref_dags, make_workload(bench, 3, seed=17)):
+            assert dag_digest(pd) == j_digest(rd)
+        for rd, pd in zip(ref_dags, _port(ref_dags)):
+            assert dag_digest(pd) == j_digest(rd)
+
+
+@pytest.mark.parametrize("mode", ["exact", "routed"])
+def test_sim_matches_reference_run(mode):
+    ref_dags = j_make_workload("tpch", 5, seed=11)
+    kw = dict(n_machines=8, interarrival=5.0, seed=11, n_groups=2,
+              matcher_shards=2, matcher_mode=mode, record_placements=True)
+    want = _decisions(j_run_workload(ref_dags, "dagps", **kw))
+    tk.reset_profile()
+    got = _decisions(run_workload(_port(ref_dags), "dagps", device="cpu",
+                                  **kw))
+    assert got == want
+    key = "match_wave.torch" if mode == "exact" \
+        else "machines_with_candidates.torch"
+    assert tk.profile_snapshot()[key][0] > 0
+
+
+def test_injected_kernel_fault_demotes_decision_exactly():
+    dags = make_workload("tpch", 3, seed=2)
+    kw = dict(n_machines=6, interarrival=5.0, seed=2, device="cpu")
+    healthy = run_workload(dags, "dagps", **kw)
+    try:
+        faulty = run_workload(
+            dags, "dagps",
+            fault_plan="seed=1;kernel_impl:raise@1,impl=torch,count=2", **kw)
+    finally:
+        tk.reset_demotions()
+    assert _decisions(faulty)[:3] == _decisions(healthy)[:3]
+    demoted = faulty.fault_stats["kernel_demotions"]
+    assert sum(demoted.values()) == 2
+    assert all(k.endswith(".torch.demoted") for k in demoted)
+
+
+def test_unported_options_raise():
+    dags = make_workload("production", 1, seed=0)
+    with pytest.raises(NotImplementedError, match="build service"):
+        run_workload(dags, "dagps", n_machines=4, build_workers=2,
+                     device="cpu")
+    job = TPUJob("j", "arch", [dict(seconds=10.0)])
+    with pytest.raises(NotImplementedError, match="svc"):
+        schedule_cluster([job], n_slices=4, serve=True, device="cpu")
+    res = schedule_cluster([job], n_slices=4, device="cpu")
+    assert len(res.jobs) == 1
