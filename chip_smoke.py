@@ -1,25 +1,40 @@
-"""Drive the PyTorch/CUDA port of the DAGPS scheduler on one GPU.
+"""Drive the PyTorch/CUDA port on one GPU: the DAGPS scheduler's main path
+and the recurrentgemma-2b serving path.
 
 Run from the repository root with no arguments:
 
     python3 chip_smoke.py
 
-It needs one CUDA device and the CUDA toolkit (``nvcc``); it builds the
-placement-scan kernels from ``src/repro_torch/kernels/placement_scan/csrc``
-itself.  Phases, each printing its own lines:
+It needs one CUDA device and the CUDA toolkit (``nvcc``); it builds every
+kernel family of ``src/repro_torch/kernels/*/csrc`` itself, one ``nvcc``
+per source, all started together.  Phases, each printing its own lines:
 
   1. device: name, power limit, kernel build time;
-  2. each kernel against its plain PyTorch version on the card, bitwise, at
-     main-path shapes, with CUDA-event times for both;
-  3. the main path in exact mode: ``run_workload`` of 48 online-mix jobs on
-     2048 machines through the cuda kernels, against its numpy-pinned twin
-     (every JCT, the makespan and the Jain index equal to the last bit);
-  4. the same population in routed mode against its numpy-pinned twin.
+  2. each scheduler kernel against its plain PyTorch version on the card,
+     bitwise, at main-path shapes, with CUDA-event times for both;
+  3. the scheduler's main path in exact mode: ``run_workload`` of 48
+     online-mix jobs on 2048 machines through the cuda kernels, against its
+     numpy-pinned twin (every JCT, the makespan and the Jain index equal to
+     the last bit);
+  4. the same population in routed mode against its numpy-pinned twin;
+  5. the LM kernels (flash attention, RG-LRU scan) against their plain
+     versions on the card at the serving path's shapes, plus a ragged and a
+     soft-capped non-causal flash case: flash within 2e-2 (bf16) / 2e-5
+     (f32), rg_lru bitwise; CUDA-event times of kernel, plain version and,
+     for flash, ``scaled_dot_product_attention``;
+  6. full-width recurrentgemma-2b (random bf16 weights from a seeded
+     generator on the card): ``greedy_generate`` on 4 prompts of 4,096
+     tokens, 32 new tokens, against its twin pinned to the plain versions
+     (``REPRO_LM_KERNELS=plain``): last-position prefill logits within
+     the stated tolerance, token agreement, launches, wall times;
+  7. ``Batcher.serve`` at full width: 12 prompts of 64 tokens, 16 new
+     tokens each, 8 slots, ``max_seq`` 1024 (local caches are rings).
 
 Any failed phase exits non-zero before the result line.  The last line is
 ``{"ok": true, "device": {...}}``; the line before it lists every kernel
-with its launches on the main path, error, times and bound.  A fuller
-report goes to ``chiprun_out/chip_smoke_report.json``.
+with its launches on the paths, error, times and bound.  A fuller JSON
+report (every case, per-path launches and timings) is written under the
+output directory named in ``main``.
 """
 
 from __future__ import annotations
@@ -36,6 +51,20 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12          # float32 outside the tensor cores
 F64_OPS_PER_S = 34e12          # float64 outside the tensor cores
+BF16_OPS_PER_S = 989e12        # bf16 on the tensor cores
+
+#: the serving path (recurrentgemma-2b full width)
+LM_ARCH = "recurrentgemma_2b"
+GEN_B, GEN_S, GEN_NEW = 4, 4096, 32
+SERVE_B, SERVE_MAX_SEQ, SERVE_N, SERVE_PROMPT, SERVE_NEW = 8, 1024, 12, 64, 16
+#: max |logit| difference, kernel path against its plain twin, on the last
+#: prefill position (logits have a standard deviation of about 1 here):
+#: bf16 keeps 8 significant bits and the two paths round in other places
+#: (the flash kernel rounds its softmax weights to bf16 for the tensor
+#: cores and sums in another order), which after 26 residual layers moves
+#: logits by a few hundredths; a wrong mask, head or state moves them by
+#: O(1)
+LOGIT_TOL_MAX, LOGIT_TOL_MEAN = 0.25, 0.05
 
 N_JOBS = 48
 N_MACHINES = 2048
@@ -440,6 +469,381 @@ def main_path(mode: str, dags, need: tuple, summary: dict) -> dict:
     return launches
 
 
+# ----------------------------------------------------------------------
+# phase 5: the LM kernels against their plain versions
+# ----------------------------------------------------------------------
+
+#: flash cases: (label, (B, Sq, Sk, H, KV, hd), dtype, opts); the first is
+#: the shape of the 8 local layers' prefill at B=4, S=4096
+FLASH_CASES = (
+    ("path", (GEN_B, GEN_S, GEN_S, 10, 1, 256), "bfloat16",
+     dict(causal=True, window=2048)),
+    ("ragged", (2, 1000, 1000, 10, 1, 256), "bfloat16",
+     dict(causal=True, window=300)),
+    ("cap_noncausal", (2, 777, 1000, 4, 2, 64), "float32",
+     dict(causal=False, cap=30.0)),
+)
+
+
+def flash_case(label, shape, dtype, opts, seed):
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import kernel, ref
+
+    B, Sq, Sk, H, KV, hd = shape
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v = (torch.randn(s, generator=gen, device="cuda").to(dt)
+               for s in ((B, Sq, H, hd), (B, Sk, KV, hd), (B, Sk, KV, hd)))
+    got = kernel.flash_attention(q, k, v, **opts)
+    want = ref.attention(q, k, v, **opts)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(got).all()), f"flash {label}: non-finite output")
+    tol = 2e-2 if dtype == "bfloat16" else 2e-5
+    diff = (got.float() - want.float()).abs()
+    err = float(diff.max())
+    ok = bool((diff <= tol + tol * want.float().abs()).all())
+    check(ok, f"flash {label}: kernel differs from plain by {err} "
+              f"(tolerance {tol} abs + {tol} rel)")
+    row = dict(case=label, shape=shape, dtype=dtype, opts=opts,
+               max_abs_err=err, tol=tol)
+    if label == "path":
+        mask = ref.live_mask(Sq, Sk, causal=opts.get("causal", True),
+                             window=opts.get("window"), device="cuda")
+        live = int(mask.sum())
+        ms = cuda_time_ms(lambda: kernel.flash_attention(q, k, v, **opts), 10)
+        plain = cuda_time_ms(lambda: ref.attention(q, k, v, **opts), 3, 1)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+
+        def sdpa():
+            return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                                  enable_gqa=True)
+        lib_err = float((sdpa().transpose(1, 2).float()
+                         - want.float()).abs().max())
+        lib = cuda_time_ms(sdpa, 10)
+        # each live (q, k) pair: a dot product and a weighted sum over hd
+        n_ops = float(live) * 4 * hd * B * H
+        b, by = bound_ms(nbytes(q, k, v, got), n_ops, BF16_OPS_PER_S)
+        row.update(live_pairs=live, ms=ms, plain_ms=plain, library_ms=lib,
+                   library_err=lib_err, bound_ms=b, bound_by=by)
+    say("kernel", name="flash_attention", case=label,
+        shape="B={},Sq={},Sk={},H={},KV={},hd={}".format(*shape),
+        dtype=dtype, opts=json.dumps(opts, separators=(",", ":")),
+        max_abs_err=f"{err:.3e}", tol=tol,
+        **{k: (round(row[k], 6) if isinstance(row[k], float) else row[k])
+           for k in ("ms", "plain_ms", "library_ms", "live_pairs") if k in row})
+    return row
+
+
+def kernel_flash(report: list) -> None:
+    cases = [flash_case(*c, seed=21 + i) for i, c in enumerate(FLASH_CASES)]
+    path = cases[0]
+    report.append(dict(
+        name="flash_attention", route="cuda",
+        source="src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention/kernel.py:84",
+        cases=cases, **{k: path[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                            "bound_ms", "bound_by",
+                                            "library_ms")}))
+
+
+def rglru_case(label, B, S, D, seed):
+    import torch
+
+    from repro_torch.kernels.rg_lru import kernel, ref
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((B, S, D), generator=gen, device="cuda")
+    a = torch.rand((B, S, D), generator=gen, device="cuda") * 0.5 + 0.499
+    h0 = torch.randn((B, D), generator=gen, device="cuda")
+    y, hT = kernel.rglru_scan(x, a, h0)
+    y2, hT2 = ref.rglru_scan(x, a, h0)
+    torch.cuda.synchronize()
+    check(torch.equal(y, y2) and torch.equal(hT, hT2),
+          f"rglru_scan {label}: kernel != plain version (bitwise)")
+    ms = cuda_time_ms(lambda: kernel.rglru_scan(x, a, h0), 20)
+    plain = cuda_time_ms(lambda: ref.rglru_scan(x, a, h0), 2, 1)
+    # one multiply and one add per element
+    b, by = bound_ms(nbytes(x, a, h0, y, hT), 2.0 * B * S * D, F32_OPS_PER_S)
+    say("kernel", name="rglru_scan", case=label, shape=f"B={B},S={S},D={D}",
+        bitwise=True, ms=round(ms, 6), plain_ms=round(plain, 6),
+        bound_ms=f"{b:.3e}", bound_by=by)
+    return dict(case=label, shape=(B, S, D), max_abs_err=0.0, ms=ms,
+                plain_ms=plain, bound_ms=b, bound_by=by)
+
+
+def kernel_rglru(report: list) -> None:
+    cases = [rglru_case("prefill", GEN_B, GEN_S, 2560, 31),
+             rglru_case("decode", GEN_B, 1, 2560, 32)]
+    report.append(dict(
+        name="rglru_scan", route="cuda",
+        source="src/repro_torch/kernels/rg_lru/csrc/rg_lru.cu",
+        replaces="src/repro/kernels/rg_lru/kernel.py:47",
+        library_ms=None, cases=cases, **{k: cases[0][k] for k in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")}))
+
+
+# ----------------------------------------------------------------------
+# phases 6 and 7: full-width recurrentgemma-2b serving
+# ----------------------------------------------------------------------
+
+def lm_launches() -> dict:
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.rg_lru import kernel as rk
+    return {**fk.launch_counts(), **rk.launch_counts()}
+
+
+def lm_reset() -> None:
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.rg_lru import kernel as rk
+    fk.reset_launches()
+    rk.reset_launches()
+
+
+def set_pin(plain: bool) -> None:
+    from repro_torch.kernels import pin
+    if plain:
+        os.environ[pin.PIN_ENV] = "plain"
+    else:
+        os.environ.pop(pin.PIN_ENV, None)
+
+
+def full_model():
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.models import model as M
+
+    cfg = configs.get(LM_ARCH)
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    params = M.init_params(cfg, gen, device="cuda", dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    n = sum(t.numel() for t in [params["embed"], params["final_ln"]]) + sum(
+        t.numel() for bp in params["layers"] for t in _leaves(bp))
+    return cfg, params, n, time.perf_counter() - t0
+
+
+def _leaves(node):
+    if isinstance(node, dict):
+        for v in node.values():
+            yield from _leaves(v)
+    else:
+        yield node
+
+
+def generate_run(cfg, params, prompt, plain: bool) -> dict:
+    import torch
+
+    from repro_torch.models import model as M
+    from repro_torch.serve import greedy_generate
+
+    from repro_torch.serve import engine
+
+    # time each decode step of greedy_generate (synchronized on both sides)
+    make_step, step_s = engine.make_decode_fn, []
+
+    def timed_make(c):
+        step = make_step(c)
+
+        def timed(*args):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = step(*args)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t)
+            return out
+        return timed
+
+    set_pin(plain)
+    engine.make_decode_fn = timed_make
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, _ = M.prefill(params, cfg, {"tokens": prompt}, last_only=True)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        lm_reset()
+        t0 = time.perf_counter()
+        toks = greedy_generate(params, cfg, prompt, GEN_NEW, device="cuda")
+        torch.cuda.synchronize()
+        gen_s = time.perf_counter() - t0
+        launches = lm_launches()
+    finally:
+        engine.make_decode_fn = make_step
+        set_pin(False)
+    check(len(step_s) == GEN_NEW, f"{len(step_s)} decode steps timed")
+    check(tuple(logits.shape) == (GEN_B, 1, cfg.vocab_padded)
+          and bool(torch.isfinite(logits).all()),
+          f"prefill logits: shape {tuple(logits.shape)} or non-finite")
+    check(tuple(toks.shape) == (GEN_B, GEN_NEW)
+          and bool(((toks >= 0) & (toks < cfg.vocab)).all()),
+          "generated tokens out of shape or range")
+    return dict(logits=logits.float(), tokens=toks.cpu(), prefill_s=prefill_s,
+                generate_s=gen_s, step_ms=[t * 1e3 for t in step_s],
+                launches=launches)
+
+
+def decode_turns(cfg, params, prompt, rounds: int = 6) -> dict:
+    """Decode steps through the kernels and through the plain versions in
+    turns (kernels, plain, plain, kernels, ...) on one decode state, so both
+    sides see the same host and card.  Returns each side's synchronized
+    step times and the host time spent inside the rg_lru op per step."""
+    import torch
+
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+    from repro_torch.serve import pad_prefill_state
+
+    _, state = M.prefill(params, cfg, {"tokens": prompt}, last_only=True)
+    state = pad_prefill_state(cfg, state, GEN_S + 4 * rounds)
+    scan, in_scan = L.rglru_scan, [0.0]
+
+    def timed_scan(*args):
+        t = time.perf_counter()
+        out = scan(*args)
+        in_scan[0] += time.perf_counter() - t
+        return out
+
+    tok = prompt[:, -1:]
+    pos = torch.full((GEN_B,), GEN_S, dtype=torch.long, device="cuda")
+    out = {"kernels": ([], []), "plain": ([], [])}
+    L.rglru_scan = timed_scan
+    try:
+        for plain in (False, True, True, False) * rounds:
+            set_pin(plain)
+            in_scan[0] = 0.0
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            logits, state = M.decode_step(params, cfg, state, tok, pos)
+            torch.cuda.synchronize()
+            step, host = out["plain" if plain else "kernels"]
+            step.append((time.perf_counter() - t) * 1e3)
+            host.append(in_scan[0] * 1e3)
+            tok = logits[:, -1:].argmax(-1)
+            pos = pos + 1
+    finally:
+        L.rglru_scan = scan
+        set_pin(False)
+    return {side: dict(step_ms=steps, scan_host_ms=host,
+                       step_ms_median=sorted(steps)[len(steps) // 2],
+                       scan_host_ms_median=sorted(host)[len(host) // 2])
+            for side, (steps, host) in out.items()}
+
+
+def lm_generate(cfg, params, summary: dict) -> dict:
+    import torch
+
+    n_local = sum(m == "local" for m, _ in cfg.layer_plan)
+    n_rec = sum(m == "rglru" for m, _ in cfg.layer_plan)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    prompt = torch.randint(0, cfg.vocab, (GEN_B, GEN_S), generator=gen,
+                           device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    kern = generate_run(cfg, params, prompt, plain=False)
+    peak = torch.cuda.max_memory_allocated()
+    twin = generate_run(cfg, params, prompt, plain=True)
+    turns = decode_turns(cfg, params, prompt)
+    say("lm:decode_turns", order="kernels,plain,plain,kernels x6",
+        step_ms_median=round(turns["kernels"]["step_ms_median"], 3),
+        twin_step_ms_median=round(turns["plain"]["step_ms_median"], 3),
+        rglru_host_ms_per_step=round(turns["kernels"]["scan_host_ms_median"],
+                                     3),
+        twin_rglru_host_ms_per_step=round(
+            turns["plain"]["scan_host_ms_median"], 3))
+    want = {"flash_attention": n_local, "rglru_scan": n_rec * (1 + GEN_NEW)}
+    check(kern["launches"] == want,
+          f"generate launches {kern['launches']}, expected {want}")
+    check(not any(twin["launches"].values()),
+          f"the plain-pinned twin launched kernels: {twin['launches']}")
+    diff = (kern["logits"] - twin["logits"]).abs()
+    d_max, d_mean = float(diff.max()), float(diff.mean())
+    check(d_max <= LOGIT_TOL_MAX and d_mean <= LOGIT_TOL_MEAN,
+          f"prefill logits differ from the plain twin: max {d_max} "
+          f"(tol {LOGIT_TOL_MAX}), mean {d_mean} (tol {LOGIT_TOL_MEAN})")
+    same = kern["tokens"] == twin["tokens"]
+    per_step = [int(c) for c in same.sum(0)]
+    first_miss = [int(r.logical_not().nonzero()[0]) if not bool(r.all())
+                  else None for r in same]
+    argmax_same = bool(torch.equal(kern["logits"].argmax(-1),
+                                   twin["logits"].argmax(-1)))
+    out = {}
+    for tag, r in (("kernels", kern), ("plain_twin", twin)):
+        ms = sorted(r["step_ms"])
+        out[tag] = dict(prefill_s=r["prefill_s"], generate_s=r["generate_s"],
+                        decode_step_ms=ms[len(ms) // 2],
+                        decode_step_ms_mean=sum(ms) / len(ms),
+                        decode_step_ms_all=r["step_ms"],
+                        launches=r["launches"])
+    say("lm:generate", arch=LM_ARCH, B=GEN_B, S0=GEN_S, n_new=GEN_NEW,
+        pin="REPRO_LM_KERNELS=plain (twin)",
+        logits_max_abs_diff=f"{d_max:.4e}",
+        logits_mean_abs_diff=f"{d_mean:.4e}",
+        tol=f"{LOGIT_TOL_MAX}/{LOGIT_TOL_MEAN}", first_token_same=argmax_same,
+        tokens_same_per_step=",".join(map(str, per_step)),
+        first_divergence=first_miss,
+        prefill_s=round(kern["prefill_s"], 4),
+        twin_prefill_s=round(twin["prefill_s"], 4),
+        generate_s=round(kern["generate_s"], 4),
+        twin_generate_s=round(twin["generate_s"], 4),
+        decode_step_ms_median=round(out["kernels"]["decode_step_ms"], 3),
+        twin_decode_step_ms_median=round(
+            out["plain_twin"]["decode_step_ms"], 3),
+        launches=json.dumps(kern["launches"], separators=(",", ":")),
+        twin_launches=json.dumps(twin["launches"], separators=(",", ":")),
+        peak_gb=round(peak / 1e9, 3))
+    summary["generate"] = dict(
+        out, logits_max_abs_diff=d_max, logits_mean_abs_diff=d_mean,
+        tokens_same_per_step=per_step, first_divergence=first_miss,
+        first_token_same=argmax_same, peak_bytes=peak, decode_turns=turns)
+    return kern["launches"]
+
+
+def lm_serve(cfg, params, summary: dict) -> dict:
+    import numpy as np
+    import torch
+
+    from repro_torch.serve import Batcher, ServeConfig
+
+    rng = np.random.default_rng(SEED + 2)
+    prompts = [rng.integers(0, cfg.vocab, SERVE_PROMPT)
+               for _ in range(SERVE_N)]
+    batcher = Batcher(params, cfg, ServeConfig(batch=SERVE_B,
+                                               max_seq=SERVE_MAX_SEQ),
+                      device="cuda")
+    inner, steps = batcher.step, [0]
+
+    def counted(*args):
+        steps[0] += 1
+        return inner(*args)
+
+    batcher.step = counted
+    lm_reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = batcher.serve(prompts, SERVE_NEW)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = lm_launches()
+    answered = sum(r is not None and len(r) == SERVE_NEW
+                   and bool(((r >= 0) & (r < cfg.vocab)).all()) for r in res)
+    check(answered == SERVE_N, f"Batcher answered {answered} of {SERVE_N}")
+    n_rec = sum(m == "rglru" for m, _ in cfg.layer_plan)
+    check(launches["rglru_scan"] == n_rec * steps[0],
+          f"Batcher rglru launches {launches['rglru_scan']}, expected "
+          f"{n_rec * steps[0]}")
+    say("lm:serve", batch=SERVE_B, max_seq=SERVE_MAX_SEQ, requests=SERVE_N,
+        answered=answered, prompt=SERVE_PROMPT, n_new=SERVE_NEW,
+        decode_steps=steps[0], wall_s=round(wall, 4),
+        step_ms=round(wall / steps[0] * 1e3, 3),
+        launches=json.dumps(launches, separators=(",", ":")))
+    summary["serve"] = dict(answered=answered, decode_steps=steps[0],
+                            wall_s=wall, step_ms=wall / steps[0] * 1e3,
+                            launches=launches)
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -456,7 +860,11 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, src)
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.kernels.flash_attention import kernel as flash_kernel
     from repro_torch.kernels.placement_scan import kernel
+    from repro_torch.kernels.rg_lru import kernel as rglru_kernel
     from repro_torch.sim import clear_schedule_cache, online_mix_workload
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -467,12 +875,16 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip().splitlines()
     smi0 = smi[0] if smi else "nvidia-smi unavailable"
+    families = (kernel, flash_kernel, rglru_kernel)
     t0 = time.perf_counter()
-    path = kernel.build(verbose=True)
+    with ThreadPoolExecutor(len(families)) as pool:   # one nvcc per source
+        paths = list(pool.map(lambda fam: fam.build(verbose=True), families))
     build_s = time.perf_counter() - t0
-    kernel.lib()
+    for fam in families:
+        fam.lib()
     say("device", name=name, count=torch.cuda.device_count(),
-        build_s=round(build_s, 3), library=os.path.relpath(path, ROOT))
+        build_s=round(build_s, 3),
+        libraries=",".join(os.path.relpath(p, ROOT) for p in paths))
     print(smi0, flush=True)
 
     report: list = []
@@ -490,9 +902,6 @@ def main() -> int:
     routed = main_path("routed", dags, ("machines_with_candidates.cuda",),
                        summary)
     launches = {k: exact[k] + routed[k] for k in exact}
-    for r in report:
-        r["launches"] = launches[r["name"]]
-        check(r["launches"] > 0, f"{r['name']} never launched on the path")
     # the scan's line reports the case the path launched most often
     shapes = scan_shapes(summary)
     top = sorted(shapes.items(), key=lambda kv: -kv[1])
@@ -504,6 +913,23 @@ def main() -> int:
     scan.update({k: best[k] for k in ("max_abs_err", "ms", "plain_ms",
                                       "bound_ms", "bound_by")})
     scan["case"] = best["case"]
+
+    kernel_flash(report)
+    kernel_rglru(report)
+    cfg, params, n_params, init_s = full_model()
+    say("lm:model", arch=LM_ARCH, layers=cfg.n_layers, d_model=cfg.d_model,
+        vocab=cfg.vocab, params=n_params, dtype="bfloat16",
+        init_s=round(init_s, 3))
+    gen_launches = lm_generate(cfg, params, summary)
+    serve_launches = lm_serve(cfg, params, summary)
+    del params
+    torch.cuda.empty_cache()
+    for k in gen_launches:
+        launches[k] = gen_launches[k] + serve_launches[k]
+    summary["lm_launches"] = dict(generate=gen_launches, serve=serve_launches)
+    for r in report:
+        r["launches"] = launches[r["name"]]
+        check(r["launches"] > 0, f"{r['name']} never launched on the path")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels_line = {"kernels": [{k: r[k] for k in keys} for r in report]}
@@ -512,6 +938,7 @@ def main() -> int:
     with open(os.path.join(out_dir, "chip_smoke_report.json"), "w") as f:
         json.dump({"device": name, "nvidia_smi": smi, "build_s": build_s,
                    "n_jobs": N_JOBS, "n_machines": N_MACHINES,
+                   "lm_params": n_params,
                    "kernels": report, "scan_shapes": [
                        [list(k), v] for k, v in top], "paths": summary},
                   f, indent=1, default=str)

@@ -1,11 +1,8 @@
 """Build, bind and launch the placement-scan CUDA kernels.
 
-``csrc/placement_scan.cu`` is compiled with ``nvcc`` at first use into a
-shared library with a plain C interface, loaded through ``ctypes`` (no
-PyTorch headers, so the build takes seconds).  The library lands in
-``build/repro_torch_kernels/`` at the repository root (override with
-``REPRO_TORCH_BUILD_DIR``), named by a hash of the source and the flags, so
-an edited source rebuilds and an unchanged one loads the cached build.
+``csrc/placement_scan.cu`` is compiled with ``nvcc -fmad=false`` at first
+use into a shared library with a plain C interface and loaded through
+``ctypes`` (``kernels/build.py``).
 
 Each wrapper checks device, dtype, shape and contiguity, launches on
 PyTorch's current stream, raises if ``cudaGetLastError`` reports a refused
@@ -16,21 +13,16 @@ imported or compiled until a wrapper runs on a CUDA tensor.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import sys
-import threading
 from pathlib import Path
 
 import torch
 
+from ..build import NvccLibrary, check_launch as _check, need as _need, \
+    ptr as _p, stream as _stream
+
 _SRC = Path(__file__).resolve().parent / "csrc" / "placement_scan.cu"
-_ROOT = Path(__file__).resolve().parents[4]
-BUILD_DIR_ENV = "REPRO_TORCH_BUILD_DIR"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
+#: bit-exact float math: no fused multiply-adds anywhere in the source
+NVCC_FLAGS = ("-fmad=false",)
 
 #: launches per kernel since the last `reset_launches` (the wrappers below
 #: are the only writers: one per kernel launch, nowhere else)
@@ -38,9 +30,6 @@ LAUNCHES = {"scan_bitmaps": 0, "heartbeat_eligible": 0, "match_wave_walk": 0}
 
 #: wave kernel flag bits (csrc/placement_scan.cu F_*)
 F_PACKING, F_SRPT, F_OVERBOOK, F_DRF = 1, 2, 4, 8
-
-_LIB = None
-_LIB_LOCK = threading.Lock()
 
 
 def reset_launches() -> None:
@@ -52,94 +41,21 @@ def launch_counts() -> dict[str, int]:
     return dict(LAUNCHES)
 
 
-def build_dir() -> Path:
-    raw = os.environ.get(BUILD_DIR_ENV, "")
-    return Path(raw) if raw else _ROOT / "build" / "repro_torch_kernels"
+def _bind(handle: ctypes.CDLL) -> None:
+    vp, i = ctypes.c_void_p, ctypes.c_int
+    handle.ps_scan_bitmaps.argtypes = [vp, vp, vp, i, i, i, i, i, i, vp, vp]
+    handle.ps_heartbeat_eligible.argtypes = [vp] * 6 + [i, i, i, vp, vp]
+    handle.ps_match_wave.argtypes = (
+        [vp, vp, i, vp, vp, vp, vp, vp, vp, i, vp, vp, vp, i, vp, vp,
+         i, i, i, vp, vp, vp, vp, vp, vp])
+    for fn in (handle.ps_scan_bitmaps, handle.ps_heartbeat_eligible,
+               handle.ps_match_wave):
+        fn.restype = ctypes.c_int
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    cand = Path("/usr/local/cuda/bin/nvcc")
-    if cand.exists():
-        return str(cand)
-    raise RuntimeError("nvcc not found: the placement-scan kernels are built "
-                       "from source with the CUDA toolkit")
-
-
-def library_path() -> Path:
-    digest = hashlib.sha256(_SRC.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return build_dir() / f"libplacement_scan_{digest}.so"
-
-
-def build(verbose: bool = False) -> Path:
-    """Compile the library if no build of this source exists yet."""
-    out = library_path()
-    if out.exists():
-        return out
-    out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp.so")
-    cmd = [_nvcc(), *NVCC_FLAGS]
-    if verbose:
-        cmd += ["-Xptxas", "-v"]
-    cmd += ["-o", str(tmp), str(_SRC)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    if verbose and proc.stderr:
-        print(proc.stderr, file=sys.stderr)
-    os.replace(tmp, out)
-    return out
-
-
-def _p(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
-
-
-def lib():
-    """The loaded library (built on first call)."""
-    global _LIB
-    if _LIB is not None:
-        return _LIB
-    with _LIB_LOCK:
-        if _LIB is None:
-            handle = ctypes.CDLL(str(build()))
-            vp, i = ctypes.c_void_p, ctypes.c_int
-            handle.ps_scan_bitmaps.argtypes = [vp, vp, vp, i, i, i, i, i, i,
-                                               vp, vp]
-            handle.ps_heartbeat_eligible.argtypes = [vp] * 6 + [i, i, i, vp,
-                                                                vp]
-            handle.ps_match_wave.argtypes = (
-                [vp, vp, i, vp, vp, vp, vp, vp, vp, i, vp, vp, vp, i, vp, vp,
-                 i, i, i, vp, vp, vp, vp, vp, vp])
-            for fn in (handle.ps_scan_bitmaps, handle.ps_heartbeat_eligible,
-                       handle.ps_match_wave):
-                fn.restype = ctypes.c_int
-            _LIB = handle
-    return _LIB
-
-
-def _stream(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
-
-
-def _check(err: int, name: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{name} launch failed: cudaError {err}")
-
-
-def _need(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple,
-          device: torch.device) -> None:
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
+LIBRARY = NvccLibrary("placement_scan", _SRC, NVCC_FLAGS, _bind)
+build = LIBRARY.build
+lib = LIBRARY.lib
 
 
 def scan_bitmaps(win: torch.Tensor, Vs: torch.Tensor, ks: torch.Tensor,

@@ -1,0 +1,373 @@
+"""Decoder assembly: config -> params -> forward / prefill / decode.
+
+Ports ``repro.models.model`` for the mixers and ffns of the recurrentgemma
+serving path: ``attn`` (global), ``local`` (sliding window) and ``rglru``
+mixers with the dense ``geglu``/``swiglu`` ffns.  Any other mixer or ffn
+raises ``NotImplementedError`` naming the slice that brings it.
+
+Each layer is (mixer kind, ffn kind) from ``ArchConfig.layer_plan``.  The
+reference stacks the repeating body of layers and runs it under
+``lax.scan``; PyTorch runs eagerly, so here the layers are a plain list
+walked by a Python loop: ``params["layers"][i]`` and
+``state["layers"][i]`` belong to layer i.  `params_from_jax` and
+`state_from_jax` carry the reference's trees across (unstacking its body).
+Parameter layouts are the reference's (``wq (d, H, hd)``, ...).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import numpy as np
+import torch
+
+from ..core.engine.kernels import check_device
+from . import layers as L
+
+Params = dict
+
+#: the slice that brings each mixer / ffn this port does not run yet
+_LATER = {
+    "rwkv": "the rwkv6-7b slice (wkv6 kernel)",
+    "rwkv_cm": "the rwkv6-7b slice (wkv6 kernel)",
+    "moe": "the MoE slice (mixtral / deepseek-moe)",
+    "mlp": "the musicgen slice",
+}
+
+
+def _not_yet(kind: str) -> NotImplementedError:
+    where = _LATER.get(kind, "no planned slice")
+    return NotImplementedError(f"{kind!r} is not ported yet: it comes with "
+                               f"{where}")
+
+
+@dataclasses.dataclass(frozen=True)
+class ArchConfig:
+    """The reference's ArchConfig fields that the recurrentgemma path
+    reads; the fields of the MoE, RWKV, M-RoPE, audio, vision and
+    post-norm families come with their slices."""
+    name: str
+    family: str
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    head_dim: int
+    d_ff: int
+    vocab: int
+    block_pattern: tuple[str, ...] = ("attn",)
+    window: int | None = None
+    attn_cap: float | None = None
+    logit_cap: float | None = None
+    rope_theta: float = 1e4
+    norm_plus_one: bool = False
+    mlp_kind: str = "swiglu"
+    embed_scale: bool = False
+    tie_embeddings: bool = True
+    rglru_width: int | None = None
+    conv_width: int = 4
+
+    @property
+    def vocab_padded(self) -> int:
+        return (self.vocab + 255) // 256 * 256
+
+    @property
+    def layer_plan(self) -> list[tuple[str, str]]:
+        plan = []
+        for i in range(self.n_layers):
+            mixer = self.block_pattern[i % len(self.block_pattern)]
+            ffn = "rwkv_cm" if mixer == "rwkv" else self.mlp_kind
+            plan.append((mixer, ffn))
+        return plan
+
+    @property
+    def groups(self) -> tuple[list, list, list]:
+        """(head_plan, body_pattern, tail_plan) of the reference's stacked
+        layout; the body repeats n_body times.  Without dense-first MoE
+        layers the head is empty."""
+        plan = self.layer_plan
+        pat_len = len(self.block_pattern)
+        return [], plan[:pat_len], plan[self.n_body * pat_len:]
+
+    @property
+    def n_body(self) -> int:
+        return self.n_layers // len(self.block_pattern)
+
+    def attn_cfg(self, mixer: str) -> L.AttnConfig:
+        return L.AttnConfig(
+            d_model=self.d_model, n_heads=self.n_heads,
+            n_kv_heads=self.n_kv_heads, head_dim=self.head_dim,
+            rope_theta=self.rope_theta,
+            window=self.window if mixer == "local" else None,
+            cap=self.attn_cap)
+
+    def rglru_cfg(self) -> L.RGLRUConfig:
+        return L.RGLRUConfig(d_model=self.d_model,
+                             d_rnn=self.rglru_width or self.d_model,
+                             conv_width=self.conv_width)
+
+
+# ----------------------------------------------------------------------
+# init
+# ----------------------------------------------------------------------
+
+def _norm_w(cfg: ArchConfig, device) -> torch.Tensor:
+    fill = torch.zeros if cfg.norm_plus_one else torch.ones
+    return fill((cfg.d_model,), dtype=torch.float32, device=device)
+
+
+def _block_init(gen: torch.Generator, cfg: ArchConfig, mixer: str, ffn: str,
+                dtype, device) -> Params:
+    p: Params = {"ln1": _norm_w(cfg, device)}
+    if mixer in ("attn", "local"):
+        p["attn"] = L.attn_init(gen, cfg.attn_cfg(mixer), dtype, device)
+    elif mixer == "rglru":
+        p["rglru"] = L.rglru_init(gen, cfg.rglru_cfg(), dtype, device)
+    else:
+        raise _not_yet(mixer)
+    p["ln2"] = _norm_w(cfg, device)
+    if ffn not in ("swiglu", "geglu"):
+        raise _not_yet(ffn)
+    p["mlp"] = L.mlp_init(gen, cfg.d_model, cfg.d_ff, ffn, dtype, device)
+    return p
+
+
+def init_params(cfg: ArchConfig, gen: torch.Generator,
+                device="cuda", dtype=torch.bfloat16) -> Params:
+    """Random weights with the reference's shapes and scales, drawn from
+    ``gen`` (a ``torch.Generator`` on ``device``).  The numbers differ from
+    the reference's ``jax.random`` draws; carry those across with
+    `params_from_jax`.  ``device`` defaults to "cuda" and raises without a
+    card."""
+    check_device(device)
+    device = torch.device(device)
+    V = cfg.vocab_padded
+    params: Params = {
+        "embed": L._normal(gen, (V, cfg.d_model), 0.02, dtype, device),
+        "final_ln": _norm_w(cfg, device),
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = L._normal(gen, (cfg.d_model, V),
+                                      1.0 / math.sqrt(cfg.d_model), dtype,
+                                      device)
+    params["layers"] = [_block_init(gen, cfg, mixer, ffn, dtype, device)
+                        for mixer, ffn in cfg.layer_plan]
+    return params
+
+
+# ----------------------------------------------------------------------
+# carrying the reference's trees across
+# ----------------------------------------------------------------------
+
+def _layer_keys(cfg: ArchConfig) -> list[tuple[str, int | None, str | None]]:
+    """Where layer i lives in the reference's tree: (top key, body group
+    index or None, key inside the group or None)."""
+    _head, body, tail = cfg.groups
+    out: list = [("body", g, f"b{j}") for g in range(cfg.n_body)
+                 for j in range(len(body))]
+    return out + [(f"tail{j}", None, None) for j in range(len(tail))]
+
+
+def _tree_map(fn, node):
+    if isinstance(node, dict):
+        return {k: _tree_map(fn, v) for k, v in node.items()}
+    return fn(node)
+
+
+def _to_torch(x, device, g: int | None = None) -> torch.Tensor:
+    """One leaf as a tensor (row ``g`` of a stacked leaf); bfloat16 numpy
+    arrays cross as their bits."""
+    arr = np.asarray(x)
+    if g is not None:
+        arr = arr[g]
+    arr = np.array(arr, order="C")      # a writable copy
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.view(np.uint16)).view(
+            torch.bfloat16).to(device)
+    return torch.from_numpy(arr).to(device)
+
+
+def _unstack(cfg: ArchConfig, tree: dict, device) -> list:
+    out = []
+    for top, g, key in _layer_keys(cfg):
+        node = tree[top] if g is None else tree[top][key]
+        out.append(_tree_map(lambda x, g=g: _to_torch(x, device, g), node))
+    return out
+
+
+def params_from_jax(cfg: ArchConfig, tree: dict, device="cpu") -> Params:
+    """The reference's ``init_params`` tree (leaves as numpy arrays, or
+    anything ``np.asarray`` takes) as this port's parameters: the stacked
+    body is unstacked along axis 0 into one dict per layer; every leaf keeps
+    its layout and dtype."""
+    params = {key: _to_torch(tree[key], device)
+              for key in ("embed", "final_ln", "lm_head") if key in tree}
+    params["layers"] = _unstack(cfg, tree, device)
+    return params
+
+
+def state_from_jax(cfg: ArchConfig, tree: dict, device="cpu") -> Params:
+    """The reference's decode-state tree (``init_decode_state`` / ``prefill``
+    output) as this port's ``{"layers": [...]}`` state."""
+    return {"layers": _unstack(cfg, tree, device)}
+
+
+# ----------------------------------------------------------------------
+# block application (shared by forward / prefill / decode)
+# ----------------------------------------------------------------------
+
+def _norm(x, w, cfg: ArchConfig):
+    return L.rms_norm(x, w, plus_one=cfg.norm_plus_one)
+
+
+def _apply_block(bp: Params, x: torch.Tensor, cfg: ArchConfig, mixer: str,
+                 ffn: str, positions, mode: str, state, pos=None):
+    """mode: train | prefill | decode.  Returns (x, new_state)."""
+    new_state: dict = {}
+    h = _norm(x, bp["ln1"], cfg)
+    if mixer in ("attn", "local"):
+        acfg = cfg.attn_cfg(mixer)
+        if mode == "train":
+            a = L.attn_forward(bp["attn"], h, acfg, positions)
+        elif mode == "prefill":
+            a, kv = L.attn_prefill(bp["attn"], h, acfg, positions)
+            new_state["kv"] = kv
+        else:
+            a, kv = L.attn_decode(bp["attn"], h, acfg, state["kv"], pos)
+            new_state["kv"] = kv
+    elif mixer == "rglru":
+        gcfg = cfg.rglru_cfg()
+        st = state.get("rglru") if state else None
+        a, (conv, hh) = L.rglru_block(bp["rglru"], h, gcfg,
+                                      (st["conv"], st["h"]) if st else None)
+        if mode != "train":
+            new_state["rglru"] = {"conv": conv, "h": hh}
+    else:
+        raise _not_yet(mixer)
+    x = x + a
+    h = _norm(x, bp["ln2"], cfg)
+    if ffn not in ("swiglu", "geglu"):
+        raise _not_yet(ffn)
+    return x + L.mlp_forward(bp["mlp"], h, ffn), new_state
+
+
+# ----------------------------------------------------------------------
+# embedding / positions / heads
+# ----------------------------------------------------------------------
+
+def _embed(params: Params, cfg: ArchConfig, batch: dict):
+    """batch {"tokens": (B, S)} -> (x (B, S, d), positions (B, S))."""
+    x = params["embed"][batch["tokens"]]
+    B, S = x.shape[:2]
+    if cfg.embed_scale:
+        # the scale is rounded to the activation dtype before the multiply
+        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype,
+                             device=x.device)
+    return x, _positions(B, S, x.device)
+
+
+def _positions(B: int, S: int, device) -> torch.Tensor:
+    return torch.arange(S, device=device)[None].expand(B, S)
+
+
+def _lm_logits(params: Params, cfg: ArchConfig, x: torch.Tensor):
+    x = _norm(x, params["final_ln"], cfg)
+    if cfg.tie_embeddings:
+        logits = x @ params["embed"].T
+    else:
+        logits = x @ params["lm_head"]
+    if cfg.logit_cap is not None:
+        logits = L.softcap(logits.float(), cfg.logit_cap)
+    if cfg.vocab_padded != cfg.vocab:
+        # mask padded vocab slots out of softmax/argmax
+        pad = torch.arange(cfg.vocab_padded, device=x.device) >= cfg.vocab
+        logits = logits + pad * torch.tensor(-1e9, dtype=logits.dtype,
+                                             device=x.device)
+    return logits
+
+
+# ----------------------------------------------------------------------
+# full passes
+# ----------------------------------------------------------------------
+
+@torch.no_grad()
+def forward(params: Params, cfg: ArchConfig, batch: dict):
+    """Scoring forward: logits (B, S, V) over the full sequence."""
+    x, positions = _embed(params, cfg, batch)
+    for bp, (mixer, ffn) in zip(params["layers"], cfg.layer_plan):
+        x, _ = _apply_block(bp, x, cfg, mixer, ffn, positions, "train", None)
+    return _lm_logits(params, cfg, x)
+
+
+def init_decode_state(cfg: ArchConfig, B: int, S_max: int,
+                      dtype=torch.bfloat16, device="cpu") -> Params:
+    """Zeroed decode state for every layer (KV caches + recurrent states).
+    A local layer's cache holds min(S_max, window) slots: a ring."""
+    layers = []
+    for mixer, _ffn in cfg.layer_plan:
+        st: dict = {}
+        if mixer in ("attn", "local"):
+            KV, hd = cfg.n_kv_heads, cfg.head_dim
+            S_eff = min(S_max, cfg.window) if (mixer == "local"
+                                               and cfg.window) else S_max
+            st["kv"] = {
+                "k": torch.zeros((B, S_eff, KV, hd), dtype=dtype, device=device),
+                "v": torch.zeros((B, S_eff, KV, hd), dtype=dtype, device=device)}
+        elif mixer == "rglru":
+            dr = cfg.rglru_width or cfg.d_model
+            st["rglru"] = {
+                "conv": torch.zeros((B, cfg.conv_width - 1, dr), dtype=dtype,
+                                    device=device),
+                "h": torch.zeros((B, dr), dtype=torch.float32, device=device)}
+        else:
+            raise _not_yet(mixer)
+        layers.append(st)
+    return {"layers": layers}
+
+
+@torch.no_grad()
+def decode_step(params: Params, cfg: ArchConfig, state: Params,
+                tokens: torch.Tensor, pos: torch.Tensor):
+    """One decode step.  tokens (B, 1); pos (B,) write index.
+
+    Returns (logits (B, 1, V), new_state); KV caches are updated in place.
+    """
+    x, _ = _embed(params, cfg, {"tokens": tokens})
+    n_body_layers = cfg.n_body * len(cfg.block_pattern)
+    new_layers = []
+    for i, (bp, st, (mixer, ffn)) in enumerate(zip(
+            params["layers"], state["layers"], cfg.layer_plan)):
+        x, nst = _apply_block(bp, x, cfg, mixer, ffn, None, "decode", st, pos)
+        if i < n_body_layers:
+            # the reference carries the body's states in its scan carry,
+            # which casts each new state back to the dtype it came in
+            nst = _cast_like(nst, st)
+        new_layers.append(nst)
+    return _lm_logits(params, cfg, x), {"layers": new_layers}
+
+
+def _cast_like(new, old):
+    if isinstance(new, dict):
+        return {k: _cast_like(v, old[k]) for k, v in new.items()}
+    return new.to(old.dtype)
+
+
+@torch.no_grad()
+def prefill(params: Params, cfg: ArchConfig, batch: dict,
+            last_only: bool = False):
+    """Forward over a prompt, returning (logits, decode state).
+
+    last_only=True computes the LM head for the final position only: the
+    serving configuration (full-sequence logits at 4k x 256k vocab would
+    dwarf the backbone's memory).
+    """
+    x, positions = _embed(params, cfg, batch)
+    new_layers = []
+    for bp, (mixer, ffn) in zip(params["layers"], cfg.layer_plan):
+        x, st = _apply_block(bp, x, cfg, mixer, ffn, positions, "prefill",
+                             None)
+        new_layers.append(st)
+    if last_only:
+        x = x[:, -1:]
+    return _lm_logits(params, cfg, x), {"layers": new_layers}

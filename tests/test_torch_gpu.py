@@ -7,7 +7,11 @@ toolkit alone:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 
-Inputs are made from numpy seeds; every comparison is bitwise.
+Inputs are made from numpy seeds.  The scheduler's kernels and the rg_lru
+scan are compared bitwise; flash attention within 2e-5 (f32) and 2e-2
+(bf16), the tolerances of ``tests/test_kernels.py`` (it sums in another
+order, and its bf16 variant rounds the softmax weights to bf16 for the
+tensor cores).
 """
 
 import dataclasses
@@ -231,3 +235,149 @@ def test_sim_on_cuda_matches_numpy_pinned(kernel, mode, monkeypatch):
                 else "machines_with_candidates.cuda"
             assert prof[key][0] > 0
     assert out[""] == out["all=numpy"]
+
+
+# ----------------------------------------------------------------------
+# LM kernels: flash attention and the RG-LRU scan
+# ----------------------------------------------------------------------
+
+@pytest.fixture
+def lm_kernels():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.rg_lru import kernel as rk
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return fk, rk
+
+
+FLASH_CARD_CASES = [
+    # (B, Sq, Sk, H, KV, hd), dtype, opts
+    ((2, 512, 512, 10, 1, 256), "bfloat16", dict(causal=True, window=200)),
+    ((2, 1000, 1000, 4, 2, 64), "bfloat16", dict(causal=True, window=300)),
+    ((2, 333, 517, 4, 2, 64), "float32", dict(causal=False, cap=30.0)),
+    ((1, 130, 130, 4, 1, 256), "float32", dict(causal=True, window=50)),
+    ((2, 100, 200, 6, 3, 48), "bfloat16", dict(causal=False, cap=5.0)),
+    ((3, 1, 77, 2, 1, 32), "float32", dict(causal=False)),
+]
+
+
+@pytest.mark.parametrize("shape,dtype,opts", FLASH_CARD_CASES)
+def test_flash_kernel_matches_plain(lm_kernels, shape, dtype, opts):
+    from repro_torch.kernels.flash_attention import ref as fref
+    fk, _ = lm_kernels
+    B, Sq, Sk, H, KV, hd = shape
+    rng = np.random.default_rng(sum(shape))
+    dt = getattr(torch, dtype)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s, np.float32)).to(
+        "cuda", dt) for s in ((B, Sq, H, hd), (B, Sk, KV, hd),
+                              (B, Sk, KV, hd)))
+    before = fk.LAUNCHES["flash_attention"]
+    got = fk.flash_attention(q, k, v, **opts)
+    torch.cuda.synchronize()
+    assert fk.LAUNCHES["flash_attention"] == before + 1
+    want = fref.attention(q, k, v, **opts)
+    tol = 2e-2 if dtype == "bfloat16" else 2e-5
+    assert got.dtype == dt and bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def test_flash_kernel_refuses_what_it_does_not_take(lm_kernels):
+    fk, _ = lm_kernels
+    q = torch.zeros(1, 8, 2, 64, device="cuda")
+    k = torch.zeros(1, 8, 1, 64, device="cuda")
+    with pytest.raises(TypeError):
+        fk.flash_attention(q.half(), k.half(), k.half())
+    with pytest.raises(ValueError):
+        fk.flash_attention(q.transpose(1, 2), k, k)
+    big = torch.zeros(1, 8, 1, 272, device="cuda")
+    with pytest.raises(ValueError):
+        fk.flash_attention(big, big, big)
+    odd = torch.zeros(1, 8, 1, 40, device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        fk.flash_attention(odd, odd, odd)
+
+
+@pytest.mark.parametrize("shape", [(2, 1000, 300), (8, 1, 2560),
+                                   (1, 4099, 64)])
+def test_rglru_kernel_bitwise_equal_to_plain(lm_kernels, shape):
+    from repro_torch.kernels.rg_lru import ref as rref
+    _, rk = lm_kernels
+    B, S, D = shape
+    rng = np.random.default_rng(S + D)
+    x = torch.from_numpy(rng.standard_normal(shape, np.float32)).cuda()
+    a = torch.from_numpy(rng.uniform(0.5, 0.999, shape).astype(
+        np.float32)).cuda()
+    h0 = torch.from_numpy(rng.standard_normal((B, D), np.float32)).cuda()
+    y, hT = rk.rglru_scan(x, a, h0)
+    y2, hT2 = rref.rglru_scan(x, a, h0)
+    assert torch.equal(y, y2) and torch.equal(hT, hT2)
+    # state chained across two halves == one run, bitwise
+    h = S // 2
+    ya, hA = rk.rglru_scan(x[:, :h].contiguous(), a[:, :h].contiguous(), h0)
+    yb, hB = rk.rglru_scan(x[:, h:].contiguous(), a[:, h:].contiguous(), hA)
+    assert torch.equal(torch.cat([ya, yb], 1), y) and torch.equal(hB, hT)
+
+
+def test_lm_ops_launch_kernels_unless_pinned(lm_kernels, monkeypatch):
+    from repro_torch.kernels import pin
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.rg_lru import ops as rops
+    fk, rk = lm_kernels
+    q = torch.randn(1, 64, 2, 64, device="cuda", dtype=torch.bfloat16)
+    x = torch.randn(1, 16, 128, device="cuda")
+    a = torch.rand(1, 16, 128, device="cuda")
+    h0 = torch.zeros(1, 128, device="cuda")
+    monkeypatch.delenv(pin.PIN_ENV, raising=False)
+    f0, r0 = fk.LAUNCHES["flash_attention"], rk.LAUNCHES["rglru_scan"]
+    fops.flash_attention(q, q, q, window=16)
+    rops.rglru_scan(x, a, h0)
+    assert fk.LAUNCHES["flash_attention"] == f0 + 1
+    assert rk.LAUNCHES["rglru_scan"] == r0 + 1
+    monkeypatch.setenv(pin.PIN_ENV, "plain")
+    out = fops.flash_attention(q, q, q, window=16)
+    y, _ = rops.rglru_scan(x, a, h0)
+    assert out.is_cuda and y.is_cuda
+    assert fk.LAUNCHES["flash_attention"] == f0 + 1
+    assert rk.LAUNCHES["rglru_scan"] == r0 + 1
+
+
+def test_smoke_model_on_card_through_both_kernels(lm_kernels, monkeypatch):
+    """recurrentgemma smoke() in f32 on the card: greedy_generate through
+    the kernels equals its plain-pinned twin; the Batcher answers every
+    request through the rg_lru kernel."""
+    from repro_torch import configs
+    from repro_torch.kernels import pin
+    from repro_torch.models import model as M
+    from repro_torch.serve import Batcher, ServeConfig, greedy_generate
+    fk, rk = lm_kernels
+    cfg = configs.get_smoke("recurrentgemma_2b")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = M.init_params(cfg, gen, device="cuda", dtype=torch.float32)
+    prompt = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab, (2, 40))).cuda()
+    out = {}
+    for pinned in ("", "plain"):
+        monkeypatch.setenv(pin.PIN_ENV, pinned)
+        fk.reset_launches()
+        rk.reset_launches()
+        logits, _ = M.prefill(params, cfg, {"tokens": prompt},
+                              last_only=True)
+        toks = greedy_generate(params, cfg, prompt, 8)
+        out[pinned] = (logits, toks, fk.LAUNCHES["flash_attention"],
+                       rk.LAUNCHES["rglru_scan"])
+    n_local = sum(m == "local" for m, _ in cfg.layer_plan)
+    n_rec = sum(m == "rglru" for m, _ in cfg.layer_plan)
+    assert out[""][2:] == (2 * n_local, 2 * n_rec + 8 * n_rec)
+    assert out["plain"][2:] == (0, 0)
+    torch.testing.assert_close(out[""][0], out["plain"][0], rtol=0,
+                               atol=1e-4)
+    assert torch.equal(out[""][1], out["plain"][1])
+    monkeypatch.delenv(pin.PIN_ENV)
+    rk.reset_launches()
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(0, cfg.vocab, n) for n in (9, 5, 12)]
+    res = Batcher(params, cfg, ServeConfig(batch=2, max_seq=16)).serve(
+        prompts, 6)
+    assert all(r is not None and len(r) == 6 for r in res)
+    assert rk.LAUNCHES["rglru_scan"] > 0

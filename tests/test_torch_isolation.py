@@ -71,6 +71,23 @@ def test_cuda_without_a_card_raises_at_every_entry_point():
         schedule_cluster([TPUJob("j", "a", [dict(seconds=5.0)])], n_slices=4)
 
 
+def test_cuda_without_a_card_raises_at_the_lm_entry_points():
+    _no_card()
+    from repro_torch import configs
+    from repro_torch.models import model as M
+    from repro_torch.serve import Batcher, ServeConfig, greedy_generate
+
+    cfg = configs.get_smoke("recurrentgemma_2b")
+    with pytest.raises(RuntimeError, match="cuda"):
+        M.init_params(cfg, torch.Generator().manual_seed(0))
+    params = M.init_params(cfg, torch.Generator().manual_seed(0),
+                           device="cpu", dtype=torch.float32)
+    with pytest.raises(RuntimeError, match="cuda"):
+        greedy_generate(params, cfg, torch.zeros(1, 4, dtype=torch.long), 2)
+    with pytest.raises(RuntimeError, match="cuda"):
+        Batcher(params, cfg, ServeConfig(batch=1, max_seq=8))
+
+
 @pytest.mark.parametrize("where", ["repo", "alone"])
 def test_chip_smoke_refuses_without_a_card(where, tmp_path):
     _no_card()
