@@ -1,5 +1,5 @@
 """Drive the PyTorch/CUDA port on one GPU: the DAGPS scheduler's main path
-and the recurrentgemma-2b serving path.
+and the recurrentgemma-2b and rwkv6-7b serving paths.
 
 Run from the repository root with no arguments:
 
@@ -26,9 +26,23 @@ per source, all started together.  Phases, each printing its own lines:
      generator on the card): ``greedy_generate`` on 4 prompts of 4,096
      tokens, 32 new tokens, against its twin pinned to the plain versions
      (``REPRO_LM_KERNELS=plain``): last-position prefill logits within
-     the stated tolerance, token agreement, launches, wall times;
+     the stated tolerance of the twin's and no further than it from the
+     same weights run in float32, token agreement, launches, wall times;
   7. ``Batcher.serve`` at full width: 12 prompts of 64 tokens, 16 new
-     tokens each, 8 slots, ``max_seq`` 1024 (local caches are rings).
+     tokens each, 8 slots, ``max_seq`` 1024 (local caches are rings);
+  8. the wkv6 kernel against its plain version on the card: the rwkv6-7b
+     prefill shape (B=4, S=4096, H=64, N=64, bf16), the decode shapes at
+     B=4 and B=8, a ragged S=1000, an f32 case at the smoke width N=16,
+     and the prefill chained over two halves against the whole run:
+     y within 2e-2 (bf16) / 2e-5 (f32), final state within 1e-3; the f32
+     case again at the model's scale, within twice the first-order float32
+     rounding bound;
+  9. full-width rwkv6-7b (all 32 layers, random bf16 weights from a
+     seeded generator on the card): ``greedy_generate`` on 4 prompts of
+     4,096 tokens, 32 new tokens, against its plain-pinned twin, as in 6
+     (with limits of its own, `LOGIT_TOL`);
+ 10. ``Batcher.serve`` of rwkv6-7b: 12 prompts of 64 tokens, 16 new
+     tokens each, 8 slots.
 
 Any failed phase exits non-zero before the result line.  The last line is
 ``{"ok": true, "device": {...}}``; the line before it lists every kernel
@@ -53,18 +67,36 @@ F32_OPS_PER_S = 67e12          # float32 outside the tensor cores
 F64_OPS_PER_S = 34e12          # float64 outside the tensor cores
 BF16_OPS_PER_S = 989e12        # bf16 on the tensor cores
 
-#: the serving path (recurrentgemma-2b full width)
+#: the serving paths (full width)
 LM_ARCH = "recurrentgemma_2b"
+RWKV_ARCH = "rwkv6_7b"
 GEN_B, GEN_S, GEN_NEW = 4, 4096, 32
 SERVE_B, SERVE_MAX_SEQ, SERVE_N, SERVE_PROMPT, SERVE_NEW = 8, 1024, 12, 64, 16
-#: max |logit| difference, kernel path against its plain twin, on the last
-#: prefill position (logits have a standard deviation of about 1 here):
-#: bf16 keeps 8 significant bits and the two paths round in other places
-#: (the flash kernel rounds its softmax weights to bf16 for the tensor
-#: cores and sums in another order), which after 26 residual layers moves
-#: logits by a few hundredths; a wrong mask, head or state moves them by
-#: O(1)
-LOGIT_TOL_MAX, LOGIT_TOL_MEAN = 0.25, 0.05
+#: max and mean |logit| difference, kernel path against its plain twin, on
+#: the last prefill position (logits have a standard deviation of about 1
+#: in both models).  recurrentgemma-2b: bf16 keeps 8 significant bits and
+#: the two paths round in other places (the flash kernel rounds its softmax
+#: weights to bf16 for the tensor cores and sums in another order), which
+#: after 26 residual layers moves logits by a few hundredths; a wrong mask,
+#: head or state moves them by O(1).  rwkv6-7b: its bf16 rounding moves the
+#: logits about 4x as far (32 layers; y is rounded to bf16 at |y| up to
+#: ~600 before a per-head norm; states sum hundreds of steps): the same
+#: weights run in float32 (`f32_logits`) put either bf16 path 0.53 max /
+#: 0.088 mean away from it, against 0.124 / 0.020 for recurrentgemma-2b,
+#: and the sound kernel path reads 0.340 / 0.0558 against its twin (H100,
+#: seed 88).  Defects of bf16 rounding's own size in the kernel read 0.465
+#: / 0.0846 (y read after the decay) and 0.500 / 0.0859 (y rounded toward
+#: zero) (scripts/wkv6_logit_control.py).  The mean, over 262,144 logits,
+#: separates them: its limit sits 1.25x above the sound reading and 1.21x
+#: below the defects'.  The max, one extreme of a bf16-quantized
+#: difference, gets 1.32x above the sound reading and still sits below both
+LOGIT_TOL = {"recurrentgemma_2b": (0.25, 0.05), "rwkv6_7b": (0.45, 0.07)}
+#: either path may round differently, but the kernel path must not carry
+#: the logits further from the float32 model than the plain twin does: its
+#: max and mean distance to `f32_logits` at most this factor times the
+#: twin's (both models measured within 1.03); a defect moving logits by
+#: O(1) shows as a factor of several
+F32_DISTANCE_RATIO = 1.25
 
 N_JOBS = 48
 N_MACHINES = 2048
@@ -584,21 +616,155 @@ def kernel_rglru(report: list) -> None:
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")}))
 
 
+#: wkv6 cases: (label, (B, S, H, N), dtype); the first is the prefill of
+#: every rwkv6-7b layer at B=4, S=4096, the next two its decode steps.
+#: bf16 cases draw unit-scale r, k, v and the model's decays; the f32 case
+#: draws as tests/test_kernels.py does (r, k, v at scale 0.5, w in
+#: (0.45, 0.95)), the inputs its 2e-5 limit was set for (see `wkv_draw`)
+WKV_CASES = (
+    ("prefill", (GEN_B, GEN_S, 64, 64), "bfloat16"),
+    ("decode_b4", (GEN_B, 1, 64, 64), "bfloat16"),
+    ("decode_b8", (SERVE_B, 1, 64, 64), "bfloat16"),
+    ("ragged", (2, 1000, 64, 64), "bfloat16"),
+    ("smoke_f32", (2, 256, 4, 16), "float32"),
+)
+#: the kernel's final state against the plain version's (tests/test_kernels)
+WKV_STATE_TOL = 1e-3
+
+
+def close(got, want, tol: float) -> tuple[bool, float]:
+    """(every element within tol abs + tol rel, max abs difference)."""
+    diff = (got.float() - want.float()).abs()
+    return (bool((diff <= tol + tol * want.float().abs()).all()),
+            float(diff.max()))
+
+
+def wkv_draw(shape, dtype, seed, model: bool):
+    """r, k, v in ``dtype``; w, u, s0 float32.  ``model``: unit-scale r, k,
+    v and decays as the model draws them (w0 ~ U(-6, -5) per channel, moved
+    by a data-dependent term of the LoRA's reach), so the state sums
+    hundreds of steps and y's terms reach 10 to 100; float32 rounding of
+    that sum then exceeds 2e-5 near y = 0 in any two summation orders, and
+    float32 is held to `ref.f32_error_bound` instead.  Else the draw of
+    tests/test_kernels.py."""
+    import torch
+
+    B, S, H, N = shape
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rand(*sz):
+        return torch.rand(sz, generator=gen, device="cuda")
+
+    def randn(*sz):
+        return torch.randn(sz, generator=gen, device="cuda")
+    scale = 1.0 if model else 0.5
+    r, k, v = ((randn(*shape) * scale).to(getattr(torch, dtype))
+               for _ in range(3))
+    if model:
+        w = torch.exp(-torch.exp((rand(H, N) - 6.0)
+                                 + (rand(*shape) - 0.5) * 0.2))
+        u = rand(H, N) * 0.5
+    else:
+        w = 0.45 + 0.5 * torch.sigmoid(randn(*shape))
+        u = randn(H, N) * 0.3
+    return r, k, v, w, u, randn(B, H, N, N) * 0.1
+
+
+def wkv_case(label, shape, dtype, seed):
+    import torch
+
+    from repro_torch.kernels.rwkv6 import kernel, ref
+
+    B, S, H, N = shape
+    r, k, v, w, u, s0 = wkv_draw(shape, dtype, seed, dtype == "bfloat16")
+    y, sT = kernel.wkv6(r, k, v, w, u, s0)
+    y2, sT2 = ref.wkv6(r, k, v, w, u, s0)
+    torch.cuda.synchronize()
+    tol = 2e-2 if dtype == "bfloat16" else 2e-5
+    check(bool(torch.isfinite(y.float()).all()), f"wkv6 {label}: non-finite")
+    ok, err = close(y, y2, tol)
+    check(ok, f"wkv6 {label}: y differs from plain by {err} (tolerance {tol} "
+              f"abs + {tol} rel)")
+    ok, s_err = close(sT, sT2, WKV_STATE_TOL)
+    check(ok, f"wkv6 {label}: final state differs from plain by {s_err}")
+    row = dict(case=label, shape=shape, dtype=dtype, max_abs_err=err,
+               state_err=s_err, tol=tol)
+    if dtype == "float32":
+        # the same shape at the model's draw, where the fixed 2e-5 does not
+        # apply: within twice the first-order float32 rounding bound
+        m_args = wkv_draw(shape, dtype, seed, True)
+        ym, sm = kernel.wkv6(*m_args)
+        ym2, sm2 = ref.wkv6(*m_args)
+        yb, sb = ref.f32_error_bound(*m_args)
+        dy = (ym.double() - ym2.double()).abs()
+        ds = (sm.double() - sm2.double()).abs()
+        frac = max(float((dy / (2 * yb)).max()), float((ds / (2 * sb)).max()))
+        check(frac <= 1.0, f"wkv6 {label} at the model's draw: kernel and "
+                           f"plain part by {frac}x twice the float32 bound")
+        row.update(model_draw_err=float(dy.max()),
+                   model_draw_bound_frac=frac,
+                   model_draw_ymax=float(ym2.abs().max()))
+    if S > 1:
+        # chained halves: the state the first half returns carries the
+        # second; each step's arithmetic is the same, so bitwise
+        h = S // 2
+        ya, sA = kernel.wkv6(*[t[:, :h].contiguous() for t in (r, k, v, w)],
+                             u, s0)
+        yb, sB = kernel.wkv6(*[t[:, h:].contiguous() for t in (r, k, v, w)],
+                             u, sA)
+        torch.cuda.synchronize()
+        check(torch.equal(torch.cat([ya, yb], 1), y) and torch.equal(sB, sT),
+              f"wkv6 {label}: chained halves != the whole run")
+        row.update(halves_bitwise=True)
+    reps = (10, 1) if S > 1000 else (200, 20)
+    ms = cuda_time_ms(lambda: kernel.wkv6(r, k, v, w, u, s0), reps[0])
+    plain = cuda_time_ms(lambda: ref.wkv6(r, k, v, w, u, s0), reps[1], 0)
+    # per state element and step, y += r_i*S_ij (an FMA) and S_ij = w_i*S_ij
+    # + k_i*v_j (a product and an FMA): 5; the bonus sum_i r_i*u_i*k_i*v_j
+    # is v_j times one dot product per (b, t, h), 3 N + 2 N more
+    n_ops = 5.0 * B * S * H * (N * N + N)
+    b, by = bound_ms(nbytes(r, k, v, w, u, s0, y, sT), n_ops, F32_OPS_PER_S)
+    row.update(ms=ms, plain_ms=plain, bound_ms=b, bound_by=by)
+    say("kernel", name="wkv6", case=label, shape="B={},S={},H={},N={}".format(
+        *shape), dtype=dtype, max_abs_err=f"{err:.3e}",
+        state_err=f"{s_err:.3e}", tol=tol,
+        **{k: row[k] for k in ("halves_bitwise", "model_draw_err",
+                               "model_draw_bound_frac", "model_draw_ymax")
+           if k in row},
+        ms=round(ms, 6), plain_ms=round(plain, 6), bound_ms=f"{b:.3e}",
+        bound_by=by)
+    return row
+
+
+def kernel_wkv6(report: list) -> None:
+    cases = [wkv_case(*c, seed=41 + i) for i, c in enumerate(WKV_CASES)]
+    report.append(dict(
+        name="wkv6", route="cuda",
+        source="src/repro_torch/kernels/rwkv6/csrc/wkv6.cu",
+        replaces="src/repro/kernels/rwkv6/kernel.py:59",
+        library_ms=None, cases=cases, **{k: cases[0][k] for k in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")}))
+
+
 # ----------------------------------------------------------------------
-# phases 6 and 7: full-width recurrentgemma-2b serving
+# phases 6, 7, 9 and 10: full-width serving
 # ----------------------------------------------------------------------
 
-def lm_launches() -> dict:
+def lm_families():
     from repro_torch.kernels.flash_attention import kernel as fk
     from repro_torch.kernels.rg_lru import kernel as rk
-    return {**fk.launch_counts(), **rk.launch_counts()}
+    from repro_torch.kernels.rwkv6 import kernel as wk
+    return fk, rk, wk
+
+
+def lm_launches() -> dict:
+    return {k: v for fam in lm_families()
+            for k, v in fam.launch_counts().items()}
 
 
 def lm_reset() -> None:
-    from repro_torch.kernels.flash_attention import kernel as fk
-    from repro_torch.kernels.rg_lru import kernel as rk
-    fk.reset_launches()
-    rk.reset_launches()
+    for fam in lm_families():
+        fam.reset_launches()
 
 
 def set_pin(plain: bool) -> None:
@@ -609,25 +775,30 @@ def set_pin(plain: bool) -> None:
         os.environ.pop(pin.PIN_ENV, None)
 
 
-def full_model():
+def full_model(arch: str):
     import torch
 
     from repro_torch import configs
     from repro_torch.models import model as M
 
-    cfg = configs.get(LM_ARCH)
+    cfg = configs.get(arch)
     t0 = time.perf_counter()
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     params = M.init_params(cfg, gen, device="cuda", dtype=torch.bfloat16)
     torch.cuda.synchronize()
-    n = sum(t.numel() for t in [params["embed"], params["final_ln"]]) + sum(
-        t.numel() for bp in params["layers"] for t in _leaves(bp))
-    return cfg, params, n, time.perf_counter() - t0
+    n = sum(t.numel() for t in _leaves(params))
+    init_s = time.perf_counter() - t0
+    say("lm:model", arch=arch, layers=cfg.n_layers, d_model=cfg.d_model,
+        vocab=cfg.vocab, params=n, dtype="bfloat16", init_s=round(init_s, 3))
+    return cfg, params, n
 
 
 def _leaves(node):
     if isinstance(node, dict):
         for v in node.values():
+            yield from _leaves(v)
+    elif isinstance(node, list):
+        for v in node:
             yield from _leaves(v)
     else:
         yield node
@@ -641,8 +812,18 @@ def generate_run(cfg, params, prompt, plain: bool) -> dict:
 
     from repro_torch.serve import engine
 
-    # time each decode step of greedy_generate (synchronized on both sides)
+    # time greedy_generate's prefill and each of its decode steps
+    # (synchronized on both sides); keep the prefill's logits
     make_step, step_s = engine.make_decode_fn, []
+    prefill, pre = M.prefill, {}
+
+    def timed_prefill(*args, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = prefill(*args, **kw)
+        torch.cuda.synchronize()
+        pre["s"], pre["logits"] = time.perf_counter() - t, out[0]
+        return out
 
     def timed_make(c):
         step = make_step(c)
@@ -658,13 +839,10 @@ def generate_run(cfg, params, prompt, plain: bool) -> dict:
 
     set_pin(plain)
     engine.make_decode_fn = timed_make
+    M.prefill = timed_prefill
     try:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        logits, _ = M.prefill(params, cfg, {"tokens": prompt}, last_only=True)
-        torch.cuda.synchronize()
-        prefill_s = time.perf_counter() - t0
         lm_reset()
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
         toks = greedy_generate(params, cfg, prompt, GEN_NEW, device="cuda")
         torch.cuda.synchronize()
@@ -672,8 +850,10 @@ def generate_run(cfg, params, prompt, plain: bool) -> dict:
         launches = lm_launches()
     finally:
         engine.make_decode_fn = make_step
+        M.prefill = prefill
         set_pin(False)
     check(len(step_s) == GEN_NEW, f"{len(step_s)} decode steps timed")
+    logits, prefill_s = pre["logits"], pre["s"]
     check(tuple(logits.shape) == (GEN_B, 1, cfg.vocab_padded)
           and bool(torch.isfinite(logits).all()),
           f"prefill logits: shape {tuple(logits.shape)} or non-finite")
@@ -732,11 +912,46 @@ def decode_turns(cfg, params, prompt, rounds: int = 6) -> dict:
             for side, (steps, host) in out.items()}
 
 
-def lm_generate(cfg, params, summary: dict) -> dict:
+def path_launches(cfg) -> tuple[dict, dict]:
+    """Kernel launches of one prefill and of one decode step: flash in each
+    attention layer's prefill (decode attention is plain PyTorch), rg_lru
+    and wkv6 in each recurrent layer's prefill and step."""
+    n = {kind: sum(m == kind for m, _ in cfg.layer_plan)
+         for kind in ("attn", "local", "rglru", "rwkv")}
+    step = {"flash_attention": 0, "rglru_scan": n["rglru"],
+            "wkv6": n["rwkv"]}
+    return dict(step, flash_attention=n["attn"] + n["local"]), step
+
+
+def f32_logits(cfg, params, prompt):
+    """Last-position prefill logits of the same weights in float32,
+    through the plain versions: the yardstick of bf16 rounding on either
+    path."""
     import torch
 
-    n_local = sum(m == "local" for m, _ in cfg.layer_plan)
-    n_rec = sum(m == "rglru" for m, _ in cfg.layer_plan)
+    from repro_torch.models import model as M
+
+    def f32(node):
+        if isinstance(node, dict):
+            return {k: f32(v) for k, v in node.items()}
+        if isinstance(node, list):
+            return [f32(v) for v in node]
+        return node.float()
+    set_pin(True)
+    try:
+        logits, _ = M.prefill(f32(params), cfg, {"tokens": prompt},
+                              last_only=True)
+    finally:
+        set_pin(False)
+    torch.cuda.empty_cache()
+    return logits
+
+
+def lm_generate(arch, cfg, params, summary: dict, turns: bool) -> dict:
+    import torch
+
+    pre, step = path_launches(cfg)
+    tol_max, tol_mean = LOGIT_TOL[arch]
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     prompt = torch.randint(0, cfg.vocab, (GEN_B, GEN_S), generator=gen,
                            device="cuda")
@@ -744,24 +959,26 @@ def lm_generate(cfg, params, summary: dict) -> dict:
     kern = generate_run(cfg, params, prompt, plain=False)
     peak = torch.cuda.max_memory_allocated()
     twin = generate_run(cfg, params, prompt, plain=True)
-    turns = decode_turns(cfg, params, prompt)
-    say("lm:decode_turns", order="kernels,plain,plain,kernels x6",
-        step_ms_median=round(turns["kernels"]["step_ms_median"], 3),
-        twin_step_ms_median=round(turns["plain"]["step_ms_median"], 3),
-        rglru_host_ms_per_step=round(turns["kernels"]["scan_host_ms_median"],
-                                     3),
-        twin_rglru_host_ms_per_step=round(
-            turns["plain"]["scan_host_ms_median"], 3))
-    want = {"flash_attention": n_local, "rglru_scan": n_rec * (1 + GEN_NEW)}
+    if turns:
+        turns = decode_turns(cfg, params, prompt)
+        say("lm:decode_turns", order="kernels,plain,plain,kernels x6",
+            step_ms_median=round(turns["kernels"]["step_ms_median"], 3),
+            twin_step_ms_median=round(turns["plain"]["step_ms_median"], 3),
+            rglru_host_ms_per_step=round(
+                turns["kernels"]["scan_host_ms_median"], 3),
+            twin_rglru_host_ms_per_step=round(
+                turns["plain"]["scan_host_ms_median"], 3))
+    want = {k: pre[k] + GEN_NEW * step[k] for k in pre}
     check(kern["launches"] == want,
           f"generate launches {kern['launches']}, expected {want}")
     check(not any(twin["launches"].values()),
           f"the plain-pinned twin launched kernels: {twin['launches']}")
     diff = (kern["logits"] - twin["logits"]).abs()
     d_max, d_mean = float(diff.max()), float(diff.mean())
-    check(d_max <= LOGIT_TOL_MAX and d_mean <= LOGIT_TOL_MEAN,
-          f"prefill logits differ from the plain twin: max {d_max} "
-          f"(tol {LOGIT_TOL_MAX}), mean {d_mean} (tol {LOGIT_TOL_MEAN})")
+    ref32 = f32_logits(cfg, params, prompt)
+    to_f32 = {tag: [float(f((r["logits"] - ref32).abs())) for f in
+                    (torch.max, torch.mean)]
+              for tag, r in (("kernels", kern), ("plain_twin", twin))}
     same = kern["tokens"] == twin["tokens"]
     per_step = [int(c) for c in same.sum(0)]
     first_miss = [int(r.logical_not().nonzero()[0]) if not bool(r.all())
@@ -776,11 +993,11 @@ def lm_generate(cfg, params, summary: dict) -> dict:
                         decode_step_ms_mean=sum(ms) / len(ms),
                         decode_step_ms_all=r["step_ms"],
                         launches=r["launches"])
-    say("lm:generate", arch=LM_ARCH, B=GEN_B, S0=GEN_S, n_new=GEN_NEW,
+    say("lm:generate", arch=arch, B=GEN_B, S0=GEN_S, n_new=GEN_NEW,
         pin="REPRO_LM_KERNELS=plain (twin)",
         logits_max_abs_diff=f"{d_max:.4e}",
         logits_mean_abs_diff=f"{d_mean:.4e}",
-        tol=f"{LOGIT_TOL_MAX}/{LOGIT_TOL_MEAN}", first_token_same=argmax_same,
+        tol=f"{tol_max}/{tol_mean}", first_token_same=argmax_same,
         tokens_same_per_step=",".join(map(str, per_step)),
         first_divergence=first_miss,
         prefill_s=round(kern["prefill_s"], 4),
@@ -792,15 +1009,27 @@ def lm_generate(cfg, params, summary: dict) -> dict:
             out["plain_twin"]["decode_step_ms"], 3),
         launches=json.dumps(kern["launches"], separators=(",", ":")),
         twin_launches=json.dumps(twin["launches"], separators=(",", ":")),
-        peak_gb=round(peak / 1e9, 3))
-    summary["generate"] = dict(
+        peak_gb=round(peak / 1e9, 3),
+        logits_std=f"{float(twin['logits'].std()):.4e}",
+        f32_max_mean_diff=json.dumps(
+            {k: [f"{x:.4e}" for x in v] for k, v in to_f32.items()},
+            separators=(",", ":")))
+    check(d_max <= tol_max and d_mean <= tol_mean,
+          f"prefill logits differ from the plain twin: max {d_max} "
+          f"(tol {tol_max}), mean {d_mean} (tol {tol_mean})")
+    check(all(k <= F32_DISTANCE_RATIO * t for k, t in
+              zip(to_f32["kernels"], to_f32["plain_twin"])),
+          f"the kernel path is further from the float32 model than its "
+          f"plain twin by more than {F32_DISTANCE_RATIO}x: {to_f32}")
+    summary[f"{arch}:generate"] = dict(
         out, logits_max_abs_diff=d_max, logits_mean_abs_diff=d_mean,
+        f32_max_mean_diff=to_f32,
         tokens_same_per_step=per_step, first_divergence=first_miss,
         first_token_same=argmax_same, peak_bytes=peak, decode_turns=turns)
     return kern["launches"]
 
 
-def lm_serve(cfg, params, summary: dict) -> dict:
+def lm_serve(arch, cfg, params, summary: dict) -> dict:
     import numpy as np
     import torch
 
@@ -829,16 +1058,14 @@ def lm_serve(cfg, params, summary: dict) -> dict:
     answered = sum(r is not None and len(r) == SERVE_NEW
                    and bool(((r >= 0) & (r < cfg.vocab)).all()) for r in res)
     check(answered == SERVE_N, f"Batcher answered {answered} of {SERVE_N}")
-    n_rec = sum(m == "rglru" for m, _ in cfg.layer_plan)
-    check(launches["rglru_scan"] == n_rec * steps[0],
-          f"Batcher rglru launches {launches['rglru_scan']}, expected "
-          f"{n_rec * steps[0]}")
-    say("lm:serve", batch=SERVE_B, max_seq=SERVE_MAX_SEQ, requests=SERVE_N,
+    want = {k: n * steps[0] for k, n in path_launches(cfg)[1].items()}
+    check(launches == want, f"Batcher launches {launches}, expected {want}")
+    say("lm:serve", arch=arch, batch=SERVE_B, max_seq=SERVE_MAX_SEQ, requests=SERVE_N,
         answered=answered, prompt=SERVE_PROMPT, n_new=SERVE_NEW,
         decode_steps=steps[0], wall_s=round(wall, 4),
         step_ms=round(wall / steps[0] * 1e3, 3),
         launches=json.dumps(launches, separators=(",", ":")))
-    summary["serve"] = dict(answered=answered, decode_steps=steps[0],
+    summary[f"{arch}:serve"] = dict(answered=answered, decode_steps=steps[0],
                             wall_s=wall, step_ms=wall / steps[0] * 1e3,
                             launches=launches)
     return launches
@@ -865,6 +1092,7 @@ def main() -> int:
     from repro_torch.kernels.flash_attention import kernel as flash_kernel
     from repro_torch.kernels.placement_scan import kernel
     from repro_torch.kernels.rg_lru import kernel as rglru_kernel
+    from repro_torch.kernels.rwkv6 import kernel as wkv_kernel
     from repro_torch.sim import clear_schedule_cache, online_mix_workload
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -875,7 +1103,7 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip().splitlines()
     smi0 = smi[0] if smi else "nvidia-smi unavailable"
-    families = (kernel, flash_kernel, rglru_kernel)
+    families = (kernel, flash_kernel, rglru_kernel, wkv_kernel)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(families)) as pool:   # one nvcc per source
         paths = list(pool.map(lambda fam: fam.build(verbose=True), families))
@@ -916,17 +1144,21 @@ def main() -> int:
 
     kernel_flash(report)
     kernel_rglru(report)
-    cfg, params, n_params, init_s = full_model()
-    say("lm:model", arch=LM_ARCH, layers=cfg.n_layers, d_model=cfg.d_model,
-        vocab=cfg.vocab, params=n_params, dtype="bfloat16",
-        init_s=round(init_s, 3))
-    gen_launches = lm_generate(cfg, params, summary)
-    serve_launches = lm_serve(cfg, params, summary)
-    del params
-    torch.cuda.empty_cache()
-    for k in gen_launches:
-        launches[k] = gen_launches[k] + serve_launches[k]
-    summary["lm_launches"] = dict(generate=gen_launches, serve=serve_launches)
+    lm_params, lm_runs = {}, {}
+    for arch in (LM_ARCH, RWKV_ARCH):
+        if arch == RWKV_ARCH:
+            kernel_wkv6(report)
+        cfg, params, lm_params[arch] = full_model(arch)
+        lm_runs[arch] = dict(
+            generate=lm_generate(arch, cfg, params, summary,
+                                 turns=arch == LM_ARCH),
+            serve=lm_serve(arch, cfg, params, summary))
+        del params
+        torch.cuda.empty_cache()
+    for k in lm_launches():
+        launches[k] = sum(run[k] for runs in lm_runs.values()
+                          for run in runs.values())
+    summary["lm_launches"] = lm_runs
     for r in report:
         r["launches"] = launches[r["name"]]
         check(r["launches"] > 0, f"{r['name']} never launched on the path")
@@ -938,7 +1170,7 @@ def main() -> int:
     with open(os.path.join(out_dir, "chip_smoke_report.json"), "w") as f:
         json.dump({"device": name, "nvidia_smi": smi, "build_s": build_s,
                    "n_jobs": N_JOBS, "n_machines": N_MACHINES,
-                   "lm_params": n_params,
+                   "lm_params": lm_params,
                    "kernels": report, "scan_shapes": [
                        [list(k), v] for k, v in top], "paths": summary},
                   f, indent=1, default=str)

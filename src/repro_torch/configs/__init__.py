@@ -10,11 +10,10 @@ from __future__ import annotations
 
 import importlib
 
-ARCH_IDS = ["recurrentgemma_2b"]
+ARCH_IDS = ["recurrentgemma_2b", "rwkv6_7b"]
 
 #: reference architectures still to come, and the slice that brings each
 LATER = {
-    "rwkv6_7b": "the rwkv6-7b slice (wkv6 kernel)",
     "deepseek_moe_16b": "the MoE slice",
     "mixtral_8x7b": "the MoE slice",
     "qwen2_vl_7b": "the M-RoPE / vision slice",

@@ -1,10 +1,10 @@
 """Build and load one kernel family's CUDA source as a plain C library.
 
-Each family (``placement_scan``, ``flash_attention``, ``rg_lru``) keeps
-its source under ``csrc/`` and its own ``nvcc`` flags.  `NvccLibrary`
-compiles the source at first use into a shared library with a plain C
-interface (no PyTorch headers, so a build takes seconds) and loads it with
-``ctypes``.  The library lands in ``build/repro_torch_kernels/`` at the
+Each family (``placement_scan``, ``flash_attention``, ``rg_lru``,
+``rwkv6``) keeps its source under ``csrc/`` and its own ``nvcc`` flags.
+`NvccLibrary` compiles the source at first use into a shared library with a
+plain C interface (no PyTorch headers, so a build takes seconds) and loads
+it with ``ctypes``.  The library lands in ``build/repro_torch_kernels/`` at the
 repository root (override with ``REPRO_TORCH_BUILD_DIR``), named by a hash
 of the source and the flags, so an edited source rebuilds and an unchanged
 one loads the cached build.  Nothing is compiled until a wrapper runs on a

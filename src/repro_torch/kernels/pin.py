@@ -1,10 +1,10 @@
 """Explicit pin of the LM kernel ops to their plain versions on the card.
 
-With ``REPRO_LM_KERNELS=plain`` the ops ``flash_attention`` and
-``rglru_scan`` run their plain PyTorch versions (``ref.py``) on CUDA
-tensors instead of launching their kernels; that is how a run is compared
-with its plain twin on the same card.  Unset (or empty), a CUDA tensor
-always launches the kernel.  The pin never moves work to the CPU.
+With ``REPRO_LM_KERNELS=plain`` the ops ``flash_attention``,
+``rglru_scan`` and ``wkv6`` run their plain PyTorch versions (``ref.py``)
+on CUDA tensors instead of launching their kernels; that is how a run is
+compared with its plain twin on the same card.  Unset (or empty), a CUDA
+tensor always launches the kernel.  The pin never moves work to the CPU.
 """
 
 from __future__ import annotations

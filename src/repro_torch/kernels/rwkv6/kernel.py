@@ -1,0 +1,78 @@
+"""Build, bind and launch the WKV6 kernel (``csrc/wkv6.cu``).
+
+The wrapper checks device, dtype, shape and contiguity, launches on
+PyTorch's current stream, raises if ``cudaGetLastError`` reports a refused
+launch, and adds one to ``LAUNCHES``.  Nothing is compiled until a wrapper
+runs on a CUDA tensor (``kernels/build.py``).
+"""
+
+from __future__ import annotations
+
+import ctypes
+from pathlib import Path
+
+import torch
+
+from ..build import NvccLibrary, check_launch, need, ptr, stream
+
+_SRC = Path(__file__).resolve().parent / "csrc" / "wkv6.cu"
+#: head widths the kernel is instantiated for (one thread per state column)
+HEAD_SIZES = (16, 32, 64)
+
+#: launches since the last `reset_launches` (the wrapper is the only writer)
+LAUNCHES = {"wkv6": 0}
+
+
+def reset_launches() -> None:
+    LAUNCHES["wkv6"] = 0
+
+
+def launch_counts() -> dict[str, int]:
+    return dict(LAUNCHES)
+
+
+def _bind(handle: ctypes.CDLL) -> None:
+    vp, i = ctypes.c_void_p, ctypes.c_int
+    handle.wkv6_fwd.argtypes = [vp] * 8 + [i] * 5 + [vp]
+    handle.wkv6_fwd.restype = ctypes.c_int
+
+
+#: the sum over i runs in another order than the plain version's, so FMA
+#: contraction costs nothing the tolerance does not already allow
+LIBRARY = NvccLibrary("wkv6", _SRC, (), _bind)
+build = LIBRARY.build
+lib = LIBRARY.lib
+
+
+def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
+         u: torch.Tensor, state: torch.Tensor):
+    """Same contract as ``ref.wkv6``.  r, k, v (B, S, H, N), all bfloat16 or
+    all float32; w (B, S, H, N), u (H, N) and state (B, H, N, N) float32;
+    N in `HEAD_SIZES`; any S >= 1."""
+    if r.dim() != 4:
+        raise ValueError(f"r must be (B, S, H, N), got {tuple(r.shape)}")
+    B, S, H, N = r.shape
+    if N not in HEAD_SIZES:
+        raise ValueError(f"head size {N} is not one of {HEAD_SIZES}")
+    if S < 1:
+        raise ValueError("wkv6 needs at least one timestep")
+    dev = r.device
+    if dev.type != "cuda":
+        raise ValueError(f"the wkv6 kernel runs on cuda tensors, not {dev}")
+    dt = (torch.bfloat16, torch.float32)
+    need(r, "r", dt, (B, S, H, N), dev)
+    need(k, "k", r.dtype, (B, S, H, N), dev)
+    need(v, "v", r.dtype, (B, S, H, N), dev)
+    need(w, "w", torch.float32, (B, S, H, N), dev)
+    need(u, "u", torch.float32, (H, N), dev)
+    need(state, "state", torch.float32, (B, H, N, N), dev)
+    y = torch.empty_like(r)
+    sT = torch.empty_like(state)
+    if B == 0 or H == 0:
+        return y, sT
+    err = lib().wkv6_fwd(ptr(r), ptr(k), ptr(v), ptr(w), ptr(u), ptr(state),
+                         ptr(y), ptr(sT), B, S, H, N,
+                         int(r.dtype == torch.bfloat16), stream(r))
+    check_launch(err, "wkv6")
+    LAUNCHES["wkv6"] += 1
+    return y, sT

@@ -1,0 +1,21 @@
+"""Entry point of the WKV6 recurrence: the kernel for CUDA tensors.
+
+A CPU tensor takes the plain PyTorch version (``ref.py``); a CUDA tensor
+launches the hand-written kernel (``kernel.py``) or raises, unless
+``REPRO_LM_KERNELS`` pins the op to its plain version (``kernels/pin.py``).
+There is no fallback from the kernel to the plain version.
+"""
+
+from __future__ import annotations
+
+from .. import pin
+from . import ref
+
+
+def wkv6(r, k, v, w, u, state):
+    """r, k, v, w (B, S, H, N); u (H, N); state (B, H, N, N) f32 ->
+    (y (B, S, H, N) in r's dtype, final state f32)."""
+    if pin.use_kernel("wkv6", r):
+        from . import kernel
+        return kernel.wkv6(r, k, v, w, u, state)
+    return ref.wkv6(r, k, v, w, u, state)

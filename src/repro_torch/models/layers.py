@@ -1,19 +1,24 @@
-"""Model building blocks of the recurrentgemma serving path, in PyTorch.
+"""Model building blocks of the recurrentgemma and rwkv6 serving paths, in
+PyTorch.
 
-Ports the parts of ``repro.models.layers`` that recurrentgemma-2b runs:
-RMSNorm (gemma-style ``(1 + w)`` scaling), tanh soft-cap, RoPE (half-split
-rotation), GQA/MQA attention with a sliding window, the geglu/swiglu MLPs
-and the Griffin RG-LRU recurrent block.  Every function is functional:
-params in, activations out, with the reference's parameter layouts
-(``wq (d, H, hd)``, ``wo (H, hd, d)``, ...).  Decode variants take and
-return explicit state.
+Ports the parts of ``repro.models.layers`` that recurrentgemma-2b and
+rwkv6-7b run: RMSNorm (gemma-style ``(1 + w)`` scaling), tanh soft-cap,
+RoPE (half-split rotation), GQA/MQA attention with a sliding window, the
+geglu/swiglu MLPs, the Griffin RG-LRU recurrent block, and the RWKV6
+time-mix (data-dependent decay) and channel-mix.  Every function is
+functional: params in, activations out, with the reference's parameter
+layouts (``wq (d, H, hd)``, ``wo (H, hd, d)``, ...).  Decode variants take
+and return explicit state.  The initializers take a ``torch.Generator`` and
+``device="cuda"`` by default, which raises without a card.
 
-Prefill attention goes through the flash-attention op and the RG-LRU scan
-through the rg_lru op (``repro_torch.kernels``): the hand-written kernel on
-a CUDA tensor, the plain version on a CPU tensor.  Decode attention is a
-one-query softmax over the cache in plain PyTorch, as the reference keeps
-it outside any kernel.  MoE, RWKV, M-RoPE and sinusoidal positions come
-with the slices that need them.
+Prefill attention goes through the flash-attention op, the RG-LRU scan
+through the rg_lru op and the WKV recurrence through the wkv6 op
+(``repro_torch.kernels``): the hand-written kernel on a CUDA tensor, the
+plain version on a CPU tensor.  Decode attention is a one-query softmax
+over the cache in plain PyTorch, as the reference keeps it outside any
+kernel.  The reference's ``logical(...)`` sharding annotations are the
+identity outside a mesh and are left out.  MoE, M-RoPE and sinusoidal
+positions come with the slices that need them.
 """
 
 from __future__ import annotations
@@ -24,8 +29,10 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ..core.engine.kernels import check_device
 from ..kernels.flash_attention import ops as flash_ops
 from ..kernels.rg_lru import ops as rglru_ops
+from ..kernels.rwkv6 import ops as rwkv6_ops
 
 Params = dict
 
@@ -118,7 +125,8 @@ def _normal(gen: torch.Generator, shape, std: float, dtype, device):
 
 
 def attn_init(gen: torch.Generator, cfg: AttnConfig, dtype=torch.bfloat16,
-              device="cpu") -> Params:
+              device="cuda") -> Params:
+    check_device(device)
     d, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     s = 1.0 / math.sqrt(d)
     return {
@@ -197,7 +205,8 @@ def attn_decode(p: Params, x: torch.Tensor, cfg: AttnConfig, cache: Params,
 # ----------------------------------------------------------------------
 
 def mlp_init(gen: torch.Generator, d: int, f: int, kind: str = "swiglu",
-             dtype=torch.bfloat16, device="cpu") -> Params:
+             dtype=torch.bfloat16, device="cuda") -> Params:
+    check_device(device)
     if kind not in ("swiglu", "geglu"):
         raise NotImplementedError(
             f"mlp kind {kind!r}: the plain 2-layer MLP comes with the "
@@ -231,7 +240,8 @@ class RGLRUConfig:
 
 
 def rglru_init(gen: torch.Generator, cfg: RGLRUConfig, dtype=torch.bfloat16,
-               device="cpu") -> Params:
+               device="cuda") -> Params:
+    check_device(device)
     d, dr = cfg.d_model, cfg.d_rnn
     s = 1.0 / math.sqrt(d)
     sr = 1.0 / math.sqrt(dr)
@@ -295,3 +305,127 @@ def rglru_block(p: Params, x: torch.Tensor, cfg: RGLRUConfig,
     h, new_h = rglru_scan(gated, a, h0.float())
     out = (h.to(x.dtype) * gate) @ p["w_out"]
     return out, (new_conv_carry, new_h)
+
+
+# ----------------------------------------------------------------------
+# RWKV6 (Finch): time-mix with data-dependent decay + channel-mix
+# ----------------------------------------------------------------------
+
+@dataclasses.dataclass
+class RWKVConfig:
+    d_model: int
+    n_heads: int            # head size = d_model // n_heads (usually 64)
+    d_ff: int
+    lora_rank: int = 64
+
+    @property
+    def head_size(self) -> int:
+        return self.d_model // self.n_heads
+
+
+def _uniform(gen: torch.Generator, shape, scale: float, shift: float,
+             device) -> torch.Tensor:
+    u = torch.rand(shape, generator=gen, dtype=torch.float32, device=device)
+    return u * scale + shift
+
+
+def rwkv_init(gen: torch.Generator, cfg: RWKVConfig, dtype=torch.bfloat16,
+              device="cuda") -> Params:
+    """Time-mix and channel-mix weights of one layer, the reference's
+    shapes and scales; ``mu``, ``w0``, ``u``, ``ln_w`` and ``cm_mu`` stay
+    float32, the rest take ``dtype``."""
+    check_device(device)
+    d, r, f = cfg.d_model, cfg.lora_rank, cfg.d_ff
+    s = 1.0 / math.sqrt(d)
+
+    def normal(shape, std):
+        return _normal(gen, shape, std, dtype, device)
+
+    return {
+        # token-shift mixing coefficients (static part) for r, k, v, g, w
+        "mu": _uniform(gen, (5, d), 0.5, 0.25, device),
+        # data-dependent token-shift LoRA (shared A, per-stream B)
+        "tm_a": normal((d, 5 * 32), s),
+        "tm_b": normal((5, 32, d), 0.01),
+        "wr": normal((d, d), s),
+        "wk": normal((d, d), s),
+        "wv": normal((d, d), s),
+        "wg": normal((d, d), s),
+        "wo": normal((d, d), s),
+        # decay: w = exp(-exp(w0 + lora(x)))
+        "w0": _uniform(gen, (d,), -1.0, -5.0, device),
+        "wd_a": normal((d, r), s),
+        "wd_b": normal((r, d), 0.01),
+        "u": _uniform(gen, (d,), 0.5, 0.0, device),          # bonus
+        "ln_w": torch.ones((d,), dtype=torch.float32, device=device),
+        "cm_mu": _uniform(gen, (2, d), 0.5, 0.25, device),
+        "cm_k": normal((d, f), s),
+        "cm_v": normal((f, d), 1.0 / math.sqrt(f)),
+        "cm_r": normal((d, d), s),
+    }
+
+
+def _token_shift(x: torch.Tensor, x_carry: torch.Tensor | None):
+    """x shifted right by one along S, the carry (or zeros) in front; the
+    concatenation promotes a bf16 carry against f32 x, as jnp's does."""
+    if x_carry is None:
+        x_carry = torch.zeros((x.shape[0], x.shape[2]), dtype=x.dtype,
+                              device=x.device)
+    return torch.cat([x_carry[:, None, :], x[:, :-1, :]], dim=1)
+
+
+def _rwkv_streams(p: Params, x: torch.Tensor, x_prev: torch.Tensor):
+    """Token-shift mixed streams (r, k, v, g, w) per RWKV6, in float32.
+
+    x: (B, S, d); x_prev: x shifted right by one (with carry for decode).
+    """
+    delta = (x_prev - x).float()
+    tm = torch.tanh(x.float() @ p["tm_a"].float())
+    tm = tm.reshape(*x.shape[:-1], 5, 32)
+    dyn = torch.einsum("...ni,nid->...nd", tm, p["tm_b"].float())
+    mixed = x[..., None, :].float() + delta[..., None, :] * (p["mu"] + dyn)
+    return [mixed[..., i, :] for i in range(5)]
+
+
+def rwkv_time_mix(p: Params, x: torch.Tensor, cfg: RWKVConfig,
+                  x_carry: torch.Tensor | None = None,
+                  state: torch.Tensor | None = None):
+    """RWKV6 attention-free mixer.
+
+    x: (B, S, d); x_carry (B, d): last token of the previous chunk; state
+    (B, H, N, N) f32 WKV state.  Returns (out, (new_x_carry, new_state)).
+    """
+    B, S, d = x.shape
+    H, N = cfg.n_heads, cfg.head_size
+    xr, xk, xv, xg, xw = _rwkv_streams(p, x, _token_shift(x, x_carry))
+    dt = x.dtype
+    r = (xr.to(dt) @ p["wr"]).reshape(B, S, H, N)
+    k = (xk.to(dt) @ p["wk"]).reshape(B, S, H, N)
+    v = (xv.to(dt) @ p["wv"]).reshape(B, S, H, N)
+    g = F.silu(xg.to(dt) @ p["wg"])
+    wlog = p["w0"] + (torch.tanh(xw.to(dt) @ p["wd_a"]).float()
+                      @ p["wd_b"].float())
+    w = torch.exp(-torch.exp(wlog)).reshape(B, S, H, N)   # decay in (0, 1)
+    u = p["u"].reshape(H, N)
+    if state is None:
+        state = torch.zeros((B, H, N, N), dtype=torch.float32,
+                            device=x.device)
+    y, new_state = rwkv6_ops.wkv6(r.contiguous(), k.contiguous(),
+                                  v.contiguous(), w.contiguous(),
+                                  u.contiguous(), state.contiguous())
+    # per-head group norm
+    y = rms_norm(y.reshape(B, S, H, N), p["ln_w"].reshape(H, N), eps=1e-5)
+    y = y.reshape(B, S, d) * g
+    return y.to(dt) @ p["wo"], (x[:, -1, :], new_state)
+
+
+def rwkv_channel_mix(p: Params, x: torch.Tensor,
+                     x_carry: torch.Tensor | None = None):
+    """RWKV channel-mix FFN with token shift.  Returns (out, new_carry)."""
+    x_prev = _token_shift(x, x_carry)
+    mu = p["cm_mu"]
+    xk = x + (x_prev - x) * mu[0].to(x.dtype)
+    xr = x + (x_prev - x) * mu[1].to(x.dtype)
+    kk = torch.square(torch.relu(xk @ p["cm_k"]))
+    out = torch.sigmoid(xr @ p["cm_r"]) * (kk @ p["cm_v"])
+    return out, x[:, -1, :]

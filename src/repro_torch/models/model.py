@@ -1,9 +1,10 @@
 """Decoder assembly: config -> params -> forward / prefill / decode.
 
 Ports ``repro.models.model`` for the mixers and ffns of the recurrentgemma
-serving path: ``attn`` (global), ``local`` (sliding window) and ``rglru``
-mixers with the dense ``geglu``/``swiglu`` ffns.  Any other mixer or ffn
-raises ``NotImplementedError`` naming the slice that brings it.
+and rwkv6 serving paths: ``attn`` (global), ``local`` (sliding window),
+``rglru`` and ``rwkv`` mixers with the dense ``geglu``/``swiglu`` ffns and
+the RWKV channel-mix (``rwkv_cm``).  Any other mixer, ffn or position
+embedding raises ``NotImplementedError`` naming the slice that brings it.
 
 Each layer is (mixer kind, ffn kind) from ``ArchConfig.layer_plan``.  The
 reference stacks the repeating body of layers and runs it under
@@ -11,7 +12,9 @@ reference stacks the repeating body of layers and runs it under
 walked by a Python loop: ``params["layers"][i]`` and
 ``state["layers"][i]`` belong to layer i.  `params_from_jax` and
 `state_from_jax` carry the reference's trees across (unstacking its body).
-Parameter layouts are the reference's (``wq (d, H, hd)``, ...).
+Parameter layouts are the reference's (``wq (d, H, hd)``, ...).  Every
+entry point takes ``device=``: "cuda" by default, which raises without a
+card, or "cpu" for the plain PyTorch versions of the kernels.
 """
 
 from __future__ import annotations
@@ -29,10 +32,9 @@ Params = dict
 
 #: the slice that brings each mixer / ffn this port does not run yet
 _LATER = {
-    "rwkv": "the rwkv6-7b slice (wkv6 kernel)",
-    "rwkv_cm": "the rwkv6-7b slice (wkv6 kernel)",
     "moe": "the MoE slice (mixtral / deepseek-moe)",
     "mlp": "the musicgen slice",
+    "sinusoidal": "the musicgen slice",
 }
 
 
@@ -44,9 +46,9 @@ def _not_yet(kind: str) -> NotImplementedError:
 
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
-    """The reference's ArchConfig fields that the recurrentgemma path
-    reads; the fields of the MoE, RWKV, M-RoPE, audio, vision and
-    post-norm families come with their slices."""
+    """The reference's ArchConfig fields that the recurrentgemma and rwkv6
+    paths read; the fields of the MoE, M-RoPE, audio, vision and post-norm
+    families come with their slices."""
     name: str
     family: str
     n_layers: int
@@ -67,6 +69,8 @@ class ArchConfig:
     tie_embeddings: bool = True
     rglru_width: int | None = None
     conv_width: int = 4
+    pos_embedding: str = "rope"        # rope | none (sinusoidal: later)
+    rwkv_head_size: int = 64
 
     @property
     def vocab_padded(self) -> int:
@@ -95,12 +99,21 @@ class ArchConfig:
         return self.n_layers // len(self.block_pattern)
 
     def attn_cfg(self, mixer: str) -> L.AttnConfig:
+        if self.pos_embedding != "rope":
+            raise NotImplementedError(
+                f"attention with pos_embedding={self.pos_embedding!r} is not "
+                "ported yet: unrotated positions come with a later slice")
         return L.AttnConfig(
             d_model=self.d_model, n_heads=self.n_heads,
             n_kv_heads=self.n_kv_heads, head_dim=self.head_dim,
             rope_theta=self.rope_theta,
             window=self.window if mixer == "local" else None,
             cap=self.attn_cap)
+
+    def rwkv_cfg(self) -> L.RWKVConfig:
+        return L.RWKVConfig(d_model=self.d_model,
+                            n_heads=self.d_model // self.rwkv_head_size,
+                            d_ff=self.d_ff)
 
     def rglru_cfg(self) -> L.RGLRUConfig:
         return L.RGLRUConfig(d_model=self.d_model,
@@ -124,12 +137,17 @@ def _block_init(gen: torch.Generator, cfg: ArchConfig, mixer: str, ffn: str,
         p["attn"] = L.attn_init(gen, cfg.attn_cfg(mixer), dtype, device)
     elif mixer == "rglru":
         p["rglru"] = L.rglru_init(gen, cfg.rglru_cfg(), dtype, device)
+    elif mixer == "rwkv":
+        p["rwkv"] = L.rwkv_init(gen, cfg.rwkv_cfg(), dtype, device)
     else:
         raise _not_yet(mixer)
     p["ln2"] = _norm_w(cfg, device)
-    if ffn not in ("swiglu", "geglu"):
+    if ffn == "rwkv_cm":
+        pass            # rwkv_init already holds the channel-mix weights
+    elif ffn in ("swiglu", "geglu"):
+        p["mlp"] = L.mlp_init(gen, cfg.d_model, cfg.d_ff, ffn, dtype, device)
+    else:
         raise _not_yet(ffn)
-    p["mlp"] = L.mlp_init(gen, cfg.d_model, cfg.d_ff, ffn, dtype, device)
     return p
 
 
@@ -196,20 +214,22 @@ def _unstack(cfg: ArchConfig, tree: dict, device) -> list:
     return out
 
 
-def params_from_jax(cfg: ArchConfig, tree: dict, device="cpu") -> Params:
+def params_from_jax(cfg: ArchConfig, tree: dict, device="cuda") -> Params:
     """The reference's ``init_params`` tree (leaves as numpy arrays, or
     anything ``np.asarray`` takes) as this port's parameters: the stacked
     body is unstacked along axis 0 into one dict per layer; every leaf keeps
     its layout and dtype."""
+    check_device(device)
     params = {key: _to_torch(tree[key], device)
               for key in ("embed", "final_ln", "lm_head") if key in tree}
     params["layers"] = _unstack(cfg, tree, device)
     return params
 
 
-def state_from_jax(cfg: ArchConfig, tree: dict, device="cpu") -> Params:
+def state_from_jax(cfg: ArchConfig, tree: dict, device="cuda") -> Params:
     """The reference's decode-state tree (``init_decode_state`` / ``prefill``
     output) as this port's ``{"layers": [...]}`` state."""
+    check_device(device)
     return {"layers": _unstack(cfg, tree, device)}
 
 
@@ -243,13 +263,27 @@ def _apply_block(bp: Params, x: torch.Tensor, cfg: ArchConfig, mixer: str,
                                       (st["conv"], st["h"]) if st else None)
         if mode != "train":
             new_state["rglru"] = {"conv": conv, "h": hh}
+    elif mixer == "rwkv":
+        st = state.get("rwkv") if state else None
+        a, (xc, s1) = L.rwkv_time_mix(bp["rwkv"], h, cfg.rwkv_cfg(),
+                                      st["x_tm"] if st else None,
+                                      st["s"] if st else None)
+        if mode != "train":
+            new_state["rwkv"] = {"x_tm": xc, "s": s1}
     else:
         raise _not_yet(mixer)
     x = x + a
     h = _norm(x, bp["ln2"], cfg)
-    if ffn not in ("swiglu", "geglu"):
+    if ffn == "rwkv_cm":
+        f, xc = L.rwkv_channel_mix(bp["rwkv"], h,
+                                   state.get("rwkv_cm") if state else None)
+        if mode != "train":
+            new_state["rwkv_cm"] = xc
+    elif ffn in ("swiglu", "geglu"):
+        f = L.mlp_forward(bp["mlp"], h, ffn)
+    else:
         raise _not_yet(ffn)
-    return x + L.mlp_forward(bp["mlp"], h, ffn), new_state
+    return x + f, new_state
 
 
 # ----------------------------------------------------------------------
@@ -258,6 +292,8 @@ def _apply_block(bp: Params, x: torch.Tensor, cfg: ArchConfig, mixer: str,
 
 def _embed(params: Params, cfg: ArchConfig, batch: dict):
     """batch {"tokens": (B, S)} -> (x (B, S, d), positions (B, S))."""
+    if cfg.pos_embedding not in ("rope", "none"):
+        raise _not_yet(cfg.pos_embedding)
     x = params["embed"][batch["tokens"]]
     B, S = x.shape[:2]
     if cfg.embed_scale:
@@ -301,11 +337,14 @@ def forward(params: Params, cfg: ArchConfig, batch: dict):
 
 
 def init_decode_state(cfg: ArchConfig, B: int, S_max: int,
-                      dtype=torch.bfloat16, device="cpu") -> Params:
+                      dtype=torch.bfloat16, device="cuda") -> Params:
     """Zeroed decode state for every layer (KV caches + recurrent states).
-    A local layer's cache holds min(S_max, window) slots: a ring."""
+    A local layer's cache holds min(S_max, window) slots: a ring.  The
+    recurrent states ``rglru.h`` and ``rwkv.s`` are float32, the rest
+    ``dtype``."""
+    check_device(device)
     layers = []
-    for mixer, _ffn in cfg.layer_plan:
+    for mixer, ffn in cfg.layer_plan:
         st: dict = {}
         if mixer in ("attn", "local"):
             KV, hd = cfg.n_kv_heads, cfg.head_dim
@@ -320,8 +359,19 @@ def init_decode_state(cfg: ArchConfig, B: int, S_max: int,
                 "conv": torch.zeros((B, cfg.conv_width - 1, dr), dtype=dtype,
                                     device=device),
                 "h": torch.zeros((B, dr), dtype=torch.float32, device=device)}
+        elif mixer == "rwkv":
+            N = cfg.rwkv_head_size
+            H = cfg.d_model // N
+            st["rwkv"] = {
+                "x_tm": torch.zeros((B, cfg.d_model), dtype=dtype,
+                                    device=device),
+                "s": torch.zeros((B, H, N, N), dtype=torch.float32,
+                                 device=device)}
         else:
             raise _not_yet(mixer)
+        if ffn == "rwkv_cm":
+            st["rwkv_cm"] = torch.zeros((B, cfg.d_model), dtype=dtype,
+                                        device=device)
         layers.append(st)
     return {"layers": layers}
 

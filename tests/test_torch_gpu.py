@@ -11,7 +11,9 @@ Inputs are made from numpy seeds.  The scheduler's kernels and the rg_lru
 scan are compared bitwise; flash attention within 2e-5 (f32) and 2e-2
 (bf16), the tolerances of ``tests/test_kernels.py`` (it sums in another
 order, and its bf16 variant rounds the softmax weights to bf16 for the
-tensor cores).
+tensor cores); wkv6 within the same limits for y and 1e-3 for the final
+state (it sums over i in another order), and in float32 at the model's
+scale within twice the first-order rounding bound ``ref.f32_error_bound``.
 """
 
 import dataclasses
@@ -238,7 +240,7 @@ def test_sim_on_cuda_matches_numpy_pinned(kernel, mode, monkeypatch):
 
 
 # ----------------------------------------------------------------------
-# LM kernels: flash attention and the RG-LRU scan
+# LM kernels: flash attention, the RG-LRU scan and WKV6
 # ----------------------------------------------------------------------
 
 @pytest.fixture
@@ -247,8 +249,9 @@ def lm_kernels():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
     from repro_torch.kernels.flash_attention import kernel as fk
     from repro_torch.kernels.rg_lru import kernel as rk
+    from repro_torch.kernels.rwkv6 import kernel as wk
     torch.backends.cuda.matmul.allow_tf32 = False
-    return fk, rk
+    return fk, rk, wk
 
 
 FLASH_CARD_CASES = [
@@ -265,7 +268,7 @@ FLASH_CARD_CASES = [
 @pytest.mark.parametrize("shape,dtype,opts", FLASH_CARD_CASES)
 def test_flash_kernel_matches_plain(lm_kernels, shape, dtype, opts):
     from repro_torch.kernels.flash_attention import ref as fref
-    fk, _ = lm_kernels
+    fk = lm_kernels[0]
     B, Sq, Sk, H, KV, hd = shape
     rng = np.random.default_rng(sum(shape))
     dt = getattr(torch, dtype)
@@ -283,7 +286,7 @@ def test_flash_kernel_matches_plain(lm_kernels, shape, dtype, opts):
 
 
 def test_flash_kernel_refuses_what_it_does_not_take(lm_kernels):
-    fk, _ = lm_kernels
+    fk = lm_kernels[0]
     q = torch.zeros(1, 8, 2, 64, device="cuda")
     k = torch.zeros(1, 8, 1, 64, device="cuda")
     with pytest.raises(TypeError):
@@ -302,7 +305,7 @@ def test_flash_kernel_refuses_what_it_does_not_take(lm_kernels):
                                    (1, 4099, 64)])
 def test_rglru_kernel_bitwise_equal_to_plain(lm_kernels, shape):
     from repro_torch.kernels.rg_lru import ref as rref
-    _, rk = lm_kernels
+    rk = lm_kernels[1]
     B, S, D = shape
     rng = np.random.default_rng(S + D)
     x = torch.from_numpy(rng.standard_normal(shape, np.float32)).cuda()
@@ -319,27 +322,145 @@ def test_rglru_kernel_bitwise_equal_to_plain(lm_kernels, shape):
     assert torch.equal(torch.cat([ya, yb], 1), y) and torch.equal(hB, hT)
 
 
+def _wkv_inputs(B, S, H, N, dtype, seed, model=None):
+    """r, k, v in ``dtype``; w, u and s0 float32; all on the card.
+
+    ``model`` (the default for bfloat16): unit-scale r, k, v and the
+    model's decays (w = exp(-exp(w0 + d)), w0 ~ U(-6, -5)), so the state
+    sums hundreds of steps.  Otherwise the draw of ``tests/test_kernels.py``
+    (r, k, v at scale 0.5, w in (0.45, 0.95)), for which its fixed 2e-5
+    float32 limit was set: at the model's decays y's terms reach 10 to 100,
+    and two float32 summation orders then part by about 1e-4 near y = 0."""
+    rng = np.random.default_rng(seed)
+    dt = getattr(torch, dtype)
+
+    def t(a, d=torch.float32):
+        return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(
+            "cuda", d)
+    shape = (B, S, H, N)
+    if model is None:
+        model = dtype == "bfloat16"
+    if model:
+        r, k, v = (t(rng.standard_normal(shape), dt) for _ in range(3))
+        w0 = rng.uniform(-6.0, -5.0, (H, N))
+        w = t(np.exp(-np.exp(w0 + rng.uniform(-0.5, 0.5, shape))))
+        u = t(rng.uniform(0.0, 0.5, (H, N)))
+    else:
+        r, k, v = (t(rng.standard_normal(shape) * 0.5) for _ in range(3))
+        w = t(0.45 + 0.5 / (1.0 + np.exp(-rng.standard_normal(shape))))
+        u = t(rng.standard_normal((H, N)) * 0.3)
+    s0 = t(rng.standard_normal((B, H, N, N)) * 0.1)
+    return r, k, v, w, u, s0
+
+
+WKV_CARD_CASES = [
+    # (B, S, H, N), dtype: the three head sizes, S=1 (decode), ragged S
+    ((2, 64, 4, 16), "float32"),
+    ((2, 100, 3, 32), "bfloat16"),
+    ((1, 1000, 2, 64), "bfloat16"),
+    ((2, 257, 4, 64), "float32"),
+    ((4, 1, 8, 64), "float32"),
+    ((8, 1, 64, 64), "bfloat16"),
+    ((1, 33, 2, 16), "bfloat16"),
+]
+
+
+@pytest.mark.parametrize("shape,dtype", WKV_CARD_CASES)
+def test_wkv6_kernel_matches_plain(lm_kernels, shape, dtype):
+    from repro_torch.kernels.rwkv6 import ref as wref
+    wk = lm_kernels[2]
+    args = _wkv_inputs(*shape, dtype, sum(shape))
+    before = wk.LAUNCHES["wkv6"]
+    y, sT = wk.wkv6(*args)
+    torch.cuda.synchronize()
+    assert wk.LAUNCHES["wkv6"] == before + 1
+    y2, sT2 = wref.wkv6(*args)
+    tol = 2e-2 if dtype == "bfloat16" else 2e-5
+    assert y.dtype == args[0].dtype and sT.dtype == torch.float32
+    assert bool(torch.isfinite(y.float()).all())
+    torch.testing.assert_close(y.float(), y2.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(sT, sT2, rtol=1e-3, atol=1e-3)
+    # state chained across two halves == one run, bitwise: each step's
+    # arithmetic is the same and the state crosses in float32
+    S = shape[1]
+    if S > 1:
+        h = S // 2
+        r, k, v, w, u, s0 = args
+        ya, sA = wk.wkv6(*[t[:, :h].contiguous() for t in (r, k, v, w)], u,
+                         s0)
+        yb, sB = wk.wkv6(*[t[:, h:].contiguous() for t in (r, k, v, w)], u,
+                         sA)
+        assert torch.equal(torch.cat([ya, yb], 1), y) and torch.equal(sB, sT)
+
+
+@pytest.mark.parametrize("shape", [(2, 256, 4, 16), (2, 300, 3, 32),
+                                   (1, 512, 2, 64)])
+def test_wkv6_kernel_f32_at_model_scale_within_error_bound(lm_kernels, shape):
+    """float32 at the model's scale: y reaches 100 and more, so the fixed
+    2e-5 limit does not apply; kernel and plain version, two float32
+    evaluations, lie within twice `ref.f32_error_bound` of each other.
+    The bound grows with N (1.5e-3 of max |y| at N=64, S=512); it stays
+    under a quarter of bf16's relative limit of 2e-2."""
+    from repro_torch.kernels.rwkv6 import ref as wref
+    wk = lm_kernels[2]
+    args = _wkv_inputs(*shape, "float32", sum(shape) + 1, model=True)
+    y, sT = wk.wkv6(*args)
+    y2, sT2 = wref.wkv6(*args)
+    yb, sb = wref.f32_error_bound(*args)
+    assert float(y2.abs().max()) > 50.0
+    assert float(yb.max()) < 5e-3 * float(y2.abs().max())
+    assert bool(((y.double() - y2.double()).abs() <= 2 * yb).all())
+    assert bool(((sT.double() - sT2.double()).abs() <= 2 * sb).all())
+
+
+def test_wkv6_kernel_refuses_what_it_does_not_take(lm_kernels):
+    wk = lm_kernels[2]
+    r, k, v, w, u, s0 = _wkv_inputs(1, 8, 2, 64, "bfloat16", 0)
+    with pytest.raises(TypeError):            # mixed r/k/v dtypes
+        wk.wkv6(r, k.float(), v, w, u, s0)
+    with pytest.raises(TypeError):            # fp16
+        wk.wkv6(r.half(), k.half(), v.half(), w, u, s0)
+    with pytest.raises(TypeError):            # w must be float32
+        wk.wkv6(r, k, v, w.bfloat16(), u, s0)
+    with pytest.raises(ValueError):           # a head size it has no form for
+        wk.wkv6(*_wkv_inputs(1, 8, 2, 48, "float32", 0))
+    with pytest.raises(ValueError):           # not contiguous
+        wk.wkv6(r.transpose(1, 2).contiguous().transpose(1, 2), k, v, w, u,
+                s0)
+    with pytest.raises(ValueError):           # state of another shape
+        wk.wkv6(r, k, v, w, u, s0[:, :1])
+    with pytest.raises(ValueError):           # on the CPU
+        wk.wkv6(*[t.cpu() for t in (r, k, v, w, u, s0)])
+
+
 def test_lm_ops_launch_kernels_unless_pinned(lm_kernels, monkeypatch):
     from repro_torch.kernels import pin
     from repro_torch.kernels.flash_attention import ops as fops
     from repro_torch.kernels.rg_lru import ops as rops
-    fk, rk = lm_kernels
+    from repro_torch.kernels.rwkv6 import ops as wops
+    fk, rk, wk = lm_kernels
     q = torch.randn(1, 64, 2, 64, device="cuda", dtype=torch.bfloat16)
     x = torch.randn(1, 16, 128, device="cuda")
     a = torch.rand(1, 16, 128, device="cuda")
     h0 = torch.zeros(1, 128, device="cuda")
+    wkv = _wkv_inputs(1, 16, 2, 64, "bfloat16", 3)
     monkeypatch.delenv(pin.PIN_ENV, raising=False)
     f0, r0 = fk.LAUNCHES["flash_attention"], rk.LAUNCHES["rglru_scan"]
+    w0 = wk.LAUNCHES["wkv6"]
     fops.flash_attention(q, q, q, window=16)
     rops.rglru_scan(x, a, h0)
+    wops.wkv6(*wkv)
     assert fk.LAUNCHES["flash_attention"] == f0 + 1
     assert rk.LAUNCHES["rglru_scan"] == r0 + 1
+    assert wk.LAUNCHES["wkv6"] == w0 + 1
     monkeypatch.setenv(pin.PIN_ENV, "plain")
     out = fops.flash_attention(q, q, q, window=16)
     y, _ = rops.rglru_scan(x, a, h0)
-    assert out.is_cuda and y.is_cuda
+    yw, sw = wops.wkv6(*wkv)
+    assert out.is_cuda and y.is_cuda and yw.is_cuda and sw.is_cuda
     assert fk.LAUNCHES["flash_attention"] == f0 + 1
     assert rk.LAUNCHES["rglru_scan"] == r0 + 1
+    assert wk.LAUNCHES["wkv6"] == w0 + 1
 
 
 def test_smoke_model_on_card_through_both_kernels(lm_kernels, monkeypatch):
@@ -350,7 +471,7 @@ def test_smoke_model_on_card_through_both_kernels(lm_kernels, monkeypatch):
     from repro_torch.kernels import pin
     from repro_torch.models import model as M
     from repro_torch.serve import Batcher, ServeConfig, greedy_generate
-    fk, rk = lm_kernels
+    fk, rk, _ = lm_kernels
     cfg = configs.get_smoke("recurrentgemma_2b")
     gen = torch.Generator(device="cuda").manual_seed(0)
     params = M.init_params(cfg, gen, device="cuda", dtype=torch.float32)
@@ -381,3 +502,49 @@ def test_smoke_model_on_card_through_both_kernels(lm_kernels, monkeypatch):
         prompts, 6)
     assert all(r is not None and len(r) == 6 for r in res)
     assert rk.LAUNCHES["rglru_scan"] > 0
+
+
+def test_rwkv_smoke_model_on_card_through_the_kernel(lm_kernels,
+                                                     monkeypatch):
+    """rwkv6 smoke() in f32 on the card: prefill and greedy_generate
+    through the wkv6 kernel equal their plain-pinned twin, with one launch
+    per layer per pass; the Batcher answers every request, one launch per
+    layer per decode step."""
+    from repro_torch import configs
+    from repro_torch.kernels import pin
+    from repro_torch.models import model as M
+    from repro_torch.serve import Batcher, ServeConfig, greedy_generate
+    wk = lm_kernels[2]
+    cfg = configs.get_smoke("rwkv6_7b")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = M.init_params(cfg, gen, device="cuda", dtype=torch.float32)
+    prompt = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab, (2, 40))).cuda()
+    out = {}
+    for pinned in ("", "plain"):
+        monkeypatch.setenv(pin.PIN_ENV, pinned)
+        wk.reset_launches()
+        logits, _ = M.prefill(params, cfg, {"tokens": prompt},
+                              last_only=True)
+        toks = greedy_generate(params, cfg, prompt, 8)
+        out[pinned] = (logits, toks, wk.LAUNCHES["wkv6"])
+    L = cfg.n_layers
+    assert out[""][2] == 2 * L + 8 * L
+    assert out["plain"][2] == 0
+    torch.testing.assert_close(out[""][0], out["plain"][0], rtol=0,
+                               atol=1e-4)
+    assert torch.equal(out[""][1], out["plain"][1])
+    monkeypatch.delenv(pin.PIN_ENV)
+    wk.reset_launches()
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(0, cfg.vocab, n) for n in (9, 5, 12)]
+    batcher = Batcher(params, cfg, ServeConfig(batch=2, max_seq=32))
+    inner, steps = batcher.step, [0]
+
+    def counted(*args):
+        steps[0] += 1
+        return inner(*args)
+    batcher.step = counted
+    res = batcher.serve(prompts, 6)
+    assert all(r is not None and len(r) == 6 for r in res)
+    assert wk.LAUNCHES["wkv6"] == L * steps[0] > 0

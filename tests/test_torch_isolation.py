@@ -1,7 +1,9 @@
 """The port stands alone and never runs on the CPU unasked.
 
-  * No module under ``src/repro_torch/`` and not ``chip_smoke.py`` imports
-    jax or anything of the reference package ``repro`` (an AST scan).
+  * No module under ``src/repro_torch/``, not ``chip_smoke.py`` and no
+    script under ``scripts/`` (they run on the card's machine, which has no
+    JAX) imports jax or anything of the reference package ``repro`` (an
+    AST scan).
   * ``device="cuda"`` without a CUDA device raises at every entry point,
     and ``chip_smoke.py`` exits non-zero without printing a result, both
     here and from a directory that holds nothing else of the repository.
@@ -24,6 +26,9 @@ FORBIDDEN = ("jax", "jaxlib", "repro")
 
 def _sources():
     out = [SMOKE]
+    scripts = os.path.join(ROOT, "scripts")
+    out += [os.path.join(scripts, f) for f in os.listdir(scripts)
+            if f.endswith(".py")]
     for base, _dirs, files in os.walk(PORT):
         out += [os.path.join(base, f) for f in files if f.endswith(".py")]
     return sorted(out)
@@ -82,6 +87,39 @@ def test_cuda_without_a_card_raises_at_the_lm_entry_points():
         M.init_params(cfg, torch.Generator().manual_seed(0))
     params = M.init_params(cfg, torch.Generator().manual_seed(0),
                            device="cpu", dtype=torch.float32)
+    with pytest.raises(RuntimeError, match="cuda"):
+        greedy_generate(params, cfg, torch.zeros(1, 4, dtype=torch.long), 2)
+    with pytest.raises(RuntimeError, match="cuda"):
+        Batcher(params, cfg, ServeConfig(batch=1, max_seq=8))
+
+
+@pytest.mark.parametrize("arch", ["recurrentgemma_2b", "rwkv6_7b"])
+def test_cuda_without_a_card_raises_at_the_model_helpers(arch):
+    """The initializers, the decode state and the reference-tree carriers
+    default to the card too; so do the rwkv6 serving entry points."""
+    _no_card()
+    from repro_torch import configs
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+    from repro_torch.serve import Batcher, ServeConfig, greedy_generate
+
+    cfg = configs.get_smoke(arch)
+    gen = torch.Generator().manual_seed(0)
+    if arch == "rwkv6_7b":
+        inits = [lambda: L.rwkv_init(gen, cfg.rwkv_cfg())]
+    else:
+        inits = [lambda: L.attn_init(gen, cfg.attn_cfg("local")),
+                 lambda: L.mlp_init(gen, cfg.d_model, cfg.d_ff, "geglu"),
+                 lambda: L.rglru_init(gen, cfg.rglru_cfg())]
+    calls = inits + [lambda: M.init_decode_state(cfg, 1, 8),
+                     lambda: M.params_from_jax(cfg, {}),
+                     lambda: M.state_from_jax(cfg, {}),
+                     lambda: M.init_params(cfg, gen)]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="cuda"):
+            call()
+    params = M.init_params(cfg, gen, device="cpu", dtype=torch.float32)
+    assert M.init_decode_state(cfg, 1, 8, device="cpu")["layers"]
     with pytest.raises(RuntimeError, match="cuda"):
         greedy_generate(params, cfg, torch.zeros(1, 4, dtype=torch.long), 2)
     with pytest.raises(RuntimeError, match="cuda"):

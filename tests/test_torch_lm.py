@@ -172,21 +172,31 @@ def test_configs_match_reference():
         assert mine.layer_plan == ref.layer_plan
         assert mine.groups == ref.groups and mine.n_body == ref.n_body
         assert mine.vocab_padded == ref.vocab_padded
-    assert tconfigs.ARCH_IDS == [ARCH]
-    with pytest.raises(NotImplementedError, match="rwkv6"):
-        tconfigs.get("rwkv6_7b")
+    assert tconfigs.ARCH_IDS == [ARCH, "rwkv6_7b"]
+    with pytest.raises(NotImplementedError, match="MoE"):
+        tconfigs.get("mixtral_8x7b")
     with pytest.raises(KeyError):
         tconfigs.get_smoke("no_such_model")
 
 
 def test_other_mixers_and_ffns_raise():
     cfg = dataclasses.replace(tconfigs.get_smoke(ARCH),
-                              block_pattern=("rwkv",))
-    with pytest.raises(NotImplementedError, match="rwkv6-7b"):
+                              block_pattern=("mamba",))
+    with pytest.raises(NotImplementedError, match="no planned slice"):
+        TM.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    cfg = dataclasses.replace(tconfigs.get_smoke(ARCH), mlp_kind="moe")
+    with pytest.raises(NotImplementedError, match="MoE"):
         TM.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
     cfg = dataclasses.replace(tconfigs.get_smoke(ARCH), mlp_kind="mlp")
     with pytest.raises(NotImplementedError, match="musicgen"):
         TM.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    cfg = dataclasses.replace(tconfigs.get_smoke(ARCH),
+                              pos_embedding="sinusoidal")
+    params = TM.init_params(dataclasses.replace(cfg, pos_embedding="rope"),
+                            torch.Generator().manual_seed(0), device="cpu")
+    with pytest.raises(NotImplementedError, match="musicgen"):
+        TM.forward(params, cfg, {"tokens": torch.zeros(1, 4,
+                                                       dtype=torch.long)})
 
 
 @pytest.fixture(scope="module")
@@ -196,7 +206,7 @@ def smoke():
     tcfg = tconfigs.get_smoke(ARCH)
     jparams = JM.init_params(jcfg, jax.random.PRNGKey(1), dtype=jnp.float32)
     tree = jax.tree.map(np.asarray, jparams)
-    return jcfg, tcfg, jparams, TM.params_from_jax(tcfg, tree)
+    return jcfg, tcfg, jparams, TM.params_from_jax(tcfg, tree, device="cpu")
 
 
 def test_init_params_has_reference_shapes(smoke):
@@ -240,7 +250,8 @@ def test_smoke_forward_prefill_decode_match_reference(smoke):
     lj, sj = JM.prefill(jparams, jcfg, {"tokens": jt[:, :S - 1]})
     lt, st = TM.prefill(tparams, tcfg, {"tokens": tt[:, :S - 1]})
     np.testing.assert_allclose(lt.numpy(), _f32(lj), rtol=0, atol=1e-4)
-    carried = TM.state_from_jax(tcfg, jax.tree.map(np.asarray, sj))
+    carried = TM.state_from_jax(tcfg, jax.tree.map(np.asarray, sj),
+                                device="cpu")
     for mine, theirs in zip(st["layers"], carried["layers"]):
         for key in mine:
             for name in mine[key]:
