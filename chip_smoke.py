@@ -11,17 +11,21 @@ per source, all started together.  Phases, each printing its own lines:
 
   1. device: name, power limit, kernel build time;
   2. each scheduler kernel against its plain PyTorch version on the card,
-     bitwise, at main-path shapes, with CUDA-event times for both;
+     bitwise, at main-path shapes, with CUDA-event times for both; the wave
+     at s13 and on a busy cluster (most visits skipped), each with the
+     length of its chain (visits, walked visits, pick iterations) and the
+     time per iteration;
   3. the scheduler's main path in exact mode: ``run_workload`` of 48
      online-mix jobs on 2048 machines through the cuda kernels, against its
      numpy-pinned twin (every JCT, the makespan and the Jain index equal to
-     the last bit);
+     the last bit), with the wave op's seconds on either side;
   4. the same population in routed mode against its numpy-pinned twin;
   5. the LM kernels (flash attention, RG-LRU scan) against their plain
      versions on the card at the serving path's shapes, plus a ragged and a
      soft-capped non-causal flash case: flash within 2e-2 (bf16) / 2e-5
      (f32), rg_lru bitwise; CUDA-event times of kernel, plain version and,
-     for flash, ``scaled_dot_product_attention``;
+     for flash, ``scaled_dot_product_attention``, with flash's TFLOP/s,
+     share of its bound and ratio to the library call;
   6. full-width recurrentgemma-2b (random bf16 weights from a seeded
      generator on the card): ``greedy_generate`` on 4 prompts of 4,096
      tokens, 32 new tokens, against its twin pinned to the plain versions
@@ -284,17 +288,25 @@ def kernel_eligible(report: list) -> None:
         library_ms=None))
 
 
-def wave_work(args, kw, got) -> float:
-    """Operations one wave's data needs, from the kernel's own picks.
+def wave_work(args, kw, got) -> tuple[float, dict]:
+    """Operations one wave's data needs, and the length of its chain, from
+    the kernel's own picks.
 
     Replays the walk the kernel took (machines in visit order, pick
     iterations on each) and counts, per iteration, the exact eligibility
     test of every candidate still live and the score of every candidate
-    in the pool, plus each pick's state update.  Taken candidates need no
+    in the pool, plus each pick's state update; a visit that the kernel's
+    skip test passes over (``ref.visit_may_pick`` against the minimum of
+    the untaken demands) needs only that test.  Taken candidates need no
     work.  Every pick the kernel made must be in the replayed pool, which
-    checks the replay against the kernel.
+    checks the replay against the kernel.  The chain: ``visits`` (machines
+    reached before the walk ended), ``walked`` (those not skipped) and
+    ``iterations`` (pick iterations, the last of each visit finding
+    nothing unless the bundle limit ends it).
     """
     import numpy as np
+
+    from repro_torch.kernels.placement_scan import ref
 
     (avail, order, dem, pri, srpt, gidx, loc, taken0, ema, deficit, share,
      fd, rd, fg, consts) = [a.cpu().numpy() for a in args]
@@ -310,11 +322,21 @@ def wave_work(args, kw, got) -> float:
     taken = taken0.copy()
     deficit = deficit.copy()
     n_ops, j = 0, 0
+    chain = dict(visits=0, walked=0, iterations=0)
     for mid in order[order >= 0]:
         if taken.all():
             break
+        chain["visits"] += 1
         local = avail[mid].copy()
+        if not ref.visit_may_pick(local, ref.demand_min(dem, taken), consts,
+                                  fd, rd, fg, kw["use_overbooking"]):
+            n_ops += 3 * d                      # the skip test alone
+            check(j == count or mach[j] != mid,
+                  "wave replay: a pick on a machine the skip test passes")
+            continue
+        chain["walked"] += 1
         for _ in range(kw["bundle_limit"]):
+            chain["iterations"] += 1
             live = ~taken
             n_ops += int(live.sum()) * elig_ops + 2 * d   # + thresholds
             thr = local + eps
@@ -345,24 +367,45 @@ def wave_work(args, kw, got) -> float:
             deficit[gidx[i]] -= w
             local = np.clip(local - dem[i], 0.0, None)
     check(j == count, f"wave replay reached {j} of {count} picks")
-    return float(n_ops)
+    return float(n_ops), chain
 
 
-def kernel_wave(report: list) -> None:
+def busy_corpus():
+    """A busy cluster as the main path's waves see it: a few dozen
+    candidates (its waves hold at most 32) against 2048 machines that are
+    mostly too full for them, so most visits can pick nothing."""
+    import numpy as np
+
+    from repro_torch.core.online import CandidateBatch
+
+    m, d, n = 2048, 4, 32
+    rng = np.random.default_rng(17)
+    batch = CandidateBatch(
+        dem=rng.uniform(0.05, 0.3, (n, d)),
+        pri=rng.uniform(0.5, 2.0, n),
+        srpt=rng.uniform(1.0, 300.0, n),
+        grp=rng.integers(0, 2, n),
+        loc=np.where(rng.random(n) < 0.3, rng.integers(0, m, n), -1),
+        job=np.arange(n), tid=np.arange(n))
+    avail0 = rng.uniform(0.0, 0.3, (m, d))
+    return batch, avail0, np.ones(m, bool)
+
+
+def wave_case(label, corpus) -> dict:
+    """One wave launch against the plain version bitwise, both timed, with
+    the bound of this wave's work and the length of its chain."""
     import numpy as np
     import torch
 
-    from repro_torch.core.engine import kernels as K
     from repro_torch.core.engine import wave as W
     from repro_torch.core.online import MatcherConfig
     from repro_torch.core.shard import ShardedMatcher
     from repro_torch.kernels.placement_scan import kernel, ref
 
-    batch, avail0, alive = s13_corpus()
+    batch, avail0, alive = corpus
     m, d = avail0.shape
-    cfg = MatcherConfig()
-    shares = {0: 1.0, 1: 1.0}
-    sm = ShardedMatcher(cfg, m, shares, n_shards=1, capacity=float(m))
+    sm = ShardedMatcher(MatcherConfig(), m, {0: 1.0, 1: 1.0}, n_shards=1,
+                        capacity=float(m))
     st = W.DeviceWaveState("cuda")
     args, kw, _ = W.wave_launch_args(st, sm, batch, avail0, alive, "smoke")
     got = kernel.match_wave_walk(*args, **kw)
@@ -372,15 +415,43 @@ def kernel_wave(report: list) -> None:
     for a, b in zip(got, want):
         a_np, b_np = a.cpu().numpy(), b.cpu().numpy()
         check(a_np.tobytes() == b_np.tobytes(),
-              "match_wave_walk kernel != plain version")
+              f"match_wave_walk kernel != plain version ({label})")
         a64, b64 = a_np.astype(np.float64), b_np.astype(np.float64)
         same = (a64 == b64) | (np.isnan(a64) & np.isnan(b64))
         with np.errstate(invalid="ignore"):
             diff = np.where(same, 0.0, np.abs(a64 - b64))
         err = max(err, float(np.max(diff, initial=0.0)))
     count = int(got[7])
-    check(count > 0, "s13 wave picked nothing")
-    # the whole wave through the dispatch layer against the numpy oracle
+    check(count > 0, f"{label} wave picked nothing")
+    ms = cuda_time_ms(lambda: kernel.match_wave_walk(*args, **kw), 20, 2)
+    plain = cuda_time_ms(lambda: ref.match_wave_walk(*args, **kw), 1, 0)
+    n_ops, chain = wave_work(args, kw, got)
+    in_out = nbytes(*[a for a in args if torch.is_tensor(a)], *got)
+    b, by = bound_ms(in_out, n_ops, F64_OPS_PER_S)
+    steps = chain["walked"] + chain["iterations"]
+    say("kernel", name="match_wave_walk", case=label,
+        shape=f"m={m},n={len(batch)},d={d}", bitwise=True, picks=count,
+        ops=int(n_ops), **chain, ms=round(ms, 6),
+        ns_per_iteration=round(ms * 1e6 / max(chain["iterations"], 1), 1),
+        ns_per_chain_step=round(ms * 1e6 / max(steps, 1), 1),
+        plain_ms=round(plain, 6), bound_ms=f"{b:.3e}", bound_by=by)
+    return dict(case=label, shape=(m, len(batch), d), picks=count,
+                max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b,
+                bound_by=by, chain=chain,
+                ns_per_iteration=ms * 1e6 / max(chain["iterations"], 1),
+                args=args, kw=kw)
+
+
+def kernel_wave(report: list) -> None:
+    from repro_torch.core.engine import kernels as K
+    from repro_torch.core.online import MatcherConfig
+    from repro_torch.core.shard import ShardedMatcher
+
+    cases = [wave_case("s13", s13_corpus()), wave_case("busy", busy_corpus())]
+    # the whole s13 wave through the dispatch layer against the numpy oracle
+    batch, avail0, alive = s13_corpus()
+    m = avail0.shape[0]
+    cfg, shares = MatcherConfig(), {0: 1.0, 1: 1.0}
     picks = {}
     for impl in ("numpy", "cuda"):
         os.environ[K.KERNELS_ENV] = f"match_wave={impl}"
@@ -401,20 +472,14 @@ def kernel_wave(report: list) -> None:
     os.environ.pop(K.KERNELS_ENV, None)
     check(picks["cuda"] == picks["numpy"],
           "cuda wave decisions != numpy wave decisions (s13)")
-    ms = cuda_time_ms(lambda: kernel.match_wave_walk(*args, **kw), 10, 1)
-    plain = cuda_time_ms(lambda: ref.match_wave_walk(*args, **kw), 1, 0)
-    n_ops = wave_work(args, kw, got)
-    in_out = nbytes(*[a for a in args if torch.is_tensor(a)], *got)
-    b, by = bound_ms(in_out, n_ops, F64_OPS_PER_S)
-    say("kernel", name="match_wave_walk", shape=f"m={m},n={len(batch)},d={d}",
-        bitwise=True, picks=count, ops=int(n_ops), ms=round(ms, 6),
-        plain_ms=round(plain, 6), bound_ms=f"{b:.3e}", bound_by=by)
+    for c in cases:
+        c.pop("args"), c.pop("kw")
     report.append(dict(
         name="match_wave_walk", route="cuda",
         source="src/repro_torch/kernels/placement_scan/csrc/placement_scan.cu",
         replaces="src/repro/kernels/placement_scan/kernel.py:102",
-        max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b, bound_by=by,
-        library_ms=None))
+        library_ms=None, cases=cases, **{k: cases[0][k] for k in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")}))
 
 
 # ----------------------------------------------------------------------
@@ -484,9 +549,13 @@ def main_path(mode: str, dags, need: tuple, summary: dict) -> dict:
     waves = res.shard_stats["waves"]
     secs = {k: round(v[1], 4) for k, v in prof.items() if v[1] > 0}
     np_secs = {k: round(v[1], 4) for k, v in ref_prof.items() if v[1] > 0}
+    wave_s = {impl: p.get(f"match_wave.{impl}", (0, 0.0))[1]
+              for impl, p in (("cuda", prof), ("numpy", ref_prof))}
     say(f"path:{mode}", jobs=len(res.jobs), identical_to_numpy=True,
         wall_s=round(wall, 3), numpy_wall_s=round(ref_wall, 3),
         scan_calls=scans[0], waves=waves,
+        match_wave_cuda_s=round(wave_s["cuda"], 4),
+        match_wave_numpy_s=round(wave_s["numpy"], 4),
         phases=json.dumps(pt, separators=(",", ":")),
         op_s=json.dumps(secs, separators=(",", ":")),
         numpy_op_s=json.dumps(np_secs, separators=(",", ":")),
@@ -495,6 +564,7 @@ def main_path(mode: str, dags, need: tuple, summary: dict) -> dict:
         wall_s=wall, numpy_wall_s=ref_wall, phase_times=res.phase_times,
         numpy_phase_times=ref_res.phase_times, scan_calls=scans[0],
         scan_s=scans[1], waves=waves, launches=launches,
+        match_wave_s=wave_s,
         profile={k: list(v) for k, v in prof.items()},
         numpy_profile={k: list(v) for k, v in ref_prof.items()},
         makespan=mine["makespan"], jain_60=mine["jain_60"])
@@ -513,6 +583,8 @@ FLASH_CASES = (
     ("ragged", (2, 1000, 1000, 10, 1, 256), "bfloat16",
      dict(causal=True, window=300)),
     ("cap_noncausal", (2, 777, 1000, 4, 2, 64), "float32",
+     dict(causal=False, cap=30.0)),
+    ("cap_bf16", (2, 500, 777, 10, 1, 64), "bfloat16",
      dict(causal=False, cap=30.0)),
 )
 
@@ -558,13 +630,16 @@ def flash_case(label, shape, dtype, opts, seed):
         n_ops = float(live) * 4 * hd * B * H
         b, by = bound_ms(nbytes(q, k, v, got), n_ops, BF16_OPS_PER_S)
         row.update(live_pairs=live, ms=ms, plain_ms=plain, library_ms=lib,
-                   library_err=lib_err, bound_ms=b, bound_by=by)
+                   library_err=lib_err, bound_ms=b, bound_by=by,
+                   tflops=n_ops / ms * 1e-9, bound_share=b / ms,
+                   library_ratio=lib / ms)
     say("kernel", name="flash_attention", case=label,
         shape="B={},Sq={},Sk={},H={},KV={},hd={}".format(*shape),
         dtype=dtype, opts=json.dumps(opts, separators=(",", ":")),
         max_abs_err=f"{err:.3e}", tol=tol,
         **{k: (round(row[k], 6) if isinstance(row[k], float) else row[k])
-           for k in ("ms", "plain_ms", "library_ms", "live_pairs") if k in row})
+           for k in ("ms", "plain_ms", "library_ms", "live_pairs", "tflops",
+                     "bound_share", "library_ratio") if k in row})
     return row
 
 

@@ -24,9 +24,13 @@ keeps the ``avail`` matrix, candidate columns, EMA pair and dense deficit
 ledger on the device across waves.  Host-side shadows detect what actually
 changed: ``avail`` rows touched by task finishes/failures re-upload (dirty
 rows only), candidate columns re-upload only when `TaskPool.refresh`
-rebuilt them (array identity), and the EMA/deficit ledgers re-upload only
-if the host replay diverged from the device's own update (never, absent
-external edits).
+rebuilt them (array identity), the EMA/deficit ledgers re-upload only if
+the host replay diverged from the device's own update (never, absent
+external edits), and the dim masks and scalar constants only when the
+config changes.  Whatever a wave does upload (the visit order at least)
+goes in one host-to-device copy: the arrays are staged into one packed
+buffer and the device copies are views of it; the picks come back in one
+device-to-host copy.
 
 No host fallback.  Every wave the cuda or torch impl is handed runs
 through the kernel or its plain version.  A candidate whose group the
@@ -168,11 +172,40 @@ class DeviceWaveState:
         self.deficit_dev = None
         self.deficit_shadow = None
         self.share_dev = None
+        # dim masks and scalar constants, re-staged when they change
+        self.static_key = None
+        self.fd_dev = self.rd_dev = self.fg_dev = self.consts_dev = None
+        self.order_dev = None
+        # avail rows to scatter into the mirror after the next flush
+        self.dirty_rows_dev = self.dirty_vals_dev = None
+        self._staged: list[tuple[str, np.ndarray]] = []
 
-    def up(self, a: np.ndarray):
+    def stage(self, attr: str, a: np.ndarray) -> None:
+        """Queue a host array for the next `flush`, whose device copy
+        lands in attribute ``attr``."""
+        self._staged.append((attr, np.ascontiguousarray(a)))
+
+    def flush(self) -> None:
+        """Upload every staged array in one host-to-device copy: 8-byte
+        aligned slices of one buffer, each attribute set to its typed view."""
+        import torch
+
         from .kernels import _up
 
-        return _up(a, self.device)
+        if not self._staged:
+            return
+        offs, total = [], 0
+        for _attr, a in self._staged:
+            offs.append(total)
+            total += (a.nbytes + 7) & ~7
+        buf = np.zeros(total, dtype=np.uint8)
+        for (_attr, a), o in zip(self._staged, offs):
+            buf[o:o + a.nbytes] = a.reshape(-1).view(np.uint8)
+        dev = _up(buf, self.device)
+        for (attr, a), o in zip(self._staged, offs):
+            dt = torch.from_numpy(a[:0].reshape(-1)).dtype
+            setattr(self, attr, dev[o:o + a.nbytes].view(dt).view(a.shape))
+        self._staged = []
 
 
 def _bstat(impl: str, key: str, n) -> None:
@@ -182,14 +215,16 @@ def _bstat(impl: str, key: str, n) -> None:
 
 
 def _sync_avail(st: DeviceWaveState, avail: np.ndarray, impl: str) -> int:
-    """Upload only rows that changed since the last wave's replay.
+    """Stage only rows that changed since the last wave's replay (scattered
+    into the mirror by `wave_launch_args` after the flush).
 
     Returns the number of extra device launches used (0 or 1)."""
     from . import kernels as K
 
     m, d = avail.shape
+    st.dirty_rows_dev = st.dirty_vals_dev = None
     if st.avail_shadow is None or st.avail_shadow.shape != avail.shape:
-        st.avail_dev = st.up(avail.astype(np.float64))
+        st.stage("avail_dev", avail.astype(np.float64))
         st.avail_shadow = avail.copy()
         _bstat(impl, "bytes_h2d", avail.nbytes)
         return 0
@@ -197,7 +232,7 @@ def _sync_avail(st: DeviceWaveState, avail: np.ndarray, impl: str) -> int:
     if len(dirty) == 0:
         return 0
     if len(dirty) * 2 >= m:
-        st.avail_dev = st.up(avail.astype(np.float64))
+        st.stage("avail_dev", avail.astype(np.float64))
         st.avail_shadow = avail.copy()
         _bstat(impl, "bytes_h2d", avail.nbytes)
         return 0
@@ -205,11 +240,10 @@ def _sync_avail(st: DeviceWaveState, avail: np.ndarray, impl: str) -> int:
     rows = np.zeros(r_cap, dtype=np.int64)
     rows[:len(dirty)] = dirty
     rows[len(dirty):] = dirty[0]       # duplicate writes carry equal values
-    vals = avail[rows].astype(np.float64)
-    # in place: the resident mirror is this state's own buffer
-    st.avail_dev.index_copy_(0, st.up(rows), st.up(vals))
+    st.stage("dirty_rows_dev", rows)
+    st.stage("dirty_vals_dev", avail[rows].astype(np.float64))
     st.avail_shadow[dirty] = avail[dirty]
-    _bstat(impl, "bytes_h2d", rows.nbytes + vals.nbytes)
+    _bstat(impl, "bytes_h2d", rows.nbytes + rows.nbytes * d)
     return 1
 
 
@@ -243,33 +277,33 @@ def _sync_batch(st: DeviceWaveState, batch: CandidateBatch,
         gp = np.zeros(n_cap, dtype=np.int32)
         gp[:n] = gidx
         st.gidx_np = gidx
-        st.gidx_dev = st.up(gp)
+        st.stage("gidx_dev", gp)
         _bstat(impl, "bytes_h2d", gp.nbytes)
     if rebuild:
         dem = np.full((n_cap, batch.dem.shape[1]), 2.0, dtype=np.float64)
         dem[:n] = batch.dem
         taken0 = np.ones(n_cap, dtype=bool)
         taken0[:n] = False
-        st.dem_dev = st.up(dem)
-        st.taken0_dev = st.up(taken0)
+        st.stage("dem_dev", dem)
+        st.stage("taken0_dev", taken0)
         ones = np.zeros(n_cap, dtype=np.float64)
         ones[:n] = 1.0
-        st.ones_dev = st.up(ones)
+        st.stage("ones_dev", ones)
         _bstat(impl, "bytes_h2d", dem.nbytes + taken0.nbytes + ones.nbytes)
     if rebuild or st.col_ids[1] != ids[1]:
         pri = np.zeros(n_cap, dtype=np.float64)
         pri[:n] = batch.pri
-        st.pri_dev = st.up(pri)
+        st.stage("pri_dev", pri)
         _bstat(impl, "bytes_h2d", pri.nbytes)
     if rebuild or st.col_ids[2] != ids[2]:
         srpt = np.zeros(n_cap, dtype=np.float64)
         srpt[:n] = batch.srpt
-        st.srpt_dev = st.up(srpt)
+        st.stage("srpt_dev", srpt)
         _bstat(impl, "bytes_h2d", srpt.nbytes)
     if rebuild or st.col_ids[4] != ids[4]:
         loc = np.full(n_cap, -1, dtype=np.int32)
         loc[:n] = batch.loc
-        st.loc_dev = st.up(loc)
+        st.stage("loc_dev", loc)
         _bstat(impl, "bytes_h2d", loc.nbytes)
     st.n_cap = n_cap
     st.col_ids = ids
@@ -294,7 +328,7 @@ def _sync_ledgers(st: DeviceWaveState, matcher, impl: str) -> None:
         st.g_cap = g_cap
         share = np.zeros(g_cap, dtype=np.float64)
         share[:len(keys)] = [dfc.share[g] for g in keys]
-        st.share_dev = st.up(share)
+        st.stage("share_dev", share)
         st.deficit_shadow = None
         _bstat(impl, "bytes_h2d", share.nbytes)
         # group id -> dense index, by binary search over the sorted keys
@@ -306,13 +340,13 @@ def _sync_ledgers(st: DeviceWaveState, matcher, impl: str) -> None:
     deficit[:len(keys)] = [dfc.deficit[g] for g in keys]
     if st.deficit_shadow is None \
             or not np.array_equal(st.deficit_shadow, deficit):
-        st.deficit_dev = st.up(deficit)
+        st.stage("deficit_dev", deficit)
         st.deficit_shadow = deficit
         _bstat(impl, "bytes_h2d", deficit.nbytes)
     ema = np.array([matcher._ema_score, matcher._ema_srpt],
                    dtype=np.float64)
     if st.ema_shadow is None or not np.array_equal(st.ema_shadow, ema):
-        st.ema_dev = st.up(ema)
+        st.stage("ema_dev", ema)
         st.ema_shadow = ema
         _bstat(impl, "bytes_h2d", ema.nbytes)
 
@@ -342,7 +376,7 @@ def visit_order(avail: np.ndarray, alive: np.ndarray) -> np.ndarray:
     """
     m = avail.shape[0]
     order = np.argsort(-avail.sum(axis=1))
-    keep = alive[order] & (avail[order] > 1e-9).any(axis=1)
+    keep = (alive & (avail > 1e-9).any(axis=1))[order]
     order_p = np.full(m, -1, dtype=np.int32)
     kept = order[keep]
     order_p[:len(kept)] = kept
@@ -376,18 +410,31 @@ def wave_launch_args(st: DeviceWaveState, sm, batch: CandidateBatch,
     _sync_ledgers(st, matcher, impl)
     _sync_batch(st, batch, impl)
     syncs = _sync_avail(st, avail, impl)
-    order_p = visit_order(avail, alive)
     masks = []
     for dims in matcher.fit_dim_split():
         mk = np.zeros(d, dtype=bool)
         mk[np.asarray(dims, dtype=np.int64)] = True
-        masks.append(st.up(mk))
+        masks.append(mk)
     consts = wave_consts(matcher)
-    _bstat(impl, "bytes_h2d", order_p.nbytes + consts.nbytes + 3 * d)
-    args = (st.avail_dev, st.up(order_p), st.dem_dev,
+    key = (*(mk.tobytes() for mk in masks), consts.tobytes())
+    if key != st.static_key:
+        for attr, a in zip(("fd_dev", "rd_dev", "fg_dev", "consts_dev"),
+                           (*masks, consts)):
+            st.stage(attr, a)
+        st.static_key = key
+        _bstat(impl, "bytes_h2d", consts.nbytes + 3 * d)
+    order_p = visit_order(avail, alive)
+    st.stage("order_dev", order_p)
+    _bstat(impl, "bytes_h2d", order_p.nbytes)
+    st.flush()
+    if st.dirty_rows_dev is not None:
+        # in place: the resident mirror is this state's own buffer
+        st.avail_dev.index_copy_(0, st.dirty_rows_dev, st.dirty_vals_dev)
+    args = (st.avail_dev, st.order_dev, st.dem_dev,
             st.pri_dev if cfg.use_priority else st.ones_dev, st.srpt_dev,
             st.gidx_dev, st.loc_dev, st.taken0_dev, st.ema_dev,
-            st.deficit_dev, st.share_dev, *masks, st.up(consts))
+            st.deficit_dev, st.share_dev, st.fd_dev, st.rd_dev, st.fg_dev,
+            st.consts_dev)
     kw = dict(bundle_limit=cfg.bundle_limit, use_packing=cfg.use_packing,
               use_srpt=cfg.use_srpt, use_overbooking=cfg.use_overbooking,
               drf=drf)
@@ -396,6 +443,8 @@ def wave_launch_args(st: DeviceWaveState, sm, batch: CandidateBatch,
 
 def device_wave(ctx: WaveContext, impl: str, device: str) -> int:
     """cuda/torch driver: sync mirrors, launch, replay the picks."""
+    import torch
+
     from ...kernels.placement_scan import ops as ps_ops
 
     sm, avail, batch = ctx.sm, ctx.avail, ctx.batch
@@ -409,11 +458,16 @@ def device_wave(ctx: WaveContext, impl: str, device: str) -> int:
     args, kw, syncs = wave_launch_args(st, sm, batch, avail, ctx.alive, impl)
     out = ps_ops.match_wave_walk(*args, **kw)
     st.avail_dev, st.ema_dev, st.deficit_dev = out[0], out[1], out[2]
-    count = int(out[7])
-    rows = out[3][:count].cpu().numpy()
-    mach = out[4][:count].cpu().numpy()
-    obs = out[6][:count].cpu().numpy()
-    _bstat(impl, "bytes_d2h", rows.nbytes + mach.nbytes + obs.nbytes + 4)
+    # the picks in one device-to-host copy: obs, rows, machines, count
+    n = out[3].shape[0]
+    blob = torch.cat([t.reshape(-1).view(torch.uint8)
+                      for t in (out[6], out[3], out[4], out[7].reshape(1))])
+    blob = blob.cpu().numpy()
+    count = int(blob[16 * n:].view(np.int32)[0])
+    obs = blob[:8 * n].view(np.float64)[:count]
+    rows = blob[8 * n:12 * n].view(np.int32)[:count]
+    mach = blob[12 * n:16 * n].view(np.int32)[:count]
+    _bstat(impl, "bytes_d2h", blob.nbytes)
     _bstat(impl, "launches", 1 + syncs)
     _bstat(impl, "waves", 1)
     # -- host replay: apply every pick's side effects in pick order ------

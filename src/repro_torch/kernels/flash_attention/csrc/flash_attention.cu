@@ -10,43 +10,48 @@
 // query; window: query - key < window); the output is acc / max(l, 1e-30)
 // in q's type.  Unlike the Pallas kernel, any Sq and Sk work: keys past Sk
 // get a logit of -inf (weight exactly 0) and query rows past Sq are not
-// stored.
+// stored.  Both variants walk only the K tiles that the causal/window mask
+// leaves live (Pallas's pl.when skip: at S=4096, window 2048, 62.5% of the
+// pairs are masked and nearly all of them in skipped tiles).
 //
 // What bounds it on an H100: at the main path's shape (B=4, S=4096, H=10,
 // KV=1, hd=256, window 2048, causal, bf16) the live (q, k) pairs need
 // 4*hd flops each, about 258 GFLOP, against about 185 MB of q/k/v/o: it is
 // bound by operations, 0.26 ms at the bf16 tensor-core peak.
 //
-// Design (simple first; wgmma, TMA and warp specialisation are later
-// work): one CTA of 256 threads per (q tile, head, batch).  The Q tile,
-// one K tile and one V tile are staged in shared memory; the CTA walks
-// only the K tiles that the causal/window mask leaves live (Pallas's
-// pl.when skip: at S=4096, window 2048, 62.5% of the pairs are masked and
-// nearly all of them in skipped tiles).  For bf16 the two products run on
-// the tensor cores through WMMA (mma.sync, 16x16x16, bf16 in, f32
-// accumulate) with P rounded to bf16; for f32 they are f32 FMAs on the
-// CUDA cores, so f32 keeps f32 accuracy.  Softmax statistics are f32 in
-// registers (one row per group of threads); the f32 accumulator
-// (BQ x hd, 64 KB at hd=256) lives in shared memory so that its rows can
-// be rescaled between tiles.  The bf16 variant at hd=256 takes 194,560
-// bytes of shared memory, above the 48 KB default, so the launcher raises
-// the limit with cudaFuncSetAttribute; a refused launch comes back from
-// cudaGetLastError to the wrapper, which raises.
+// bfloat16 (the serving path): a warp-specialised Hopper kernel.  One CTA
+// of 384 threads per (128-row Q tile, head, batch): a producer warpgroup
+// whose first warp issues TMA loads (Q once; K and V tiles of 64 keys into
+// a ring of two stages, each completed on its own mbarrier), and two
+// consumer warpgroups of 64 query rows each.  setmaxnreg moves registers
+// from the producer (24) to the consumers (240).  Per K tile a consumer
+// computes S = Q K^T with wgmma.m64n64k16 (both operands in shared memory,
+// K-major, 128-byte swizzled as TMA writes them), keeps S in f32 registers,
+// runs the online softmax there (row max and sum over the 4 threads that
+// share a row, with shuffles; exp2 of logits pre-scaled by log2 e), rounds
+// P to bf16 in registers and feeds it as the register A operand of
+// wgmma.m64n{HDP}k16 with V as the shared-memory B operand, transposed
+// (V is row-major, so its N axis is contiguous).  O stays in registers
+// (64 x 256 f32 per consumer: 128 per thread).  The mask is applied only
+// on edge tiles; a consumer skips the products of a tile wholly masked for
+// its 64 rows.  hd is padded to HDP = 64, 128 or 256: TMA zero-fills the
+// columns past hd and the store writes only columns < hd.  The grid puts
+// the heads of one (q tile, batch) next to each other, so the CTAs that
+// share a KV head run together and read K/V from L2.
+//
+// float32 (off the serving paths): one CTA of 256 threads per (32-row Q
+// tile, head, batch), Q/K/V tiles, S, P and the accumulator in shared
+// memory, f32 FMAs on the CUDA cores, so f32 keeps f32 accuracy.
 
+#include <cuda.h>  // CUtensorMap and its enums: types only, no -lcuda
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
-#include <mma.h>
 #include <stddef.h>
-
-#include <type_traits>
+#include <stdint.h>
 
 namespace {
 
-using namespace nvcuda;
-
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
 constexpr float kMasked = -1e30f;  // the reference's masked logit
 
 struct Args {
@@ -59,132 +64,97 @@ struct Args {
   float scale, cap;    // cap <= 0: no soft-cap
 };
 
-// the f32 (CUDA-core) variant reads every operand as float
-__device__ __forceinline__ float to_f(float x) { return x; }
-template <typename T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
+// K tiles [lo, hi) of a Q tile of rows [q0, q0 + BQ) with tiles of BK keys:
+// tiles wholly above the diagonal or wholly outside the window are not
+// live (an empty range leaves the rows' output 0)
+template <int BQ, int BK>
+__host__ __device__ inline void live_tiles(const Args& a, int q0, int& lo,
+                                           int& hi) {
+  const int nk = (a.Sk + BK - 1) / BK;
+  hi = nk;
+  if (a.causal && (q0 + BQ - 1) / BK + 1 < nk) hi = (q0 + BQ - 1) / BK + 1;
+  lo = 0;
+  if (a.window > 0 && q0 - a.window - (BK - 1) >= 0)
+    lo = (q0 - a.window - (BK - 1)) / BK + 1;
 }
 
-// Shared-memory layout of one variant, in elements of each buffer's type.
-// Row pads keep WMMA pointers 32-byte aligned (bf16) or spread rows over
-// the banks (f32).
-template <typename T, int BQ, int BK, bool TC>
-struct Layout {
-  using PT = typename std::conditional<TC, __nv_bfloat16, float>::type;
-  int ldq, lds, ldp, ldo;
-  __host__ __device__ explicit Layout(int hd)
-      : ldq(hd + (TC ? 8 : 1)), lds(BK + 4), ldp(BK + (TC ? 8 : 1)),
-        ldo(hd + 4) {}
+// ---------------------------------------------------------------------------
+// float32: CUDA cores
+// ---------------------------------------------------------------------------
+
+constexpr int kF32Threads = 256;
+constexpr int kF32BQ = 32, kF32BK = 32;
+
+struct F32Layout {
+  int ldq, lds, ldo;
+  __host__ __device__ explicit F32Layout(int hd)
+      : ldq(hd + 1), lds(kF32BK + 1), ldo(hd + 4) {}
   __host__ __device__ size_t bytes() const {
-    return sizeof(T) * (size_t)(BQ + 2 * BK) * ldq +
-           sizeof(float) * (size_t)BQ * lds + sizeof(PT) * (size_t)BQ * ldp +
-           sizeof(float) * (size_t)BQ * ldo;
+    return sizeof(float) * ((size_t)(kF32BQ + 2 * kF32BK) * ldq +
+                            2 * (size_t)kF32BQ * lds + (size_t)kF32BQ * ldo);
   }
 };
 
 // rows [s0, s0 + R) of head `head` of a (B, S, NH, hd) tensor into smem
-// (row stride ld); rows past S are zero.
-template <typename T, int R, bool VEC>
-__device__ void load_rows(T* dst, int ld, const T* src, int b, int s0, int S,
-                          int NH, int head, int hd) {
-  if constexpr (VEC) {  // 16-byte chunks; bf16 with hd % 16 == 0
-    const int chunks = hd / 8;
-    for (int e = threadIdx.x; e < R * chunks; e += kThreads) {
-      const int r = e / chunks, c = e % chunks;
-      uint4 val = make_uint4(0u, 0u, 0u, 0u);
-      const int s = s0 + r;
-      if (s < S)
-        val = *reinterpret_cast<const uint4*>(
-            src + (((size_t)b * S + s) * NH + head) * hd + c * 8);
-      *reinterpret_cast<uint4*>(dst + r * ld + c * 8) = val;
-    }
-  } else {
-    for (int e = threadIdx.x; e < R * hd; e += kThreads) {
-      const int r = e / hd, c = e % hd;
-      const int s = s0 + r;
-      dst[r * ld + c] =
-          s < S ? src[(((size_t)b * S + s) * NH + head) * hd + c] : from_f<T>(0.f);
-    }
+// (row stride ld); rows past S are zero
+template <int R>
+__device__ void load_rows_f32(float* dst, int ld, const float* src, int b,
+                              int s0, int S, int NH, int head, int hd) {
+  for (int e = threadIdx.x; e < R * hd; e += kF32Threads) {
+    const int r = e / hd, c = e % hd;
+    const int s = s0 + r;
+    dst[r * ld + c] = s < S ? src[(((size_t)b * S + s) * NH + head) * hd + c]
+                            : 0.f;
   }
 }
 
-template <typename T, int BQ, int BK, bool TC>
-__global__ void __launch_bounds__(kThreads, 1) flash_kernel(const Args a) {
-  using L = Layout<T, BQ, BK, TC>;
-  using PT = typename L::PT;
+__global__ void __launch_bounds__(kF32Threads, 1)
+    flash_f32_kernel(const Args a) {
+  constexpr int BQ = kF32BQ, BK = kF32BK;
   extern __shared__ __align__(128) unsigned char smem[];
   const int hd = a.hd;
-  const L lay(hd);
-  T* Qs = reinterpret_cast<T*>(smem);
-  T* Ks = Qs + BQ * lay.ldq;
-  T* Vs = Ks + BK * lay.ldq;
-  float* Ss = reinterpret_cast<float*>(Vs + BK * lay.ldq);
-  PT* Ps = reinterpret_cast<PT*>(Ss + BQ * lay.lds);
-  float* Os = reinterpret_cast<float*>(Ps + BQ * lay.ldp);
+  const F32Layout lay(hd);
+  float* Qs = reinterpret_cast<float*>(smem);
+  float* Ks = Qs + BQ * lay.ldq;
+  float* Vs = Ks + BK * lay.ldq;
+  float* Ss = Vs + BK * lay.ldq;
+  float* Ps = Ss + BQ * lay.lds;
+  float* Os = Ps + BQ * lay.lds;
 
-  const int tid = threadIdx.x, warp = tid / 32;
+  const int tid = threadIdx.x;
   const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
   const int kvh = h / (a.H / a.KV);
-  const T* q = static_cast<const T*>(a.q);
-  const T* k = static_cast<const T*>(a.k);
-  const T* v = static_cast<const T*>(a.v);
+  const float* q = static_cast<const float*>(a.q);
+  const float* k = static_cast<const float*>(a.k);
+  const float* v = static_cast<const float*>(a.v);
 
   // softmax layout: TPR threads per query row, columns interleaved
-  constexpr int TPR = kThreads / BQ;
+  constexpr int TPR = kF32Threads / BQ;
   constexpr int CPT = BK / TPR;
-  static_assert(TPR * BQ == kThreads && CPT * TPR == BK && TPR <= 32, "");
+  static_assert(TPR * BQ == kF32Threads && CPT * TPR == BK && TPR <= 32, "");
   const int srow = tid / TPR, spart = tid % TPR;
   const int qpos = q0 + srow;
   float m_run = kMasked, l_run = 0.f;
 
-  load_rows<T, BQ, TC>(Qs, lay.ldq, q, b, q0, a.Sq, a.H, h, hd);
-  for (int e = tid; e < BQ * lay.ldo; e += kThreads) Os[e] = 0.f;
+  load_rows_f32<BQ>(Qs, lay.ldq, q, b, q0, a.Sq, a.H, h, hd);
+  for (int e = tid; e < BQ * lay.ldo; e += kF32Threads) Os[e] = 0.f;
 
-  const int nk = (a.Sk + BK - 1) / BK;
-  for (int ik = 0; ik < nk; ++ik) {
+  int lo, hi;
+  live_tiles<BQ, BK>(a, q0, lo, hi);
+  for (int ik = lo; ik < hi; ++ik) {
     const int k0 = ik * BK;
-    // tiles wholly above the diagonal or wholly outside the window
-    if (a.causal && q0 + BQ - 1 < k0) break;
-    if (a.window > 0 && q0 - (k0 + BK - 1) >= a.window) continue;
-    load_rows<T, BK, TC>(Ks, lay.ldq, k, b, k0, a.Sk, a.KV, kvh, hd);
-    load_rows<T, BK, TC>(Vs, lay.ldq, v, b, k0, a.Sk, a.KV, kvh, hd);
+    load_rows_f32<BK>(Ks, lay.ldq, k, b, k0, a.Sk, a.KV, kvh, hd);
+    load_rows_f32<BK>(Vs, lay.ldq, v, b, k0, a.Sk, a.KV, kvh, hd);
     __syncthreads();
 
-    // S = Q K^T (raw dot products, f32)
-    if constexpr (TC) {
-      constexpr int FR = BQ / 16, FC = BK / 16;
-      for (int f = warp; f < FR * FC; f += kWarps) {
-        const int fr = f % FR, fc = f / FR;
-        wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-        wmma::fill_fragment(acc, 0.f);
-        for (int kk = 0; kk < hd; kk += 16) {
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                         wmma::row_major> fa;
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                         wmma::col_major> fb;
-          wmma::load_matrix_sync(fa, Qs + fr * 16 * lay.ldq + kk, lay.ldq);
-          wmma::load_matrix_sync(fb, Ks + fc * 16 * lay.ldq + kk, lay.ldq);
-          wmma::mma_sync(acc, fa, fb, acc);
-        }
-        wmma::store_matrix_sync(Ss + fr * 16 * lay.lds + fc * 16, acc,
-                                lay.lds, wmma::mem_row_major);
-      }
-    } else {
-      for (int e = tid; e < BQ * BK; e += kThreads) {
-        const int r = e / BK, c = e % BK;
-        const T* qr = Qs + r * lay.ldq;
-        const T* kr = Ks + c * lay.ldq;
-        float acc = 0.f;
-        for (int d = 0; d < hd; ++d) acc = fmaf(to_f(qr[d]), to_f(kr[d]), acc);
-        Ss[r * lay.lds + c] = acc;
-      }
+    // S = Q K^T (raw dot products)
+    for (int e = tid; e < BQ * BK; e += kF32Threads) {
+      const int r = e / BK, c = e % BK;
+      const float* qr = Qs + r * lay.ldq;
+      const float* kr = Ks + c * lay.ldq;
+      float acc = 0.f;
+      for (int dd = 0; dd < hd; ++dd) acc = fmaf(qr[dd], kr[dd], acc);
+      Ss[r * lay.lds + c] = acc;
     }
     __syncthreads();
 
@@ -214,8 +184,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_kernel(const Args a) {
 #pragma unroll
       for (int j = 0; j < CPT; ++j) {
         const float pj = expf(s[j] - m_new);
-        const PT pt = from_f<PT>(pj);
-        Ps[srow * lay.ldp + spart + TPR * j] = pt;
+        Ps[srow * lay.lds + spart + TPR * j] = pj;
         rs += pj;
       }
 #pragma unroll
@@ -229,58 +198,534 @@ __global__ void __launch_bounds__(kThreads, 1) flash_kernel(const Args a) {
     __syncthreads();
 
     // O += P V
-    if constexpr (TC) {
-      constexpr int FR = BQ / 16, FK = BK / 16;
-      const int FO = hd / 16;
-      for (int f = warp; f < FR * FO; f += kWarps) {
-        const int fr = f % FR, fc = f / FR;
-        float* o_ptr = Os + fr * 16 * lay.ldo + fc * 16;
-        wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-        wmma::load_matrix_sync(acc, o_ptr, lay.ldo, wmma::mem_row_major);
-#pragma unroll
-        for (int kk = 0; kk < FK; ++kk) {
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                         wmma::row_major> fa;
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                         wmma::row_major> fb;
-          wmma::load_matrix_sync(fa, Ps + fr * 16 * lay.ldp + kk * 16,
-                                 lay.ldp);
-          wmma::load_matrix_sync(fb, Vs + kk * 16 * lay.ldq + fc * 16,
-                                 lay.ldq);
-          wmma::mma_sync(acc, fa, fb, acc);
-        }
-        wmma::store_matrix_sync(o_ptr, acc, lay.ldo, wmma::mem_row_major);
-      }
-    } else {
-      for (int e = tid; e < BQ * hd; e += kThreads) {
-        const int r = e / hd, c = e % hd;
-        float acc = Os[r * lay.ldo + c];
-        for (int j = 0; j < BK; ++j)
-          acc = fmaf(to_f(Ps[r * lay.ldp + j]), to_f(Vs[j * lay.ldq + c]), acc);
-        Os[r * lay.ldo + c] = acc;
-      }
+    for (int e = tid; e < BQ * hd; e += kF32Threads) {
+      const int r = e / hd, c = e % hd;
+      float acc = Os[r * lay.ldo + c];
+      for (int j = 0; j < BK; ++j)
+        acc = fmaf(Ps[r * lay.lds + j], Vs[j * lay.ldq + c], acc);
+      Os[r * lay.ldo + c] = acc;
     }
     __syncthreads();
   }
 
   if (qpos < a.Sq) {
     const float denom = fmaxf(l_run, 1e-30f);
-    T* out = static_cast<T*>(a.o) + (((size_t)b * a.Sq + qpos) * a.H + h) * hd;
-    for (int c = spart; c < hd; c += TPR)
-      out[c] = from_f<T>(Os[srow * lay.ldo + c] / denom);
+    float* out = static_cast<float*>(a.o) + (((size_t)b * a.Sq + qpos) * a.H + h) * hd;
+    for (int c = spart; c < hd; c += TPR) out[c] = Os[srow * lay.ldo + c] / denom;
   }
 }
 
-template <typename T, int BQ, int BK, bool TC>
-int launch(const Args& a, cudaStream_t stream) {
-  const size_t smem = Layout<T, BQ, BK, TC>(a.hd).bytes();
-  auto kern = flash_kernel<T, BQ, BK, TC>;
+int launch_f32(const Args& a, cudaStream_t stream) {
+  const size_t smem = F32Layout(a.hd).bytes();
   cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      flash_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((a.Sq + BQ - 1) / BQ, a.H, a.B);
-  kern<<<grid, kThreads, smem, stream>>>(a);
+  dim3 grid((a.Sq + kF32BQ - 1) / kF32BQ, a.H, a.B);
+  flash_f32_kernel<<<grid, kF32Threads, smem, stream>>>(a);
   return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// bfloat16: Hopper (TMA, mbarrier, wgmma, setmaxnreg)
+// ---------------------------------------------------------------------------
+
+constexpr int kBQ = 128;           // Q rows per CTA: two consumers of 64
+constexpr int kBK = 64;            // keys per K/V tile
+constexpr int kStages = 2;         // K/V ring depth
+constexpr int kBox = 64 * 64 * 2;  // one 64-row x 64-column bf16 TMA box
+constexpr int kThreadsTC = 384;    // producer warpgroup + two consumers
+constexpr float kLog2e = 1.4426950408889634f;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// one TMA box of a 4-D tensor map into shared memory, completing on `bar`
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor, 128-byte swizzle (the layout TMA writes
+// with CU_TENSOR_MAP_SWIZZLE_128B into 1024-byte aligned boxes).  K-major
+// operands (Q, K): rows of 128 bytes, 8-row groups SBO = 1024 bytes apart,
+// LBO unused; a k-step of 16 columns moves the start by 32 bytes.
+// MN-major operand (V, transposed): 8-key groups SBO = 1024 bytes apart,
+// 64-column boxes LBO = kBox bytes apart; a k-step of 16 keys moves the
+// start by 2048 bytes.
+__device__ __forceinline__ uint64_t wgmma_desc(uint32_t saddr, uint32_t lbo,
+                                               uint32_t sbo) {
+  uint64_t desc = (uint64_t)((saddr & 0x3FFFFu) >> 4);
+  desc |= (uint64_t)((lbo >> 4) & 0x3FFFu) << 16;
+  desc |= (uint64_t)((sbo >> 4) & 0x3FFFu) << 32;
+  desc |= (uint64_t)1 << 62;  // SWIZZLE_128B
+  return desc;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+}
+// keep the compiler from moving register accesses across an async wgmma
+template <int N>
+__device__ __forceinline__ void pin_regs(float* r) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void pin_regs(uint32_t* r) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ void wgmma_ss_m64n64k16(float* d, uint64_t da,
+                                                    uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_rs_m64n64k16(float* d, const uint32_t* a,
+                                                    uint64_t db) {
+  asm volatile(
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, 1, 1, 1, 1;\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db));
+}
+
+__device__ __forceinline__ void wgmma_rs_m64n128k16(float* d, const uint32_t* a,
+                                                    uint64_t db) {
+  asm volatile(
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, 1, 1, 1, 1;\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db));
+}
+
+__device__ __forceinline__ void wgmma_rs_m64n256k16(float* d, const uint32_t* a,
+                                                    uint64_t db) {
+  asm volatile(
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, {%128, %129, %130, %131}, %132, 1, 1, 1, 1;\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db));
+}
+
+// O += P V for one k-step of 16 keys: wgmma.m64n{HDP}k16, A = P in registers
+template <int HDP>
+__device__ __forceinline__ void wgmma_pv(float* o, const uint32_t* a,
+                                         uint64_t db) {
+  if constexpr (HDP == 64) wgmma_rs_m64n64k16(o, a, db);
+  if constexpr (HDP == 128) wgmma_rs_m64n128k16(o, a, db);
+  if constexpr (HDP == 256) wgmma_rs_m64n256k16(o, a, db);
+}
+
+// Shared memory of the Hopper kernel, offsets from a 1024-byte aligned base:
+// Q [consumer][box][64 rows][128 B], then per stage K [box][64 keys][128 B]
+// and V [box][64 keys][128 B], then the mbarriers.
+template <int HDP>
+struct TcLayout {
+  static constexpr int NB = HDP / 64;  // 64-column boxes per row
+  static constexpr int Q = 0;
+  static constexpr int K = Q + 2 * NB * kBox;
+  static constexpr int V = K + kStages * NB * kBox;
+  static constexpr int BAR = V + kStages * NB * kBox;
+  // q_full, k_full[S], v_full[S], empty[S]
+  static constexpr int BYTES = BAR + 8 * (1 + 3 * kStages);
+  static constexpr int ALLOC = BYTES + 1024;  // room to align the base
+};
+
+template <int HDP>
+__global__ void __launch_bounds__(kThreadsTC, 1)
+    flash_tc_kernel(const __grid_constant__ CUtensorMap tmQ,
+                    const __grid_constant__ CUtensorMap tmK,
+                    const __grid_constant__ CUtensorMap tmV, const Args a) {
+  using L = TcLayout<HDP>;
+  constexpr int NB = L::NB;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t q_full = base + L::BAR;
+  const uint32_t k_full = q_full + 8;
+  const uint32_t v_full = k_full + 8 * kStages;
+  const uint32_t empty = v_full + 8 * kStages;
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int wg = warp / 4;  // 0: producer, 1 and 2: consumers
+  const int h = blockIdx.x, b = blockIdx.z;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ;  // longest rows first
+  const int kvh = h / (a.H / a.KV);
+  int lo, hi;
+  live_tiles<kBQ, kBK>(a, q0, lo, hi);
+
+  if (tid == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(k_full + 8 * s, 1);
+      mbar_init(v_full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 2 * 128);  // every consumer thread
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    // ---- producer: one thread keeps the ring full -----------------------
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;" ::: "memory");
+    if (warp == 0 && lane == 0) {
+      mbar_expect_tx(q_full, 2 * NB * kBox);
+      for (int c = 0; c < 2; ++c)
+        for (int x = 0; x < NB; ++x)
+          tma_load_4d(base + L::Q + (c * NB + x) * kBox, &tmQ, q_full, x * 64,
+                      h, q0 + c * 64, b);
+      for (int t = 0; t < hi - lo; ++t) {
+        const int s = t % kStages;
+        if (t >= kStages) mbar_wait(empty + 8 * s, ((t / kStages) - 1) & 1);
+        const int k0 = (lo + t) * kBK;
+        mbar_expect_tx(k_full + 8 * s, NB * kBox);
+        for (int x = 0; x < NB; ++x)
+          tma_load_4d(base + L::K + (s * NB + x) * kBox, &tmK, k_full + 8 * s,
+                      x * 64, kvh, k0, b);
+        mbar_expect_tx(v_full + 8 * s, NB * kBox);
+        for (int x = 0; x < NB; ++x)
+          tma_load_4d(base + L::V + (s * NB + x) * kBox, &tmV, v_full + 8 * s,
+                      x * 64, kvh, k0, b);
+      }
+    }
+  } else {
+    // ---- consumers: 64 query rows each ----------------------------------
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;" ::: "memory");
+    const int c = wg - 1;
+    const int w = warp % 4, g = lane / 4, t4 = lane % 4;
+    const int rq = q0 + c * 64 + w * 16 + g;  // this thread's rows: rq, rq + 8
+    const int qa = q0 + c * 64, qb = qa + 63;  // the consumer's rows
+    const float sl2 = a.scale * kLog2e;
+    const float s_cap = a.cap > 0.f ? a.scale / a.cap : 0.f;
+    const float cap_l2 = a.cap * kLog2e;
+
+    float o[HDP / 2];
+#pragma unroll
+    for (int i = 0; i < HDP / 2; ++i) o[i] = 0.f;
+    float m_run[2] = {kMasked, kMasked}, l_run[2] = {0.f, 0.f};
+    const uint32_t qs = base + L::Q + c * NB * kBox;
+    mbar_wait(q_full, 0);
+
+    for (int t = 0; t < hi - lo; ++t) {
+      const int s = t % kStages;
+      const uint32_t par = (t / kStages) & 1;
+      const int k0 = (lo + t) * kBK;
+      mbar_wait(k_full + 8 * s, par);
+      // a tile wholly masked for these 64 rows adds exactly nothing to rows
+      // that see a live key elsewhere: skip its products
+      const bool dead = (a.causal && k0 > qb) ||
+                        (a.window > 0 && qa - (k0 + kBK - 1) >= a.window);
+      if (dead) {
+        mbar_wait(v_full + 8 * s, par);
+        mbar_arrive(empty + 8 * s);
+        continue;
+      }
+      // ---- S = Q K^T ----
+      float sc[32];
+      const uint32_t ks = base + L::K + s * NB * kBox;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < HDP / 16; ++kk) {
+        const uint32_t off = (kk / 4) * kBox + (kk % 4) * 32;
+        wgmma_ss_m64n64k16(sc, wgmma_desc(qs + off, 16, 1024),
+                           wgmma_desc(ks + off, 16, 1024), kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait0();
+      pin_regs<32>(sc);
+
+      // ---- online softmax in registers (log2 domain) ----
+      const bool edge = (k0 + kBK > a.Sk) || (a.causal && k0 + kBK - 1 > qa) ||
+                        (a.window > 0 && qb - k0 >= a.window);
+      float mt[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float x = sc[4 * i + e];
+          x = a.cap > 0.f ? cap_l2 * tanhf(x * s_cap) : x * sl2;
+          if (edge) {
+            const int qp = rq + (e >> 1) * 8;
+            const int kp = k0 + 8 * i + 2 * t4 + (e & 1);
+            if (kp >= a.Sk)
+              x = -INFINITY;  // ragged edge: no weight at all
+            else if ((a.causal && qp < kp) ||
+                     (a.window > 0 && qp - kp >= a.window))
+              x = kMasked;
+          }
+          sc[4 * i + e] = x;
+          mt[e >> 1] = fmaxf(mt[e >> 1], x);
+        }
+      }
+      float alpha[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mt[r] = fmaxf(mt[r], __shfl_xor_sync(0xffffffffu, mt[r], 1));
+        mt[r] = fmaxf(mt[r], __shfl_xor_sync(0xffffffffu, mt[r], 2));
+        const float m_new = fmaxf(m_run[r], mt[r]);
+        alpha[r] = exp2f(m_run[r] - m_new);
+        m_run[r] = m_new;
+        l_run[r] *= alpha[r];
+      }
+      uint32_t pa[4][4];  // P as the A operand of 4 k-steps of 16 keys
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        float p[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          p[e] = exp2f(sc[4 * i + e] - m_run[e >> 1]);
+          l_run[e >> 1] += p[e];
+        }
+        pa[i / 2][(i % 2) * 2 + 0] = pack_bf16(p[0], p[1]);
+        pa[i / 2][(i % 2) * 2 + 1] = pack_bf16(p[2], p[3]);
+      }
+#pragma unroll
+      for (int i = 0; i < HDP / 8; ++i) {
+        o[4 * i + 0] *= alpha[0];
+        o[4 * i + 1] *= alpha[0];
+        o[4 * i + 2] *= alpha[1];
+        o[4 * i + 3] *= alpha[1];
+      }
+
+      // ---- O += P V ----
+      mbar_wait(v_full + 8 * s, par);
+      const uint32_t vs = base + L::V + s * NB * kBox;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBK / 16; ++kk)
+        wgmma_pv<HDP>(o, pa[kk], wgmma_desc(vs + kk * 2048, kBox, 1024));
+      wgmma_commit();
+      wgmma_wait0();
+      pin_regs<HDP / 2>(o);
+      mbar_arrive(empty + 8 * s);
+    }
+
+    // ---- O / l, rows < Sq and columns < hd only ----
+    __nv_bfloat16* out = static_cast<__nv_bfloat16*>(a.o);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float l = l_run[r];
+      l += __shfl_xor_sync(0xffffffffu, l, 1);
+      l += __shfl_xor_sync(0xffffffffu, l, 2);
+      const float inv = 1.f / fmaxf(l, 1e-30f);
+      const int qp = rq + 8 * r;
+      if (qp < a.Sq) {
+        __nv_bfloat16* row = out + (((size_t)b * a.Sq + qp) * a.H + h) * a.hd;
+#pragma unroll
+        for (int i = 0; i < HDP / 8; ++i) {
+          const int col = 8 * i + 2 * t4;
+          if (col < a.hd)
+            *reinterpret_cast<uint32_t*>(row + col) =
+                pack_bf16(o[4 * i + 2 * r] * inv, o[4 * i + 2 * r + 1] * inv);
+        }
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// host side: tensor maps through the driver entry point (no -lcuda)
+// ---------------------------------------------------------------------------
+
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                  void*, const cuuint64_t*, const cuuint64_t*,
+                                  const cuuint32_t*, const cuuint32_t*,
+                                  CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult res;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &res);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr,
+                                              cudaEnableDefault, &res);
+#endif
+    if (err == cudaSuccess && res == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiledFn>(ptr);
+  }
+  return fn;
+}
+
+// bf16 tensor of `dims` (innermost first) with byte strides of dims 1..n-1,
+// read in boxes of `box`, 128-byte swizzled, zeros past every edge
+bool make_map(CUtensorMap* map, const void* ptr, int rank,
+              const cuuint64_t* dims, const cuuint64_t* strides,
+              const cuuint32_t* box) {
+  EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint32_t ones[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, (cuuint32_t)rank,
+            const_cast<void*>(ptr), dims, strides, box, ones,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// (B, S, NH, hd) bf16 read as 64-row x 64-column boxes of one head
+bool make_bshd_map(CUtensorMap* map, const void* ptr, int B, int S, int NH,
+                   int hd) {
+  const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)NH, (cuuint64_t)S,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)hd * 2, (cuuint64_t)NH * hd * 2,
+                                 (cuuint64_t)S * NH * hd * 2};
+  const cuuint32_t box[4] = {64, 1, 64, 1};
+  return make_map(map, ptr, 4, dims, strides, box);
+}
+
+template <int HDP>
+int launch_tc(const Args& a, cudaStream_t stream) {
+  CUtensorMap tq, tk, tv;
+  if (!make_bshd_map(&tq, a.q, a.B, a.Sq, a.H, a.hd) ||
+      !make_bshd_map(&tk, a.k, a.B, a.Sk, a.KV, a.hd) ||
+      !make_bshd_map(&tv, a.v, a.B, a.Sk, a.KV, a.hd))
+    return (int)cudaErrorInvalidValue;
+  const int smem = TcLayout<HDP>::ALLOC;
+  auto kern = flash_tc_kernel<HDP>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid(a.H, (a.Sq + kBQ - 1) / kBQ, a.B);
+  kern<<<grid, kThreadsTC, smem, stream>>>(tq, tk, tv, a);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// probe: the two shared-memory layouts and the register A operand, alone.
+// s = A B^T (wgmma.m64n64k16, both operands K-major from TMA boxes) and
+// o = A V (wgmma.m64n256k16, A from registers, V MN-major across four
+// boxes): the descriptors, fragments and maps the attention kernel uses.
+// A (64, 64), B (64, 64), V (64, 256) bf16 row-major; s (64, 64), o (64,
+// 256) f32.  One CTA of one warpgroup.
+// ---------------------------------------------------------------------------
+
+__global__ void __launch_bounds__(128, 1)
+    wgmma_probe_kernel(const __grid_constant__ CUtensorMap tmA,
+                       const __grid_constant__ CUtensorMap tmB,
+                       const __grid_constant__ CUtensorMap tmV,
+                       const __nv_bfloat16* A, float* s_out, float* o_out) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sa = base, sb = base + kBox, sv = base + 2 * kBox;
+  const uint32_t bar = base + 6 * kBox;
+  const int tid = threadIdx.x, w = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t4 = lane % 4;
+  if (tid == 0) {
+    mbar_init(bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_expect_tx(bar, 6 * kBox);
+    tma_load_4d(sa, &tmA, bar, 0, 0, 0, 0);
+    tma_load_4d(sb, &tmB, bar, 0, 0, 0, 0);
+    for (int x = 0; x < 4; ++x)
+      tma_load_4d(sv + x * kBox, &tmV, bar, x * 64, 0, 0, 0);
+  }
+  mbar_wait(bar, 0);
+
+  float sc[32];
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    wgmma_ss_m64n64k16(sc, wgmma_desc(sa + kk * 32, 16, 1024),
+                       wgmma_desc(sb + kk * 32, 16, 1024), kk > 0);
+  wgmma_commit();
+  wgmma_wait0();
+  pin_regs<32>(sc);
+
+  // A's register fragments, read from global memory
+  uint32_t pa[4][4];
+  const int r0 = w * 16 + g;
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int row = r0 + (j & 1) * 8, col = kk * 16 + (j >> 1) * 8 + 2 * t4;
+      pa[kk][j] = *reinterpret_cast<const uint32_t*>(A + row * 64 + col);
+    }
+  float o[128];
+#pragma unroll
+  for (int i = 0; i < 128; ++i) o[i] = 0.f;
+  pin_regs<16>(&pa[0][0]);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    wgmma_rs_m64n256k16(o, pa[kk], wgmma_desc(sv + kk * 2048, kBox, 1024));
+  wgmma_commit();
+  wgmma_wait0();
+  pin_regs<128>(o);
+
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      s_out[(r0 + (e >> 1) * 8) * 64 + 8 * i + 2 * t4 + (e & 1)] = sc[4 * i + e];
+#pragma unroll
+  for (int i = 0; i < 32; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      o_out[(r0 + (e >> 1) * 8) * 256 + 8 * i + 2 * t4 + (e & 1)] = o[4 * i + e];
 }
 
 }  // namespace
@@ -296,9 +741,32 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
     return (int)cudaErrorInvalidValue;
   Args a{q, k, v, o, B, Sq, Sk, H, KV, hd, causal, window, scale, cap};
   if (dtype == 1) {
-    if (hd % 16 != 0) return (int)cudaErrorInvalidValue;
-    return launch<__nv_bfloat16, 64, 64, true>(a, stream);
+    if (hd % 16 != 0 || hd > 256) return (int)cudaErrorInvalidValue;
+    if (hd <= 64) return launch_tc<64>(a, stream);
+    if (hd <= 128) return launch_tc<128>(a, stream);
+    return launch_tc<256>(a, stream);
   }
-  if (dtype == 0) return launch<float, 32, 32, false>(a, stream);
+  if (dtype == 0) return launch_f32(a, stream);
   return (int)cudaErrorInvalidValue;
+}
+
+// the wgmma probe (see wgmma_probe_kernel); a, b, v bf16, s and o float32
+extern "C" int flash_wgmma_probe(const void* a, const void* b, const void* v,
+                                 float* s, float* o, cudaStream_t stream) {
+  CUtensorMap ta, tb, tv;
+  const cuuint64_t dims64[4] = {64, 1, 64, 1}, dims256[4] = {256, 1, 64, 1};
+  const cuuint64_t st64[3] = {128, 128, 64 * 128};
+  const cuuint64_t st256[3] = {512, 512, 64 * 512};
+  const cuuint32_t box[4] = {64, 1, 64, 1};
+  if (!make_map(&ta, a, 4, dims64, st64, box) ||
+      !make_map(&tb, b, 4, dims64, st64, box) ||
+      !make_map(&tv, v, 4, dims256, st256, box))
+    return (int)cudaErrorInvalidValue;
+  const int smem = 6 * kBox + 8 + 1024;
+  cudaError_t err = cudaFuncSetAttribute(
+      wgmma_probe_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  wgmma_probe_kernel<<<1, 128, smem, stream>>>(
+      ta, tb, tv, static_cast<const __nv_bfloat16*>(a), s, o);
+  return (int)cudaGetLastError();
 }

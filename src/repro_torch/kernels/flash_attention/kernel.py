@@ -1,5 +1,6 @@
 """Build, bind and launch the flash-attention kernel
-(``csrc/flash_attention.cu``).
+(``csrc/flash_attention.cu``): the Hopper kernel (TMA, wgmma) for
+bfloat16, the CUDA-core kernel for float32.
 
 The wrapper checks device, dtype, shape, contiguity and alignment, launches
 on PyTorch's current stream, raises if ``cudaGetLastError`` reports a
@@ -19,7 +20,7 @@ import torch
 from ..build import NvccLibrary, check_launch, need, ptr, stream
 
 _SRC = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
-#: the bf16 variant stages a (64, hd) f32 accumulator in shared memory
+#: the bf16 kernel pads hd to 64, 128 or 256 columns (four TMA boxes at most)
 MAX_HEAD_DIM = 256
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -40,6 +41,8 @@ def _bind(handle: ctypes.CDLL) -> None:
     handle.flash_attention_fwd.argtypes = ([vp] * 4 + [i] * 6 + [i, i, i]
                                            + [f, f, vp])
     handle.flash_attention_fwd.restype = ctypes.c_int
+    handle.flash_wgmma_probe.argtypes = [vp] * 6
+    handle.flash_wgmma_probe.restype = ctypes.c_int
 
 
 #: plain IEEE math (expf, tanhf, division); FMAs are allowed
@@ -86,3 +89,23 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     check_launch(err, "flash_attention")
     LAUNCHES["flash_attention"] += 1
     return out
+
+
+def wgmma_probe(a: torch.Tensor, b: torch.Tensor,
+                v: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's two products alone, for testing its layouts: a (64, 64),
+    b (64, 64), v (64, 256) bfloat16 on the card -> (a @ b.T, a @ v) in
+    float32, through wgmma.m64n64k16 with both operands K-major and
+    wgmma.m64n256k16 with a in registers and v MN-major, from the same
+    128-byte swizzled TMA boxes and descriptors as the attention kernel.
+    Not an attention launch: ``LAUNCHES`` does not count it."""
+    dev = a.device
+    need(a, "a", torch.bfloat16, (64, 64), dev)
+    need(b, "b", torch.bfloat16, (64, 64), dev)
+    need(v, "v", torch.bfloat16, (64, 256), dev)
+    s = torch.empty((64, 64), dtype=torch.float32, device=dev)
+    o = torch.empty((64, 256), dtype=torch.float32, device=dev)
+    err = lib().flash_wgmma_probe(ptr(a), ptr(b), ptr(v), ptr(s), ptr(o),
+                                  stream(a))
+    check_launch(err, "flash_wgmma_probe")
+    return s, o

@@ -131,260 +131,596 @@ extern "C" int ps_heartbeat_eligible(const float* dem, const float* thr_fit,
 // ---------------------------------------------------------------------------
 // Kernel 3: one heartbeat wave
 //
-// Bound: latency of a sequential walk.  Machines are visited in host order
-// and every pick changes the availability the next comparison sees, so
-// machines and picks cannot run in parallel; the data (2048 x 4 avail
-// rows, <= a few hundred candidate rows, a handful of ledger entries) is
-// well under a MB.  What bounds the kernel is the chain of block-wide
-// barriers per pick iteration.  Design: one CTA; candidates are strided
-// over its threads, the per-machine state (local/row availability, the EMA
-// pair, the dense deficit ledger, taken flags) lives in shared memory, and
-// each pick iteration is: one pass computing fit/overbook flags, a block OR
-// for the deficit-forced group, a second pass for the eligible pool, one
-// block argmax (first index wins) over the scores, and one thread applying
-// the pick.  A visit whose first iteration finds nothing eligible costs one
-// such iteration; the walk stops once every candidate is taken (later
-// visits could pick nothing).
+// Bound: latency of a sequential chain.  Machines are visited in host order
+// and every pick changes the availability the next comparison sees, so the
+// visits and the picks within a visit form one chain; the data (2048 x 4
+// avail rows, a few hundred candidate rows, a handful of ledger entries) is
+// well under a MB.  What bounds the kernel is the cost of each link, and
+// the design cuts that cost (one CTA of WAVE_WARPS warps):
+//
+//   * Every candidate's dem row, pri, srpt, group, locality and taken flag
+//     is loaded once per wave: a thread's first candidates (up to
+//     WAVE_REG_VALUES demand values, WAVE_REG_SLOTS candidates) into
+//     registers, the rest into shared memory (read from global memory,
+//     through L1, only when the columns exceed 227 KB).  Nothing is re-read
+//     from global memory per pass.  The kernel is instantiated per d, so
+//     every loop over the dims is unrolled with nothing to mask.
+//   * The walk state (local and row availability, the EMA pair, the
+//     ledger's argmax, the counts) is replicated in every thread, and each
+//     warp keeps its own copy of the dense deficit ledger (lane l holds
+//     entries l, l + 32, ...), so every thread applies a pick itself and no
+//     thread waits on another to publish it.
+//   * One fused pass per pick iteration.  The four pools the matcher
+//     chooses between (eligible, eligible-and-fits, deficit-forced,
+//     forced-and-fits) collapse into one lexicographic key: the pick is the
+//     maximum of (tier, score), tier = fits + 2 * forced while the deficit
+//     gate is open, ties to the smallest index (see tk_beats).  Scores key
+//     as order-preserving 64-bit integers, so the warp's argmax is four
+//     redux.sync instructions; every test in the pass is a select, never a
+//     branch.  With more than one warp the warps' results cross in shared
+//     memory behind one named barrier per iteration.
+//   * A visit that cannot pick is skipped without a pass: the walk keeps
+//     the componentwise minimum of the untaken candidates' demands (NaN
+//     ignored, as a NaN demand fails every comparison; recomputed after a
+//     visit that picked, so it only grows stale downward) and skips a
+//     machine on which that minimum exceeds local + eps on some fit dim
+//     while overbooking is off or impossible too (a rigid dim above
+//     local + eps, or a fungible dim above local + slack + eps).  The
+//     machines of the order are loaded and tested 32 at a time, one per
+//     lane, and only the survivors are walked, in order.
+//
+// The order must list each machine at most once (visit_order's argsort
+// does): the chunk loads a machine's row before the visits ahead of it.
 // ---------------------------------------------------------------------------
 
-#define WAVE_THREADS 256
+// the fastest of 1, 2 and 4 warps at n = 512 (scripts/wave_warps.py)
+#define WAVE_WARPS 4
 #define WAVE_MAXD 8
+#define WAVE_REG_VALUES 16   // demand values a thread keeps in registers
+#define WAVE_REG_SLOTS 4     // ... in at most this many candidates
+#define WAVE_SMEM_LIMIT (227 * 1024)
+#define FULL_MASK 0xffffffffu
+#define NO_INDEX 0x7fffffff
 
 enum { C_EPS = 0, C_SLACK, C_RP, C_ETA_M, C_THRESH, C_A, C_1MA, C_FLOOR };
 enum { F_PACKING = 1, F_SRPT = 2, F_OVERBOOK = 4, F_DRF = 8 };
-enum { B_FITS = 1, B_OVER = 2, B_ELIG = 4 };
-
-// numpy argmax order: NaN is the maximum, ties go to the first index
-__device__ __forceinline__ bool beats(double a, int ia, double b, int ib) {
-  bool na = isnan(a), nb = isnan(b);
-  if (na || nb) return (na && nb) ? (ia < ib) : na;
-  if (a > b) return true;
-  if (a < b) return false;
-  return ia < ib;
-}
 
 __device__ __forceinline__ double clip0(double x) { return x < 0.0 ? 0.0 : x; }
 
-// score base of candidate c against the machine's local availability:
-// seq_dot(dem, clip(local, 0)) * rp, shrunk by the overshoot penalty when
-// the candidate only fits by overbooking (wave.py wave_core, step by step)
-__device__ double cand_base(int c, bool fits, int mid, const double* dem,
-                            const int* loc, const double* local,
-                            const unsigned char* fg_mask, int d,
-                            const double* consts, int flags) {
-  double rp = (loc[c] >= 0 && loc[c] != mid) ? consts[C_RP] : 1.0;
-  const double* dc = dem + (long long)c * d;
-  double dot;
-  if (flags & F_PACKING) {
-    double acc = __dmul_rn(dc[0], clip0(local[0]));
-    for (int k = 1; k < d; ++k)
-      acc = __dadd_rn(acc, __dmul_rn(dc[k], clip0(local[k])));
-    dot = __dmul_rn(acc, rp);
-  } else {
-    dot = rp;
-  }
-  if (fits) return dot;
-  double shoot = -INFINITY;
-  for (int k = 0; k < d; ++k) {
-    if (fg_mask[k]) {
-      double x = __dsub_rn(dc[k], local[k]);
-      // jnp.max propagates NaN
-      if (isnan(x) || x > shoot || isnan(shoot)) shoot = isnan(shoot) ? shoot : x;
-    }
-  }
-  shoot = clip0(shoot);
-  double f = __dsub_rn(1.0, shoot);
-  f = (f < 0.05) ? 0.05 : f;
-  return __dmul_rn(dot, f);
+// An unsigned key whose order is the numeric order of x (-0 and +0 equal).
+// numpy's argmax takes NaN as the maximum; a wave stops at a best score
+// that is not finite, so a NaN score keys as +inf: same stop, same picks.
+__device__ __forceinline__ unsigned long long okey(double x) {
+  const unsigned long long b =
+      (unsigned long long)__double_as_longlong(x + 0.0);  // -0 -> +0
+  return (b >> 63) ? ~b : (b | 0x8000000000000000ull);
+}
+__device__ __forceinline__ double okey_value(unsigned long long k) {
+  const unsigned long long b = (k >> 63) ? (k & 0x7fffffffffffffffull) : ~k;
+  return __longlong_as_double((long long)b);
 }
 
-__global__ void __launch_bounds__(WAVE_THREADS) match_wave_kernel(
+// The pick of an iteration as one lexicographic maximum.  The matcher's
+// pool is the eligible candidates, narrowed to the deficit-forced group
+// when the gate is open (the leading group's deficit >= thresh) and that
+// group has an eligible member, then to those that fit when one does; the
+// pick is the pool's first-index score argmax.  With tier = fits + 2 *
+// forced (forced counted only while the gate is open), the maximum of
+// (tier, score) over all eligible candidates, ties to the smallest index,
+// is that pick: every higher tier present is exactly the narrowing.
+// tier in [0, 3]; key = okey(score) > 0, so an empty slot keys (0, 0).
+__device__ __forceinline__ bool tk_beats(unsigned t, unsigned long long k,
+                                         unsigned bt, unsigned long long bk) {
+  return (t > bt) | ((t == bt) & (k > bk));
+}
+
+// the warp's largest (tier, key), and the smallest index among the lanes
+// that hold it (so the first index when each lane holds its own first):
+// four redux instructions, the result in every lane
+__device__ __forceinline__ void warp_tkmax(unsigned& tier,
+                                           unsigned long long& key, int& idx) {
+  const unsigned khi = (unsigned)(key >> 32), klo = (unsigned)key;
+  const unsigned t = __reduce_max_sync(FULL_MASK, tier);
+  const unsigned hi = __reduce_max_sync(FULL_MASK, tier == t ? khi : 0u);
+  const unsigned lo =
+      __reduce_max_sync(FULL_MASK, (tier == t) & (khi == hi) ? klo : 0u);
+  const unsigned long long k = ((unsigned long long)hi << 32) | lo;
+  idx = (int)__reduce_min_sync(
+      FULL_MASK, (tier == t) & (key == k) ? (unsigned)idx : (unsigned)NO_INDEX);
+  tier = t;
+  key = k;
+}
+
+// the wave's scalar operands, replicated in every thread
+struct WaveParams {
+  double eps, slack, rp, eta_m, thresh, a, one_ma, floor;
+  unsigned fd, rd, fg;  // fit / rigid / fungible dims as bits
+  int d, flags;
+};
+
+// what the warps exchange: each warp's best (tier, key, index) with the
+// winner's obs and over flag, and the demand minimum or the live count
+struct WaveXch {
+  unsigned long long key;
+  double obs;
+  double mn[WAVE_MAXD];
+  unsigned tier;
+  int idx;
+  int over;
+  int live;
+};
+
+// Every test below is a select over mask bits, never a branch: a runtime
+// branch on d, a mask or a flag splits the pass into blocks that the
+// compiler cannot overlap, and the chain then pays every latency in full.
+template <int DM>
+__device__ __forceinline__ void fit_flags(const double* dc, const double* thr,
+                                          const double* thr_g,
+                                          const WaveParams& p, bool& fits,
+                                          bool& over) {
+  bool f = true, rig = true, fng = true;
+#pragma unroll
+  for (int k = 0; k < DM; ++k) {
+    const bool le = dc[k] <= thr[k], le_g = dc[k] <= thr_g[k];
+    f = f & (le | !((p.fd >> k) & 1u));
+    rig = rig & (le | !((p.rd >> k) & 1u));
+    fng = fng & (le_g | !((p.fg >> k) & 1u));
+  }
+  fits = f;
+  over = ((p.flags & F_OVERBOOK) != 0) & !f & rig & fng;
+}
+
+// score base of a candidate against the machine's local availability:
+// seq_dot(dem, clip(local, 0)) * rp, shrunk by the overshoot penalty when
+// the candidate only fits by overbooking (wave.py wave_core, step by step).
+// The penalty's max over the fungible dims is NaN if any term is NaN, as
+// jnp.max is, and is taken as a tree.  It is always computed and applied as
+// dot * (fits ? 1 : f): dot * 1 is dot exactly.  The dot product and the
+// penalty are pinned (an empty asm that takes and gives each value), so the
+// compiler computes them unconditionally instead of putting a branch on the
+// packing flag or the fit around them: a branch would split the pass into
+// blocks whose candidates' chains no longer overlap.
+__device__ __forceinline__ void pin(double& x) { asm volatile("" : "+d"(x)); }
+
+template <int DM>
+__device__ __forceinline__ double cand_base(const double* dc, int loc,
+                                            bool fits, int mid,
+                                            const double* local,
+                                            const WaveParams& p) {
+  const double rp = ((loc >= 0) & (loc != mid)) ? p.rp : 1.0;
+  double acc = __dmul_rn(dc[0], clip0(local[0]));
+#pragma unroll
+  for (int k = 1; k < DM; ++k)
+    acc = __dadd_rn(acc, __dmul_rn(dc[k], clip0(local[k])));
+  pin(acc);
+  const double dot = __dmul_rn((p.flags & F_PACKING) ? acc : 1.0, rp);
+  double xs[DM];
+  bool nan_any = false;
+#pragma unroll
+  for (int k = 0; k < DM; ++k) {
+    const double x = __dsub_rn(dc[k], local[k]);
+    const bool on = (p.fg >> k) & 1u;
+    nan_any = nan_any | (on & isnan(x));
+    xs[k] = on ? x : -INFINITY;
+  }
+#pragma unroll
+  for (int w = DM / 2; w > 0; w /= 2)
+#pragma unroll
+    for (int k = 0; k < w; ++k) xs[k] = fmax(xs[k], xs[k + w]);
+  const double shoot = clip0(nan_any ? __longlong_as_double(0x7ff8000000000000ll)
+                                     : xs[0]);
+  double f = __dsub_rn(1.0, shoot);
+  f = (f < 0.05) ? 0.05 : f;
+  pin(f);
+  return __dmul_rn(dot, fits ? 1.0 : f);
+}
+
+// The gate's ledger argmax, as the sequential scan `g* = 0; for g: if
+// (def[g] > def[g*]) g* = g` computes it: the first maximum over the
+// non-NaN entries, or entry 0 when entry 0 is NaN.  Lane l scans its own
+// entries l, l + 32, ... of this warp's copy; the result lands in every lane.
+__device__ __forceinline__ void ledger_argmax(const double* def, int G,
+                                              int lane, int& gstar,
+                                              double& gbest) {
+  unsigned long long k = 0ull;  // below every key: no entry yet
+  int bi = NO_INDEX;
+  for (int g = lane; g < G; g += 32) {
+    const double x = def[g];
+    const unsigned long long kg = isnan(x) ? 0ull : okey(x);
+    if (kg > k) {
+      k = kg;
+      bi = g;
+    }
+  }
+  unsigned t = 0u;
+  warp_tkmax(t, k, bi);
+  const double d0 = __shfl_sync(FULL_MASK, lane == 0 ? def[0] : 0.0, 0);
+  if (isnan(d0) || k == 0ull) {
+    gstar = 0;
+    gbest = d0;
+  } else {
+    gstar = bi;
+    gbest = okey_value(k);
+  }
+}
+
+// row c of a (n, DM) array
+template <int DM>
+__device__ __forceinline__ void load_row(double* out, const double* a, int c) {
+#pragma unroll
+  for (int k = 0; k < DM; ++k) out[k] = a[(size_t)c * DM + k];
+}
+
+template <int NW>
+__device__ __forceinline__ void wave_barrier() {
+  asm volatile("bar.sync 1, %0;" ::"n"(NW * 32) : "memory");
+}
+
+template <int NW, int DM>
+__global__ void __launch_bounds__(NW * 32) match_wave_kernel(
     double* __restrict__ avail, const int* __restrict__ order, int m,
-    const double* __restrict__ dem, const double* __restrict__ pri,
-    const double* __restrict__ srpt, const int* __restrict__ gidx,
-    const int* __restrict__ loc, const bool* __restrict__ taken0, int n,
+    const double* __restrict__ dem_g, const double* __restrict__ pri_g,
+    const double* __restrict__ srpt_g, const int* __restrict__ gidx_g,
+    const int* __restrict__ loc_g, const bool* __restrict__ taken0, int n,
     double* __restrict__ ema, double* __restrict__ deficit_io,
     const double* __restrict__ share, int G,
     const unsigned char* __restrict__ masks, const double* __restrict__ consts,
     int d, int bundle_limit, int flags, int* __restrict__ rows,
     int* __restrict__ mach, int8_t* __restrict__ overf,
-    double* __restrict__ obs, int* __restrict__ count) {
-  extern __shared__ unsigned char smem[];
-  double* s_def = (double*)smem;                       // (G,)
-  unsigned char* s_taken = smem + sizeof(double) * G;  // (n,)
-  unsigned char* s_bits = s_taken + n;                 // (n,)
+    double* __restrict__ obs, int* __restrict__ count, int cand_in_smem) {
+  constexpr int T = NW * 32;
+  // register slots per thread
+  constexpr int RS = WAVE_REG_VALUES / DM < 1 ? 1
+                     : WAVE_REG_VALUES / DM > WAVE_REG_SLOTS ? WAVE_REG_SLOTS
+                                                             : WAVE_REG_VALUES / DM;
+  extern __shared__ __align__(16) unsigned char smem[];
+  WaveXch* xbuf = reinterpret_cast<WaveXch*>(smem);            // [2][NW]
+  double* s_share = reinterpret_cast<double*>(xbuf + 2 * NW);  // (G,)
+  double* s_def = s_share + G;                                 // (NW, G)
+  unsigned char* s_taken =
+      reinterpret_cast<unsigned char*>(s_def + (size_t)NW * G);  // (n,)
 
-  __shared__ double s_local[WAVE_MAXD], s_row[WAVE_MAXD];
-  __shared__ double s_ema[2];
-  __shared__ unsigned char s_fd[WAVE_MAXD], s_rd[WAVE_MAXD], s_fg[WAVE_MAXD];
-  __shared__ double s_wscore[WAVE_THREADS / 32];
-  __shared__ int s_widx[WAVE_THREADS / 32];
-  __shared__ int s_stop, s_active, s_cnt;
-
-  const int tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5;
-  const double eps = consts[C_EPS];
-  const double slack = consts[C_SLACK];
-  const double thresh = consts[C_THRESH];
-  const double NEG_INF = -INFINITY;
-
-  for (int g = tid; g < G; g += blockDim.x) s_def[g] = deficit_io[g];
-  int act = 0;
-  for (int c = tid; c < n; c += blockDim.x) {
-    s_taken[c] = taken0[c] ? 1 : 0;
-    act += taken0[c] ? 0 : 1;
-  }
-  if (tid < d) {
-    s_fd[tid] = masks[tid];
-    s_rd[tid] = masks[d + tid];
-    s_fg[tid] = masks[2 * d + tid];
-  }
-  if (tid == 0) {
-    s_ema[0] = ema[0];
-    s_ema[1] = ema[1];
-    s_cnt = 0;
-    s_active = 0;
-  }
-  __syncthreads();
-  if (act) atomicAdd(&s_active, act);
-  __syncthreads();
-
-  for (int v = 0; v < m; ++v) {
-    const int mid = order[v];
-    if (mid < 0 || s_active == 0) break;   // -1 pads trail; nothing left to take
-    if (tid < d) {
-      s_local[tid] = avail[(long long)mid * d + tid];
-      s_row[tid] = s_local[tid];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const double* dem = dem_g;
+  const double* pri = pri_g;
+  const double* srpt = srpt_g;
+  const int* gidx = gidx_g;
+  const int* loc = loc_g;
+  if (cand_in_smem) {  // the candidate columns, copied once
+    const size_t off = ((size_t)(s_taken + n - smem) + 15) & ~(size_t)15;
+    double* c_dem = reinterpret_cast<double*>(smem + off);
+    double* c_pri = c_dem + (size_t)n * d;
+    double* c_srpt = c_pri + n;
+    int* c_gidx = reinterpret_cast<int*>(c_srpt + n);
+    int* c_loc = c_gidx + n;
+    for (int e = tid; e < n * d; e += T) c_dem[e] = dem_g[e];
+    for (int c = tid; c < n; c += T) {
+      c_pri[c] = pri_g[c];
+      c_srpt[c] = srpt_g[c];
+      c_gidx[c] = gidx_g[c];
+      c_loc[c] = loc_g[c];
     }
-    __syncthreads();
-    for (int j = 0; j < bundle_limit; ++j) {
-      // -- deficit gating: first argmax of the dense ledger -------------
-      int gstar = 0;
-      double gbest = s_def[0];
-      for (int g = 1; g < G; ++g)
-        if (s_def[g] > gbest) { gbest = s_def[g]; gstar = g; }
-      // -- pass 1: exact f64 eligibility (masked dims always pass) -----
-      int any_forced = 0;
-      for (int c = tid; c < n; c += blockDim.x) {
-        const double* dc = dem + (long long)c * d;
-        bool fits = true, rig = true, fng = true;
-        for (int k = 0; k < d; ++k) {
-          double thr = __dadd_rn(s_local[k], eps);
-          if (s_fd[k]) fits = fits && (dc[k] <= thr);
-          if (s_rd[k]) rig = rig && (dc[k] <= thr);
-          if (s_fg[k]) {
-            double thr_g = __dadd_rn(__dadd_rn(s_local[k], slack), eps);
-            fng = fng && (dc[k] <= thr_g);
+    dem = c_dem;
+    pri = c_pri;
+    srpt = c_srpt;
+    gidx = c_gidx;
+    loc = c_loc;
+  }
+  for (int g = tid; g < G; g += T) {
+    s_share[g] = share[g];
+    const double x = deficit_io[g];
+    for (int w = 0; w < NW; ++w) s_def[(size_t)w * G + g] = x;
+  }
+  for (int c = tid; c < n; c += T) s_taken[c] = taken0[c] ? 1 : 0;
+
+  WaveParams p;
+  p.eps = consts[C_EPS];
+  p.slack = consts[C_SLACK];
+  p.rp = consts[C_RP];
+  p.eta_m = consts[C_ETA_M];
+  p.thresh = consts[C_THRESH];
+  p.a = consts[C_A];
+  p.one_ma = consts[C_1MA];
+  p.floor = consts[C_FLOOR];
+  p.fd = p.rd = p.fg = 0u;
+  for (int k = 0; k < d; ++k) {
+    p.fd |= masks[k] ? 1u << k : 0u;
+    p.rd |= masks[d + k] ? 1u << k : 0u;
+    p.fg |= masks[2 * d + k] ? 1u << k : 0u;
+  }
+  p.d = d;
+  p.flags = flags;
+  double ema0 = ema[0], ema1 = ema[1];
+  __syncthreads();
+
+  // this thread's candidates c = r * T + tid: slots r < RS in registers
+  const int nslots = (n + T - 1) / T;
+  double rdem[RS][DM], rpri[RS], rsrpt[RS];
+  int rgidx[RS], rloc[RS];
+  unsigned rtaken = 0u;  // bit r: slot r taken or past n
+#pragma unroll
+  for (int r = 0; r < RS; ++r) {
+    const int c = r * T + tid;
+    const bool in = c < n;
+#pragma unroll
+    for (int k = 0; k < DM; ++k) rdem[r][k] = in ? dem[(size_t)c * DM + k] : 0.0;
+    rpri[r] = in ? pri[c] : 0.0;
+    rsrpt[r] = in ? srpt[c] : 0.0;
+    rgidx[r] = in ? gidx[c] : 0;
+    rloc[r] = in ? loc[c] : -1;
+    if (!in || s_taken[c]) rtaken |= 1u << r;
+  }
+
+  // fn(c, live, dem row, pri, srpt, gidx, loc) over this thread's slots in
+  // increasing c; `live`: a real candidate not yet taken
+  auto for_each = [&](auto&& fn) {
+#pragma unroll
+    for (int r = 0; r < RS; ++r)
+      fn(r * T + tid, !((rtaken >> r) & 1u), rdem[r], rpri[r], rsrpt[r],
+         rgidx[r], rloc[r]);
+    for (int r = RS; r < nslots; ++r) {
+      const int c = r * T + tid;
+      const int cc = c < n ? c : n - 1;
+      double dc[DM];
+      load_row<DM>(dc, dem, cc);
+      fn(c, c < n && !s_taken[cc], dc, pri[cc], srpt[cc], gidx[cc], loc[cc]);
+    }
+  };
+
+  int xpar = 0;  // which exchange buffer the next crossing writes
+  // componentwise NaN-ignoring minimum of the untaken candidates' demands
+  double mn[DM];
+  auto recompute_min = [&]() {
+#pragma unroll
+    for (int k = 0; k < DM; ++k) mn[k] = INFINITY;
+    for_each([&](int, bool live, const double* dc, double, double, int, int) {
+#pragma unroll
+      for (int k = 0; k < DM; ++k) mn[k] = live ? fmin(mn[k], dc[k]) : mn[k];
+    });
+#pragma unroll
+    for (int k = 0; k < DM; ++k)
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        mn[k] = fmin(mn[k], __shfl_xor_sync(FULL_MASK, mn[k], off));
+    if constexpr (NW > 1) {
+      WaveXch* xb = xbuf + xpar * NW;
+      if (lane == 0)
+#pragma unroll
+        for (int k = 0; k < DM; ++k) xb[warp].mn[k] = mn[k];
+      wave_barrier<NW>();
+      for (int w = 0; w < NW; ++w)
+#pragma unroll
+        for (int k = 0; k < DM; ++k) mn[k] = fmin(mn[k], xb[w].mn[k]);
+      xpar ^= 1;
+    }
+  };
+  // may a machine with this availability row pick anything?  false only
+  // when no untaken candidate can be eligible on it
+  auto may_pick = [&](const double* vrow) {
+    bool nofit = false, norig = false, nofung = false;
+#pragma unroll
+    for (int k = 0; k < DM; ++k) {
+      const bool above = mn[k] > __dadd_rn(vrow[k], p.eps);
+      const bool above_g =
+          mn[k] > __dadd_rn(__dadd_rn(vrow[k], p.slack), p.eps);
+      nofit = nofit | (((p.fd >> k) & 1u) & above);
+      norig = norig | (((p.rd >> k) & 1u) & above);
+      nofung = nofung | (((p.fg >> k) & 1u) & above_g);
+    }
+    return !(nofit & (!(flags & F_OVERBOOK) | norig | nofung));
+  };
+  // the SRPT weight of the next pick's score
+  auto srpt_eta = [&]() {
+    if (!(flags & F_SRPT)) return 0.0;
+    double r = ema1 < p.floor ? p.floor : ema1;
+    if (isnan(ema1)) r = ema1;
+    return __ddiv_rn(__dmul_rn(p.eta_m, ema0), r);
+  };
+
+  // set-up: live count, demand minimum, the ledger's argmax
+  int live = 0;
+  for_each([&](int, bool lv, const double*, double, double, int, int) {
+    live += lv ? 1 : 0;
+  });
+  live = (int)__reduce_add_sync(FULL_MASK, (unsigned)live);
+  if constexpr (NW > 1) {
+    if (lane == 0) xbuf[xpar * NW + warp].live = live;
+    wave_barrier<NW>();
+    live = 0;
+    for (int w = 0; w < NW; ++w) live += xbuf[xpar * NW + w].live;
+    xpar ^= 1;
+  }
+  recompute_min();
+  double* my_def = s_def + (size_t)warp * G;
+  int gstar;
+  double gbest;
+  ledger_argmax(my_def, G, lane, gstar, gbest);
+  double eta = srpt_eta();
+
+  int cnt = 0;
+  for (int v0 = 0; v0 < m && live > 0; v0 += 32) {
+    // one lane per upcoming visit: its machine and row
+    const int v = v0 + lane;
+    const int vmid = v < m ? order[v] : -1;
+    const unsigned pads = __ballot_sync(FULL_MASK, vmid < 0);
+    const int nvalid = pads ? __ffs(pads) - 1 : 32;  // -1 pads trail
+    double vrow[DM];
+#pragma unroll
+    for (int k = 0; k < DM; ++k)
+      vrow[k] = lane < nvalid ? avail[(size_t)vmid * DM + k] : 0.0;
+    unsigned todo = __ballot_sync(FULL_MASK, lane < nvalid && may_pick(vrow));
+    while (todo) {
+      const int l = __ffs(todo) - 1;
+      todo &= todo - 1u;
+      const int mid = __shfl_sync(FULL_MASK, vmid, l);
+      double local[DM], row[DM];
+#pragma unroll
+      for (int k = 0; k < DM; ++k)
+        local[k] = row[k] = __shfl_sync(FULL_MASK, vrow[k], l);
+      int picked = 0;
+      for (int j = 0; j < bundle_limit; ++j) {
+        double thr[DM], thr_g[DM];
+#pragma unroll
+        for (int k = 0; k < DM; ++k) {
+          thr[k] = __dadd_rn(local[k], p.eps);
+          thr_g[k] = __dadd_rn(__dadd_rn(local[k], p.slack), p.eps);
+        }
+        // -- the fused pass: every candidate's tier and score --------------
+        const bool gate = gbest >= p.thresh;
+        unsigned bt = 0u;        // this thread's best: tier ...
+        unsigned long long bk = 0ull;  // ... score key ...
+        int bi = NO_INDEX;       // ... index ...
+        double bobs = 0.0;       // ... pri * base ...
+        bool bover = false;      // ... and whether it only overbooks
+        for_each([&](int c, bool lv, const double* dc, double pr, double sp,
+                     int gi, int lc) {
+          bool fits, over;
+          fit_flags<DM>(dc, thr, thr_g, p, fits, over);
+          const bool elig = lv & (fits | over);
+          const double ob =
+              __dmul_rn(pr, cand_base<DM>(dc, lc, fits, mid, local, p));
+          const double score = __dsub_rn(ob, __dmul_rn(eta, sp));
+          const unsigned long long key = okey(isnan(score) ? INFINITY : score);
+          const unsigned tier =
+              (fits ? 1u : 0u) + ((gate & (gi == gstar)) ? 2u : 0u);
+          const bool upd = elig & tk_beats(tier, key, bt, bk);  // ties: first c
+          bt = upd ? tier : bt;
+          bk = upd ? key : bk;
+          bi = upd ? c : bi;
+          bobs = upd ? ob : bobs;
+          bover = upd ? over : bover;
+        });
+        warp_tkmax(bt, bk, bi);
+        // the winning lane holds the winner's obs and over flag
+        bobs = __shfl_sync(FULL_MASK, bobs, bi & 31);
+        bover = __shfl_sync(FULL_MASK, bover ? 1 : 0, bi & 31) != 0;
+        if constexpr (NW > 1) {
+          WaveXch* xb = xbuf + xpar * NW;
+          if (lane == 0) {
+            xb[warp].tier = bt;
+            xb[warp].key = bk;
+            xb[warp].idx = bi;
+            xb[warp].obs = bobs;
+            xb[warp].over = bover ? 1 : 0;
+          }
+          wave_barrier<NW>();
+          for (int w = 0; w < NW; ++w) {
+            const unsigned t = xb[w].tier;
+            const unsigned long long k = xb[w].key;
+            const int ix = xb[w].idx;
+            const bool upd = tk_beats(t, k, bt, bk) |
+                             ((t == bt) & (k == bk) & (ix < bi));
+            bt = upd ? t : bt;
+            bk = upd ? k : bk;
+            bi = upd ? ix : bi;
+            bobs = upd ? xb[w].obs : bobs;
+            bover = upd ? xb[w].over != 0 : bover;
+          }
+          xpar ^= 1;
+        }
+        if (bk == 0ull) break;  // nothing eligible
+        // a best score of -inf, +inf or NaN ends the visit
+        if (!isfinite(okey_value(bk))) break;
+        const int i = bi;
+        const double obs_i = bobs;
+        const bool over_i = bover;
+        // -- the pick, applied by every thread ----------------------------
+        double di[DM];
+        load_row<DM>(di, dem, i);
+        double w = 1.0;
+        if (flags & F_DRF) {
+          w = di[0];
+#pragma unroll
+          for (int k = 1; k < DM; ++k) {
+            const bool take = isnan(di[k]) | (di[k] > w);
+            w = take ? (isnan(w) ? w : di[k]) : w;
           }
         }
-        bool over = (flags & F_OVERBOOK) ? (!fits && rig && fng) : false;
-        bool elig = (fits || over) && !s_taken[c];
-        s_bits[c] = (fits ? B_FITS : 0) | (over ? B_OVER : 0) |
-                    (elig ? B_ELIG : 0);
-        if (elig && gidx[c] == gstar) any_forced = 1;
-      }
-      const bool use_forced =
-          __syncthreads_or(any_forced) && (gbest >= thresh);
-      // -- pass 2: the eligible pool ----------------------------------
-      int any_elig = 0, any_fit = 0;
-      for (int c = tid; c < n; c += blockDim.x) {
-        unsigned char b = s_bits[c];
-        bool elig = (b & B_ELIG) && (!use_forced || gidx[c] == gstar);
-        if (!elig) b &= ~B_ELIG;
-        s_bits[c] = b;
-        any_elig |= elig;
-        any_fit |= elig && (b & B_FITS);
-      }
-      const int elig_any = __syncthreads_or(any_elig);
-      if (!elig_any) break;                 // uniform across the block
-      const bool pool_fit = __syncthreads_or(any_fit);
-      // -- pass 3: scores and their first-index argmax ----------------
-      double eta = 0.0;
-      if (flags & F_SRPT) {
-        double r = s_ema[1] < consts[C_FLOOR] ? consts[C_FLOOR] : s_ema[1];
-        if (isnan(s_ema[1])) r = s_ema[1];
-        eta = __ddiv_rn(__dmul_rn(consts[C_ETA_M], s_ema[0]), r);
-      }
-      double best = NEG_INF;
-      int bidx = n;
-      for (int c = tid; c < n; c += blockDim.x) {
-        unsigned char b = s_bits[c];
-        bool fits = b & B_FITS;
-        bool in_pool = (b & B_ELIG) && (!pool_fit || fits);
-        double score = NEG_INF;
-        if (in_pool) {
-          double base = cand_base(c, fits, mid, dem, loc, s_local, s_fg, d,
-                                  consts, flags);
-          score = __dsub_rn(__dmul_rn(pri[c], base), __dmul_rn(eta, srpt[c]));
+        if (i % T == tid) {
+          const int r = i / T;
+          if (r < RS)
+            rtaken |= 1u << r;
+          else
+            s_taken[i] = 1;
         }
-        if (beats(score, c, best, bidx)) { best = score; bidx = c; }
-      }
-      for (int off = 16; off > 0; off >>= 1) {
-        double os = __shfl_down_sync(0xffffffffu, best, off);
-        int oi = __shfl_down_sync(0xffffffffu, bidx, off);
-        if (beats(os, oi, best, bidx)) { best = os; bidx = oi; }
-      }
-      if (lane == 0) { s_wscore[warp] = best; s_widx[warp] = bidx; }
-      __syncthreads();
-      if (tid == 0) {
-        best = s_wscore[0];
-        bidx = s_widx[0];
-        for (int w = 1; w < (int)(blockDim.x >> 5); ++w)
-          if (beats(s_wscore[w], s_widx[w], best, bidx)) {
-            best = s_wscore[w];
-            bidx = s_widx[w];
-          }
-        // every candidate scores -inf or better, so bidx < n here
-        const int i = bidx < n ? bidx : 0;
-        const bool ok = isfinite(best) && bidx < n;
-        s_stop = ok ? 0 : 1;
-        if (ok) {
-          unsigned char b = s_bits[i];
-          double base = cand_base(i, b & B_FITS, mid, dem, loc, s_local, s_fg,
-                                  d, consts, flags);
-          double obs_i = __dmul_rn(pri[i], base);
-          const double* di = dem + (long long)i * d;
-          double w = 1.0;
-          if (flags & F_DRF) {
-            w = di[0];
-            for (int k = 1; k < d; ++k)
-              if (isnan(di[k]) || di[k] > w) w = isnan(w) ? w : di[k];
-          }
-          s_taken[i] = 1;
-          double sr = srpt[i] < consts[C_FLOOR] ? consts[C_FLOOR] : srpt[i];
-          if (isnan(srpt[i])) sr = srpt[i];
-          s_ema[0] = __dadd_rn(__dmul_rn(consts[C_1MA], s_ema[0]),
-                               __dmul_rn(consts[C_A], obs_i));
-          s_ema[1] = __dadd_rn(__dmul_rn(consts[C_1MA], s_ema[1]),
-                               __dmul_rn(consts[C_A], sr));
-          for (int g = 0; g < G; ++g)
-            s_def[g] = __dadd_rn(s_def[g], __dmul_rn(share[g], w));
-          s_def[gidx[i]] = __dadd_rn(s_def[gidx[i]], -w);
-          for (int k = 0; k < d; ++k) {
-            s_local[k] = clip0(__dsub_rn(s_local[k], di[k]));
-            s_row[k] = __dsub_rn(s_row[k], di[k]);
-          }
-          const int cnt = s_cnt;
+        const double sr_i = srpt[i];
+        double sr = sr_i < p.floor ? p.floor : sr_i;
+        if (isnan(sr_i)) sr = sr_i;
+        ema0 = __dadd_rn(__dmul_rn(p.one_ma, ema0), __dmul_rn(p.a, obs_i));
+        ema1 = __dadd_rn(__dmul_rn(p.one_ma, ema1), __dmul_rn(p.a, sr));
+        eta = srpt_eta();
+        const int gi = gidx[i];
+        for (int g = lane; g < G; g += 32) {
+          double x = __dadd_rn(my_def[g], __dmul_rn(s_share[g], w));
+          if (g == gi) x = __dadd_rn(x, -w);
+          my_def[g] = x;
+        }
+#pragma unroll
+        for (int k = 0; k < DM; ++k) {
+          local[k] = clip0(__dsub_rn(local[k], di[k]));
+          row[k] = __dsub_rn(row[k], di[k]);
+        }
+        if (tid == 0) {
           rows[cnt] = i;
           mach[cnt] = mid;
-          overf[cnt] = (b & B_OVER) ? 1 : 0;
+          overf[cnt] = over_i ? 1 : 0;
           obs[cnt] = obs_i;
-          s_cnt = cnt + 1;
-          s_active -= 1;
         }
+        ++cnt;
+        ++picked;
+        --live;
+        ledger_argmax(my_def, G, lane, gstar, gbest);
+        if (live == 0) break;
       }
-      __syncthreads();
-      if (s_stop) break;
+      if (picked) {
+        if (tid == 0)
+#pragma unroll
+          for (int k = 0; k < DM; ++k) avail[(size_t)mid * DM + k] = row[k];
+        if (live == 0) break;
+        // fewer candidates: the minimum only grows, so skips only grow
+        recompute_min();
+        todo &= __ballot_sync(FULL_MASK, may_pick(vrow));
+      }
     }
-    if (tid < d) avail[(long long)mid * d + tid] = s_row[tid];
-    __syncthreads();
+    if (nvalid < 32) break;
   }
-  for (int g = tid; g < G; g += blockDim.x) deficit_io[g] = s_def[g];
+  if (warp == 0)
+    for (int g = lane; g < G; g += 32) deficit_io[g] = my_def[g];
   if (tid == 0) {
-    ema[0] = s_ema[0];
-    ema[1] = s_ema[1];
-    count[0] = s_cnt;
+    ema[0] = ema0;
+    ema[1] = ema1;
+    count[0] = cnt;
   }
+}
+
+template <int NW, int DM>
+static int launch_wave(double* avail, const int* order, int m,
+                       const double* dem, const double* pri,
+                       const double* srpt, const int* gidx, const int* loc,
+                       const bool* taken0, int n, double* ema,
+                       double* deficit, const double* share, int G,
+                       const unsigned char* masks, const double* consts,
+                       int d, int bundle_limit, int flags, int* rows,
+                       int* mach, int8_t* overf, double* obs, int* count,
+                       cudaStream_t stream) {
+  const size_t base = sizeof(WaveXch) * 2 * NW +
+                      sizeof(double) * (size_t)G * (1 + NW) + (size_t)n;
+  const size_t cand = 16 + (size_t)n * (sizeof(double) * (d + 2) +
+                                        2 * sizeof(int));
+  if (base > WAVE_SMEM_LIMIT) return (int)cudaErrorInvalidValue;
+  const int in_smem = base + cand <= WAVE_SMEM_LIMIT;
+  const size_t smem = base + (in_smem ? cand : 0);
+  auto kern = match_wave_kernel<NW, DM>;
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  kern<<<1, NW * 32, smem, stream>>>(
+      avail, order, m, dem, pri, srpt, gidx, loc, taken0, n, ema, deficit,
+      share, G, masks, consts, d, bundle_limit, flags, rows, mach, overf, obs,
+      count, in_smem);
+  return (int)cudaGetLastError();
 }
 
 extern "C" int ps_match_wave(double* avail, const int* order, int m,
@@ -398,16 +734,13 @@ extern "C" int ps_match_wave(double* avail, const int* order, int m,
                              int* mach, int8_t* overf, double* obs,
                              int* count, void* stream) {
   if (d > WAVE_MAXD || d < 1 || G < 1) return (int)cudaErrorInvalidValue;
-  size_t smem = sizeof(double) * G + 2 * (size_t)n;
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        match_wave_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  match_wave_kernel<<<1, WAVE_THREADS, smem, (cudaStream_t)stream>>>(
-      avail, order, m, dem, pri, srpt, gidx, loc, taken0, n, ema, deficit,
-      share, G, masks, consts, d, bundle_limit, flags, rows, mach, overf, obs,
-      count);
-  return (int)cudaGetLastError();
+  // one instantiation per d: the dims are compile-time in every chain
+  decltype(&launch_wave<WAVE_WARPS, 1>) launches[WAVE_MAXD] = {
+      launch_wave<WAVE_WARPS, 1>, launch_wave<WAVE_WARPS, 2>,
+      launch_wave<WAVE_WARPS, 3>, launch_wave<WAVE_WARPS, 4>,
+      launch_wave<WAVE_WARPS, 5>, launch_wave<WAVE_WARPS, 6>,
+      launch_wave<WAVE_WARPS, 7>, launch_wave<WAVE_WARPS, 8>};
+  return launches[d - 1](avail, order, m, dem, pri, srpt, gidx, loc, taken0, n, ema,
+                deficit, share, G, masks, consts, d, bundle_limit, flags, rows,
+                mach, overf, obs, count, (cudaStream_t)stream);
 }

@@ -136,11 +136,14 @@ def match_wave_walk(avail, order, dem, pri, srpt, gidx, loc, taken0, ema,
     ema_o = ema.clone()
     deficit_o = deficit.clone()
     masks = torch.cat([fd_mask, rd_mask, fg_mask])
-    rows = torch.zeros(n, dtype=i32, device=dev)
-    mach = torch.zeros(n, dtype=i32, device=dev)
-    over = torch.zeros(n, dtype=torch.int8, device=dev)
-    obs = torch.zeros(n, dtype=f64, device=dev)
-    cnt = torch.zeros(1, dtype=i32, device=dev)
+    # the pick outputs as views of one zeroed buffer (one launch, not five):
+    # obs (8n bytes), rows (4n), machines (4n), count (4), over (n)
+    out = torch.zeros(17 * n + 4, dtype=torch.uint8, device=dev)
+    obs = out[:8 * n].view(f64)
+    rows = out[8 * n:12 * n].view(i32)
+    mach = out[12 * n:16 * n].view(i32)
+    cnt = out[16 * n:16 * n + 4].view(i32)
+    over = out[16 * n + 4:].view(torch.int8)
     flags = ((F_PACKING if use_packing else 0) | (F_SRPT if use_srpt else 0)
              | (F_OVERBOOK if use_overbooking else 0) | (F_DRF if drf else 0))
     err = lib().ps_match_wave(

@@ -12,6 +12,9 @@ against them on the card.
     directed-rounded float32 operands.
   * ``match_wave_walk`` — one heartbeat wave: machines in host order, a
     bundling loop of picks per machine, all in float64.
+  * ``demand_min`` / ``visit_may_pick`` — numpy twins of the wave kernel's
+    visit skip: a machine on which no untaken candidate can be eligible is
+    passed over without a pass over the candidates.
 
 The first two are integer/boolean pipelines over float32 comparisons; the
 wave repeats the numpy matcher's float64 ops one by one (PyTorch's CPU and
@@ -21,6 +24,7 @@ it), so all three are bit-identical to the reference implementations.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -77,8 +81,9 @@ def match_wave_walk(avail, order, dem, pri, srpt, gidx, loc, taken0, ema,
                     use_overbooking: bool, drf: bool):
     """One fused heartbeat wave, op for op the numpy matcher's wave.
 
-    Shapes: avail (m, d) f64; order (m,) i32 visit order, -1-padded (a
-    visit is decision-free for a machine the host would have skipped);
+    Shapes: avail (m, d) f64; order (m,) i32 visit order, each machine at
+    most once, -1-padded (a visit is decision-free for a machine the host
+    would have skipped);
     dem (n, d) f64 with pad rows pre-taken (taken0); pri/srpt (n,) f64;
     gidx/loc (n,) i32; ema (2,) f64; deficit/share (G,) f64, deficit pads
     -inf; masks (d,) bool; consts (8,) f64.
@@ -172,3 +177,33 @@ def match_wave_walk(avail, order, dem, pri, srpt, gidx, loc, taken0, ema,
         avail[mid] = row
     return (avail, torch.stack([ema_s, ema_r]), deficit, rows, mach, overf,
             obs, torch.tensor(cnt, dtype=torch.int32, device=dev))
+
+
+def demand_min(dem: np.ndarray, taken: np.ndarray) -> np.ndarray:
+    """(d,) componentwise minimum of the untaken rows of ``dem``, NaN
+    ignored, +inf where nothing is left: the bound the wave kernel keeps to
+    skip visits.  A NaN demand fails every comparison it enters, so leaving
+    it out of the minimum keeps the skip sound."""
+    return np.fmin.reduce(np.asarray(dem, dtype=np.float64)[~np.asarray(
+        taken, dtype=bool)], axis=0, initial=np.inf)
+
+
+def visit_may_pick(row: np.ndarray, dmin: np.ndarray, consts: np.ndarray,
+                   fd_mask: np.ndarray, rd_mask: np.ndarray,
+                   fg_mask: np.ndarray, use_overbooking: bool) -> bool:
+    """The wave kernel's visit test (csrc/placement_scan.cu ``may_pick``).
+
+    False only when no candidate whose demands are all >= ``dmin`` (or
+    NaN) can be eligible on a machine with availability ``row``: some fit
+    dim has ``dmin > row + eps``, and overbooking is off or also
+    impossible (a rigid dim above ``row + eps`` or a fungible dim above
+    ``row + slack + eps``).  Sums are rounded as the kernel and the
+    matcher round them (float64, left to right).
+    """
+    row = np.asarray(row, dtype=np.float64)
+    thr = row + consts[_C_EPS]
+    thr_g = (row + consts[_C_SLACK]) + consts[_C_EPS]
+    nofit = bool(np.any(np.asarray(fd_mask, bool) & (dmin > thr)))
+    norig = bool(np.any(np.asarray(rd_mask, bool) & (dmin > thr)))
+    nofung = bool(np.any(np.asarray(fg_mask, bool) & (dmin > thr_g)))
+    return not (nofit and (not use_overbooking or norig or nofung))

@@ -8,7 +8,8 @@ toolkit alone:
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 
 Inputs are made from numpy seeds.  The scheduler's kernels and the rg_lru
-scan are compared bitwise; flash attention within 2e-5 (f32) and 2e-2
+scan are compared bitwise; the flash kernel's two wgmma layouts alone
+against torch in float32 (``wgmma_probe``); flash attention within 2e-5 (f32) and 2e-2
 (bf16), the tolerances of ``tests/test_kernels.py`` (it sums in another
 order, and its bf16 variant rounds the softmax weights to bf16 for the
 tensor cores); wkv6 within the same limits for y and 1e-3 for the final
@@ -148,6 +149,57 @@ def test_wave_kernel_matches_plain(kernel, seed):
         assert g.cpu().numpy().tobytes() == w.cpu().numpy().tobytes(), seed
 
 
+#: (n, m, seed): one candidate, a ragged warp, the s13 width, past what
+#: registers hold, and past what shared memory holds (read from global)
+WAVE_SIZES = [(1, 40, 0), (1, 300, 1), (1, 7, 2), (33, 64, 3), (33, 500, 4),
+              (33, 2048, 5), (512, 2048, 6), (512, 300, 7), (512, 900, 8),
+              (1500, 600, 9), (1500, 2048, 10), (1500, 150, 11),
+              (4500, 1200, 12)]
+
+
+def _sized_corpus(n, m, seed):
+    """A wave of n candidates on m machines: more groups than two, the DRF
+    and slot ledgers and the SRPT term in turn, bundle limits above one, and
+    (for n > 1) a NaN demand on a fit dim and one on a dim that is outside
+    the fit dims in some corpora."""
+    batch, cfg, shares, avail0, alive, ledger = _corpus(seed, m=m)
+    rng = np.random.default_rng(1000 + seed)
+    n_groups = 3 + seed % 3
+    dem = rng.uniform(0.02, 0.6, (n, 4))
+    if seed % 2:
+        dem = np.round(dem * 5) / 5 + 0.01      # score ties
+    if n > 1:                                   # a lone candidate stays pickable
+        dem[rng.integers(n), 0] = np.nan
+        dem[rng.integers(n), 3] = np.nan
+    batch = CandidateBatch(
+        dem=dem, pri=np.round(rng.uniform(0.0, 2.0, n), 1 + seed % 2),
+        srpt=rng.uniform(0.5, 300.0, n), grp=rng.integers(0, n_groups, n),
+        loc=np.where(rng.random(n) < 0.3, rng.integers(0, m, n), -1),
+        job=np.arange(n), tid=np.arange(n))
+    cfg = dataclasses.replace(
+        cfg, fairness=drf_fairness if seed % 2 == 0 else slot_fairness,
+        use_srpt=seed % 3 != 2, bundle_limit=(2, 8, 64)[seed % 3],
+        fit_dims=(0, 1, 2) if seed % 4 == 1 else (0, 1, 2, 3))
+    shares = {g: 1.0 + g for g in range(n_groups)}
+    ledger = [(int(rng.integers(n_groups)), float(rng.uniform(0.5, 2.0)))
+              for _ in range(4)]
+    return batch, cfg, shares, avail0, alive, ledger
+
+
+@pytest.mark.parametrize("n,m,seed", WAVE_SIZES)
+def test_wave_kernel_matches_plain_at_sizes(kernel, n, m, seed):
+    batch, cfg, shares, avail0, alive, ledger = _sized_corpus(n, m, seed)
+    sm = _matcher(cfg, shares, m, ledger)
+    st = twave.DeviceWaveState("cuda")
+    args, kw, _ = twave.wave_launch_args(st, sm, batch, avail0, alive, "test")
+    assert args[9].shape[0] > 2                  # G: the dense ledger
+    got = kernel.match_wave_walk(*args, **kw)
+    want = tref.match_wave_walk(*args, **kw)
+    for g, w in zip(got, want):
+        assert g.cpu().numpy().tobytes() == w.cpu().numpy().tobytes(), (n, m)
+    assert int(want[7]) > 0
+
+
 @pytest.mark.parametrize("n_shards", [1, 2])
 def test_cuda_wave_matches_numpy_wave_over_carried_waves(kernel, n_shards,
                                                          monkeypatch):
@@ -262,6 +314,17 @@ FLASH_CARD_CASES = [
     ((1, 130, 130, 4, 1, 256), "float32", dict(causal=True, window=50)),
     ((2, 100, 200, 6, 3, 48), "bfloat16", dict(causal=False, cap=5.0)),
     ((3, 1, 77, 2, 1, 32), "float32", dict(causal=False)),
+    # the Hopper kernel's padded widths (hd 32 and 48 -> 64, 128, 256),
+    # Sq and Sk off the 128/64 tile grid, window edges inside a tile,
+    # Sq != Sk both ways, a bf16 soft-cap and H/KV = 10
+    ((2, 150, 150, 4, 2, 32), "bfloat16", dict(causal=True)),
+    ((2, 300, 300, 4, 2, 48), "bfloat16", dict(causal=True, window=100)),
+    ((1, 200, 333, 10, 1, 64), "bfloat16", dict(causal=False, cap=20.0)),
+    ((2, 777, 777, 10, 1, 128), "bfloat16", dict(causal=True, window=333)),
+    ((1, 130, 517, 10, 1, 128), "bfloat16", dict(causal=False, window=70)),
+    ((1, 1000, 1000, 10, 1, 256), "bfloat16", dict(causal=True, window=500)),
+    ((2, 260, 130, 4, 1, 256), "bfloat16", dict(causal=True)),
+    ((1, 64, 1000, 2, 1, 256), "bfloat16", dict(causal=False, cap=30.0)),
 ]
 
 
@@ -283,6 +346,24 @@ def test_flash_kernel_matches_plain(lm_kernels, shape, dtype, opts):
     tol = 2e-2 if dtype == "bfloat16" else 2e-5
     assert got.dtype == dt and bool(torch.isfinite(got).all())
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_wgmma_probe_matches_torch(lm_kernels, seed):
+    """One wgmma product per layout the flash kernel uses, against torch in
+    float32: s = a b^T with both operands K-major (m64n64k16, four k-steps
+    inside a 128-byte swizzle row) and o = a v with a in registers and v
+    MN-major across four 64-column boxes (m64n256k16)."""
+    fk = lm_kernels[0]
+    rng = np.random.default_rng(seed)
+    a, b, v = (torch.from_numpy(rng.standard_normal(s, np.float32)).to(
+        "cuda", torch.bfloat16) for s in ((64, 64), (64, 64), (64, 256)))
+    s, o = fk.wgmma_probe(a, b, v)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(s, a.float() @ b.float().T, rtol=1e-5,
+                               atol=1e-4)
+    torch.testing.assert_close(o, a.float() @ v.float(), rtol=1e-5,
+                               atol=1e-4)
 
 
 def test_flash_kernel_refuses_what_it_does_not_take(lm_kernels):
