@@ -11,14 +11,17 @@ per source, all started together.  Phases, each printing its own lines:
 
   1. device: name, power limit, kernel build time;
   2. each scheduler kernel against its plain PyTorch version on the card,
-     bitwise, at main-path shapes, with CUDA-event times for both; the wave
-     at s13 and on a busy cluster (most visits skipped), each with the
-     length of its chain (visits, walked visits, pick iterations) and the
-     time per iteration;
+     bitwise, at main-path shapes, with CUDA-event times for both; the scan
+     also in a CUDA graph (``device_ms``, the kernel without the host's
+     issue rate) and as the builder's whole call on the host's clock
+     (``call_ms``: upload, launch, readback); the wave at s13 and on a busy
+     cluster (most visits skipped), each with the length of its chain
+     (visits, walked visits, pick iterations) and the time per iteration;
   3. the scheduler's main path in exact mode: ``run_workload`` of 48
      online-mix jobs on 2048 machines through the cuda kernels, against its
      numpy-pinned twin (every JCT, the makespan and the Jain index equal to
-     the last bit), with the wave op's seconds on either side;
+     the last bit), with the build phase and the scan's and the wave op's
+     calls and seconds on either side;
   4. the same population in routed mode against its numpy-pinned twin;
   5. the LM kernels (flash attention, RG-LRU scan) against their plain
      versions on the card at the serving path's shapes, plus a ragged and a
@@ -40,7 +43,8 @@ per source, all started together.  Phases, each printing its own lines:
      and the prefill chained over two halves against the whole run:
      y within 2e-2 (bf16) / 2e-5 (f32), final state within 1e-3; the f32
      case again at the model's scale, within twice the first-order float32
-     rounding bound;
+     rounding bound; each case's device time in a CUDA graph and its share
+     of the bound;
   9. full-width rwkv6-7b (all 32 layers, random bf16 weights from a
      seeded generator on the card): ``greedy_generate`` on 4 prompts of
      4,096 tokens, 32 new tokens, against its plain-pinned twin, as in 6
@@ -138,6 +142,65 @@ def cuda_time_ms(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
+def graph_time_ms(fn, reps: int) -> float:
+    """Device ms per call: ``reps`` calls captured in one CUDA graph and its
+    replay timed with CUDA events, so the host's rate of issuing the calls
+    is out of the reading (a call that allocates its outputs reuses the
+    graph pool's blocks)."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / reps
+    del graph
+    torch.cuda.empty_cache()
+    return ms
+
+
+class TimedScanCall:
+    """The placement-scan library with its C scan call (``ps_scan_call``:
+    upload, launch, readback, synchronize) timed on the host clock, to be
+    swapped in for ``kernel.lib``; the rest of the call (`kernel.scan_call`
+    and `kernels._scan_on` around it) is Python."""
+
+    def __init__(self, kernel):
+        self.kernel, self.handle = kernel, kernel.lib()
+        self.calls, self.s = 0, 0.0
+
+    def __getattr__(self, name):
+        return getattr(self.handle, name)
+
+    def ps_scan_call(self, *args):
+        t = time.perf_counter()
+        err = self.handle.ps_scan_call(*args)
+        self.s += time.perf_counter() - t
+        self.calls += 1
+        return err
+
+    def __enter__(self):
+        self.kernel.lib = lambda: self
+        return self
+
+    def __exit__(self, *exc):
+        self.kernel.lib = self.kernel.LIBRARY.lib
+
+
 def bound_ms(n_bytes: float, n_ops: float, ops_per_s: float):
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_ops / ops_per_s * 1e3
@@ -171,65 +234,82 @@ def s13_corpus():
     return batch, avail0, np.ones(m, bool)
 
 
-#: scan cases at padded main-path shapes (m, W, L, g bucket, real tasks,
-#: largest k): the path's most launched shape (one task padded to 8), its
-#: long-k bucket (W = 2k, k <= LONG_K = 128) and a full prefetch batch
-SCAN_CASES = (("modal", 4, 192, 256, 8, 1, 64),
-              ("long_k", 4, 256, 384, 8, 8, 128),
-              ("batch32", 4, 192, 256, 32, 32, 64))
+#: scan cases at main-path shapes (m, W, L, g tasks, largest k), as the
+#: card's route launches them (the live window only, no padding): one task
+#: (most of the path's calls), the long-k windows (W = 2k, k <= LONG_K =
+#: 128) and a full prefetch batch
+SCAN_CASES = (("modal", 4, 192, 255, 1, 64),
+              ("long_k", 4, 256, 383, 8, 128),
+              ("batch32", 4, 192, 255, 32, 64))
 
 
-def scan_case(label, m, W, Lp, gb, g, kmax, seed):
-    """One scan launch as `kernels._scan_on` pads it, against the plain
-    version bitwise, with both timed and the bound of this input's work."""
+def scan_case(label, m, W, L, g, kmax, seed):
+    """One scan launch against the plain version bitwise; the wrapper timed
+    back to back (``ms``), the kernel alone in a CUDA graph (``device_ms``)
+    and the whole call `kernels._scan_on` on the host's clock
+    (``call_ms``: one pinned upload, the launch, one pinned readback), with
+    the bound of this input's work."""
     import numpy as np
     import torch
 
+    from repro_torch.core.engine import kernels as K
     from repro_torch.core.engine.base import ceil32
     from repro_torch.kernels.placement_scan import kernel, ref
 
     d = 4
     rng = np.random.default_rng(seed)
-    t_live = W + kmax - 1               # the live window, as the adapter reads
-    # free capacity as a grid holds it: mostly room, with rare deep dips
-    live = rng.uniform(0.3, 1.0, (m, t_live, d))
-    dips = rng.random((m, t_live, d)) < 0.005
-    live[dips] = rng.uniform(0.0, 0.3, int(dips.sum()))
-    win = np.full((m, Lp, d), -1.0, dtype=np.float32)
-    win[:, :t_live] = live
-    Vs = np.full((gb, d), 2.0, dtype=np.float32)
-    Vs[:g] = ceil32(rng.uniform(0.01, 0.3, (g, d)))
+    # free capacity as a grid holds it: mostly room, with rare deep dips;
+    # the window [plo, plo + W) reads the grid's L ticks from plo
+    plo = 3
+    grid = rng.uniform(0.3, 1.0, (m, plo + L, d)).astype(np.float32)
+    dips = rng.random(grid.shape) < 0.005
+    grid[dips] = rng.uniform(0.0, 0.3, int(dips.sum()))
+    Vs = ceil32(rng.uniform(0.01, 0.3, (g, d))).astype(np.float32)
     for _ in range(64):                 # cells exactly at a task's demand
-        gi, mi, t = rng.integers(g), rng.integers(m), rng.integers(t_live)
-        win[mi, t] = Vs[gi]
-    ks = np.ones(gb, dtype=np.int32)
-    ks[:g] = rng.integers(1, kmax + 1, g)
+        gi, mi, t = rng.integers(g), rng.integers(m), rng.integers(L)
+        grid[mi, plo + t] = Vs[gi]
+    ks = rng.integers(1, kmax + 1, g).astype(np.int32)
     ks[0] = kmax
     dev = torch.device("cuda")
-    win_t = torch.from_numpy(win).to(dev)
+    win_t = torch.from_numpy(np.ascontiguousarray(grid[:, plo:])).to(dev)
     Vs_t = torch.from_numpy(Vs).to(dev)
     ks_t = torch.from_numpy(ks).to(dev)
-    got = kernel.scan_bitmaps(win_t, Vs_t, ks_t, t_live, W)
-    want = ref.scan_bitmaps(win_t, Vs_t, ks_t, t_live, W)
+    got = kernel.scan_bitmaps(win_t, Vs_t, ks_t, L, W)
+    want = ref.scan_bitmaps(win_t, Vs_t, ks_t, L, W)
     torch.cuda.synchronize()
     check(torch.equal(got, want), f"scan_bitmaps kernel != plain ({label})")
-    check(bool(got[:g].any()), f"scan case {label} has no feasible start")
+    check(bool(got.any()), f"scan case {label} has no feasible start")
+    call = K._scan_on(grid, Vs, ks, plo, plo + W, True, device="cuda")
+    check(call.tobytes() == K.scan_starts(grid, Vs, ks, plo, plo + W,
+                                          True).tobytes(),
+          f"scan call != numpy scan ({label})")
     err = float((got.int() - want.int()).abs().max())
-    ms = cuda_time_ms(lambda: kernel.scan_bitmaps(win_t, Vs_t, ks_t, t_live,
-                                                  W), 200)
-    plain = cuda_time_ms(lambda: ref.scan_bitmaps(win_t, Vs_t, ks_t, t_live,
-                                                  W), 50)
-    # the work this input needs, as a running count along ticks: each real
+    ms = cuda_time_ms(lambda: kernel.scan_bitmaps(win_t, Vs_t, ks_t, L, W),
+                      200)
+    dev_ms = graph_time_ms(
+        lambda: kernel.scan_bitmaps(win_t, Vs_t, ks_t, L, W), 200)
+    plain = cuda_time_ms(lambda: ref.scan_bitmaps(win_t, Vs_t, ks_t, L, W),
+                         50)
+    for _ in range(20):
+        K._scan_on(grid, Vs, ks, plo, plo + W, True, device="cuda")
+    with TimedScanCall(kernel) as timed:
+        t0 = time.perf_counter()
+        for _ in range(500):
+            K._scan_on(grid, Vs, ks, plo, plo + W, True, device="cuda")
+        call_ms = (time.perf_counter() - t0) * 2.0
+    c_ms = timed.s * 1e3 / timed.calls
+    # the work this input needs, as a running count along ticks: each
     # task's (machine, live tick) cell is d compares and one count update,
-    # and each of its W starts one compare of the count with k; the padded
-    # tasks (demand 2.0 > any cell) need none
-    n_ops = float(g * m * (t_live * (d + 1) + W))
+    # and each of its W starts one compare of the count with k
+    n_ops = float(g * m * (L * (d + 1) + W))
     b, by = bound_ms(nbytes(win_t, Vs_t, ks_t, got), n_ops, F32_OPS_PER_S)
     say("kernel", name="scan_bitmaps", case=label,
-        shape=f"m={m},W={W},L={Lp},g={gb}({g} real),kmax={kmax}",
-        bitwise=True, ms=round(ms, 6), plain_ms=round(plain, 6),
-        bound_ms=f"{b:.3e}", bound_by=by)
-    return dict(case=label, shape=(m, W, Lp, gb), max_abs_err=err, ms=ms,
+        shape=f"m={m},W={W},L={L},g={g},kmax={kmax}", bitwise=True,
+        ms=round(ms, 6), device_ms=round(dev_ms, 6),
+        call_ms=round(call_ms, 6), c_call_ms=round(c_ms, 6),
+        plain_ms=round(plain, 6), bound_ms=f"{b:.3e}", bound_by=by)
+    return dict(case=label, shape=(m, W, L, g), max_abs_err=err, ms=ms,
+                device_ms=dev_ms, call_ms=call_ms, c_call_ms=c_ms,
                 plain_ms=plain, bound_ms=b, bound_by=by)
 
 
@@ -240,7 +320,8 @@ def kernel_scan(report: list) -> None:
         source="src/repro_torch/kernels/placement_scan/csrc/placement_scan.cu",
         replaces="src/repro/kernels/placement_scan/kernel.py:57",
         library_ms=None, cases=cases, **{k: cases[0][k] for k in (
-            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")}))
+            "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
+            "bound_by")}))
 
 
 def kernel_eligible(report: list) -> None:
@@ -499,18 +580,24 @@ def run_path(dags, mode: str, pin_numpy: bool):
     kernel.reset_launches()
     t0 = time.perf_counter()
     try:
-        res = run_workload(dags, "dagps", n_machines=N_MACHINES,
-                           interarrival=0.5, seed=SEED, build_machines=4,
-                           matcher_mode=mode, profile=True, device="cuda")
+        with TimedScanCall(kernel) as timed:
+            res = run_workload(dags, "dagps", n_machines=N_MACHINES,
+                               interarrival=0.5, seed=SEED, build_machines=4,
+                               matcher_mode=mode, profile=True,
+                               device="cuda")
     finally:
         os.environ.pop(K.KERNELS_ENV, None)
     wall = time.perf_counter() - t0
-    return res, wall, K.profile_snapshot(), kernel.launch_counts()
+    prof = K.profile_snapshot()
+    if not pin_numpy:
+        prof["scan.cuda.c_call"] = (timed.calls, timed.s)
+    return res, wall, prof, kernel.launch_counts()
 
 
 def scan_shapes(summary: dict) -> dict:
-    """Scan launches per padded (m, W, L, g) shape over both main-path runs
-    (the ``scan.cuda.shape.*`` tallies of `kernels._scan_on`)."""
+    """Scan launches per (m, W, L, g) shape over both main-path runs (the
+    ``scan.cuda.shape.*`` tallies of `kernels._scan_on`: the live window,
+    unpadded)."""
     out: dict = {}
     for run in summary.values():
         for key, (calls, _secs) in run["profile"].items():
@@ -520,53 +607,110 @@ def scan_shapes(summary: dict) -> dict:
     return out
 
 
+def shape_class(m, W, L, g) -> tuple:
+    """A launch shape on the bucket ladder of W and task count, the key
+    that matches a path's launches to the nearest `SCAN_CASES` entry."""
+    from repro_torch.core.engine import kernels as K
+    return (m, K.bucket(W), K.pad8(g))
+
+
 def decisions(res) -> dict:
     return {"jcts": {str(j.job_id): repr(j.jct) for j in res.jobs},
             "makespan": repr(res.makespan),
             "jain_60": repr(res.jain_index(60.0, {0: 1.0}))}
 
 
+#: the order of the main path's runs: through the kernels, then twice
+#: through the numpy twin, then the kernels again, so that warm-up and
+#: drift of the host (the first run of a process builds seconds slower)
+#: fall on both sides alike; each side reads the mean of its two runs
+PATH_TURNS = ("cuda", "numpy", "numpy", "cuda")
+
+
 def main_path(mode: str, dags, need: tuple, summary: dict) -> dict:
-    res, wall, prof, launches = run_path(dags, mode, pin_numpy=False)
-    check(len(res.jobs) == len(dags),
-          f"{mode}: {len(res.jobs)} of {len(dags)} jobs completed")
-    bad = [k for k in prof if k.endswith(".demoted")]
-    check(not bad, f"{mode}: demotion: {bad}")
-    for key in need:
-        check(prof.get(key, (0, 0.0))[0] > 0, f"{mode}: {key} never ran")
-    if mode == "exact":
-        # the twin rebuilds every schedule with the numpy scan
-        from repro_torch.sim import clear_schedule_cache
-        clear_schedule_cache()
-    ref_res, ref_wall, ref_prof, _ = run_path(dags, mode, pin_numpy=True)
-    check(not any(k.split(".")[1] in ("cuda", "torch") for k in ref_prof
-                  if k.count(".") >= 1),
-          f"{mode}: the numpy-pinned twin dispatched a kernel")
-    mine, theirs = decisions(res), decisions(ref_res)
-    check(mine == theirs, f"{mode}: results differ from the numpy twin")
-    pt = {k: round(v, 4) for k, v in (res.phase_times or {}).items()}
-    scans = prof.get("scan.cuda", (0, 0.0))
+    from repro_torch.sim import clear_schedule_cache
+
+    runs: dict = {"cuda": [], "numpy": []}
+    for side in PATH_TURNS:
+        if mode == "exact":
+            clear_schedule_cache()      # every run builds every schedule
+        runs[side].append(run_path(dags, mode, pin_numpy=side == "numpy"))
+    for res, _wall, prof, _launches in runs["cuda"]:
+        check(len(res.jobs) == len(dags),
+              f"{mode}: {len(res.jobs)} of {len(dags)} jobs completed")
+        bad = [k for k in prof if k.endswith(".demoted")]
+        check(not bad, f"{mode}: demotion: {bad}")
+        for key in need:
+            check(prof.get(key, (0, 0.0))[0] > 0, f"{mode}: {key} never ran")
+    for _res, _wall, ref_prof, _launches in runs["numpy"]:
+        check(not any(k.split(".")[1] in ("cuda", "torch") for k in ref_prof
+                      if k.count(".") >= 1),
+              f"{mode}: the numpy-pinned twin dispatched a kernel")
+    theirs = decisions(runs["numpy"][0][0])
+    for side in ("cuda", "numpy"):
+        for r in runs[side]:
+            check(decisions(r[0]) == theirs,
+                  f"{mode}: results differ from the numpy twin")
+    launches = runs["cuda"][0][3]
+    check(runs["cuda"][1][3] == launches,
+          f"{mode}: the two kernel runs launched differently")
+    res, _wall, prof, _launches = runs["cuda"][0]
+    mine = decisions(res)
+
+    def mean(side, f):
+        return sum(f(*r) for r in runs[side]) / len(runs[side])
+
+    def op(side, key):
+        return (mean(side, lambda _r, _w, p, _l: p.get(key, (0, 0.0))[0]),
+                mean(side, lambda _r, _w, p, _l: p.get(key, (0, 0.0))[1]))
+
+    def phase(name):
+        return {side: mean(side, lambda r, _w, _p, _l:
+                           (r.phase_times or {}).get(name, 0.0))
+                for side in runs}
+    wall = {side: mean(side, lambda _r, w, _p, _l: w) for side in runs}
+    build, match = phase("build"), phase("match")
+    scans, np_scans = op("cuda", "scan.cuda"), op("numpy", "scan.numpy")
+    c_call = op("cuda", "scan.cuda.c_call")
+    wave_s = {"cuda": op("cuda", "match_wave.cuda")[1],
+              "numpy": op("numpy", "match_wave.numpy")[1]}
     waves = res.shard_stats["waves"]
+    pt = {k: round(v, 4) for k, v in (res.phase_times or {}).items()}
     secs = {k: round(v[1], 4) for k, v in prof.items() if v[1] > 0}
-    np_secs = {k: round(v[1], 4) for k, v in ref_prof.items() if v[1] > 0}
-    wave_s = {impl: p.get(f"match_wave.{impl}", (0, 0.0))[1]
-              for impl, p in (("cuda", prof), ("numpy", ref_prof))}
+    np_secs = {k: round(v[1], 4) for k, v in runs["numpy"][0][2].items()
+               if v[1] > 0}
     say(f"path:{mode}", jobs=len(res.jobs), identical_to_numpy=True,
-        wall_s=round(wall, 3), numpy_wall_s=round(ref_wall, 3),
-        scan_calls=scans[0], waves=waves,
-        match_wave_cuda_s=round(wave_s["cuda"], 4),
+        turns=",".join(PATH_TURNS), wall_s=round(wall["cuda"], 3),
+        numpy_wall_s=round(wall["numpy"], 3),
+        build_s=round(build["cuda"], 3),
+        numpy_build_s=round(build["numpy"], 3),
+        match_s=round(match["cuda"], 3),
+        numpy_match_s=round(match["numpy"], 3),
+        scan_calls=int(scans[0]), scan_cuda_s=round(scans[1], 4),
+        scan_cuda_ms_per_call=round(scans[1] * 1e3 / max(scans[0], 1), 6),
+        scan_c_call_ms_per_call=round(c_call[1] * 1e3 / max(scans[0], 1), 6),
+        scan_numpy_calls=int(np_scans[0]), scan_numpy_s=round(np_scans[1], 4),
+        scan_numpy_ms_per_call=round(
+            np_scans[1] * 1e3 / max(np_scans[0], 1), 6),
+        waves=waves, match_wave_cuda_s=round(wave_s["cuda"], 4),
         match_wave_numpy_s=round(wave_s["numpy"], 4),
+        walls=json.dumps({side: [round(r[1], 3) for r in runs[side]]
+                          for side in runs}, separators=(",", ":")),
         phases=json.dumps(pt, separators=(",", ":")),
         op_s=json.dumps(secs, separators=(",", ":")),
         numpy_op_s=json.dumps(np_secs, separators=(",", ":")),
         makespan=mine["makespan"], jain_60=mine["jain_60"])
     summary[mode] = dict(
-        wall_s=wall, numpy_wall_s=ref_wall, phase_times=res.phase_times,
-        numpy_phase_times=ref_res.phase_times, scan_calls=scans[0],
-        scan_s=scans[1], waves=waves, launches=launches,
-        match_wave_s=wave_s,
+        turns=PATH_TURNS, wall_s=wall["cuda"], numpy_wall_s=wall["numpy"],
+        build_s=build["cuda"], numpy_build_s=build["numpy"],
+        phase_times={side: [r[0].phase_times for r in runs[side]]
+                     for side in runs},
+        scan_calls=scans[0], scan_s=scans[1], scan_c_call_s=c_call[1],
+        scan_numpy_calls=np_scans[0], scan_numpy_s=np_scans[1],
+        waves=waves, launches=launches, match_wave_s=wave_s,
+        walls={side: [r[1] for r in runs[side]] for side in runs},
         profile={k: list(v) for k, v in prof.items()},
-        numpy_profile={k: list(v) for k, v in ref_prof.items()},
+        numpy_profile={k: list(v) for k, v in runs["numpy"][0][2].items()},
         makespan=mine["makespan"], jain_60=mine["jain_60"])
     return launches
 
@@ -793,21 +937,25 @@ def wkv_case(label, shape, dtype, seed):
         row.update(halves_bitwise=True)
     reps = (10, 1) if S > 1000 else (200, 20)
     ms = cuda_time_ms(lambda: kernel.wkv6(r, k, v, w, u, s0), reps[0])
+    dev_ms = graph_time_ms(lambda: kernel.wkv6(r, k, v, w, u, s0),
+                           5 if S > 1000 else (20 if S > 1 else 200))
     plain = cuda_time_ms(lambda: ref.wkv6(r, k, v, w, u, s0), reps[1], 0)
     # per state element and step, y += r_i*S_ij (an FMA) and S_ij = w_i*S_ij
     # + k_i*v_j (a product and an FMA): 5; the bonus sum_i r_i*u_i*k_i*v_j
     # is v_j times one dot product per (b, t, h), 3 N + 2 N more
     n_ops = 5.0 * B * S * H * (N * N + N)
     b, by = bound_ms(nbytes(r, k, v, w, u, s0, y, sT), n_ops, F32_OPS_PER_S)
-    row.update(ms=ms, plain_ms=plain, bound_ms=b, bound_by=by)
+    row.update(ms=ms, device_ms=dev_ms, plain_ms=plain, bound_ms=b,
+               bound_by=by, bound_share=b / dev_ms)
     say("kernel", name="wkv6", case=label, shape="B={},S={},H={},N={}".format(
         *shape), dtype=dtype, max_abs_err=f"{err:.3e}",
         state_err=f"{s_err:.3e}", tol=tol,
         **{k: row[k] for k in ("halves_bitwise", "model_draw_err",
                                "model_draw_bound_frac", "model_draw_ymax")
            if k in row},
-        ms=round(ms, 6), plain_ms=round(plain, 6), bound_ms=f"{b:.3e}",
-        bound_by=by)
+        ms=round(ms, 6), device_ms=round(dev_ms, 6),
+        plain_ms=round(plain, 6), bound_ms=f"{b:.3e}", bound_by=by,
+        bound_share=round(b / dev_ms, 4))
     return row
 
 
@@ -818,7 +966,8 @@ def kernel_wkv6(report: list) -> None:
         source="src/repro_torch/kernels/rwkv6/csrc/wkv6.cu",
         replaces="src/repro/kernels/rwkv6/kernel.py:59",
         library_ms=None, cases=cases, **{k: cases[0][k] for k in (
-            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")}))
+            "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
+            "bound_by")}))
 
 
 # ----------------------------------------------------------------------
@@ -1168,7 +1317,7 @@ def main() -> int:
     from repro_torch.kernels.placement_scan import kernel
     from repro_torch.kernels.rg_lru import kernel as rglru_kernel
     from repro_torch.kernels.rwkv6 import kernel as wkv_kernel
-    from repro_torch.sim import clear_schedule_cache, online_mix_workload
+    from repro_torch.sim import online_mix_workload
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1198,10 +1347,9 @@ def main() -> int:
 
     dags = online_mix_workload(N_JOBS, seed=SEED)
     summary: dict = {}
-    clear_schedule_cache()
     exact = main_path("exact", dags, ("scan.cuda", "match_wave.cuda"),
                       summary)
-    # the routed pair reuses the (bit-identical) schedules phase 3 built
+    # the routed runs reuse the (bit-identical) schedules phase 3 built
     routed = main_path("routed", dags, ("machines_with_candidates.cuda",),
                        summary)
     launches = {k: exact[k] + routed[k] for k in exact}
@@ -1211,10 +1359,15 @@ def main() -> int:
     say("scan_shapes", launches=sum(shapes.values()),
         top=json.dumps([[list(k), v] for k, v in top[:8]],
                        separators=(",", ":")))
+    classes: dict = {}
+    for shape, n in shapes.items():
+        key = shape_class(*shape)
+        classes[key] = classes.get(key, 0) + n
     scan = report[0]
-    best = max(scan["cases"], key=lambda c: shapes.get(c["shape"], 0))
-    scan.update({k: best[k] for k in ("max_abs_err", "ms", "plain_ms",
-                                      "bound_ms", "bound_by")})
+    best = max(scan["cases"],
+               key=lambda c: classes.get(shape_class(*c["shape"]), 0))
+    scan.update({k: best[k] for k in ("max_abs_err", "ms", "device_ms",
+                                      "plain_ms", "bound_ms", "bound_by")})
     scan["case"] = best["case"]
 
     kernel_flash(report)
@@ -1239,7 +1392,10 @@ def main() -> int:
         check(r["launches"] > 0, f"{r['name']} never launched on the path")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    kernels_line = {"kernels": [{k: r[k] for k in keys} for r in report]}
+    kernels_line = {"kernels": [
+        dict({k: r[k] for k in keys},
+             **({"device_ms": r["device_ms"]} if "device_ms" in r else {}))
+        for r in report]}
     out_dir = os.path.join(ROOT, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "chip_smoke_report.json"), "w") as f:

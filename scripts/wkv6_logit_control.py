@@ -42,13 +42,14 @@ ROOT = Path(__file__).resolve().parents[1]
 MUTANTS = {
     # y reads the state after this step's decay instead of before it
     "readout_after_decay": (
-        r"fmaf\(u4\.(\w), kv, (st\[i(?: \+ \d)?\])\)",
-        r"fmaf(u4.\1, kv, w4.\1 * \2)", 4),
+        r"acc\[cc\] = fmaf\(rr\[i\], st\[i\]\[cc\], acc\[cc\]\);",
+        "acc[cc] = fmaf(rr[i], ww[i] * st[i][cc], acc[cc]);", 1),
     # the bonus u_i k_i v_j of the current token dropped from y
-    "no_bonus": (r"fmaf\(u4\.(\w), kv, (st\[i(?: \+ \d)?\])\)", r"\2", 4),
+    "no_bonus": (r"fmaf\(vs\[buf\]\[c\]\[j\], bonus\[buf\]\[c\], "
+                 r"acc\[q\]\)", "acc[q]", 1),
     # the bonus taken with the next head's u
-    "u_of_next_head": (r"us\[j\] = u\[\(size_t\)h \* N \+ j\];",
-                       "us[j] = u[(size_t)((h + 1) % H) * N + j];", 1),
+    "u_of_next_head": (r"u\[\(size_t\)h \* N \+ part \* EPU \+ e\]",
+                       "u[(size_t)((h + 1) % H) * N + part * EPU + e]", 1),
     # y rounded to bf16 toward zero instead of to nearest
     "y_round_toward_zero": (r"__float2bfloat16_rn\(x\)",
                             "__float2bfloat16_rz(x)", 1),

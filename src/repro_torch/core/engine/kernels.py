@@ -88,10 +88,10 @@ def transfer_add(key: str, n: int) -> None:
     """Accumulate a host<->device transfer/launch counter in PROFILE.
 
     Keys follow ``"{op}.{impl}.{launches|bytes_h2d|bytes_d2h|waves}"``,
-    plus ``"scan.{impl}.shape.m{m}.W{W}.L{L}.g{g}"`` tallying the padded
-    shapes the scan launches at; the count lands in the calls slot of the
-    usual PROFILE pair (seconds stays 0.0), so ``profile_snapshot`` deltas
-    work unchanged.
+    plus ``"scan.{impl}.shape.m{m}.W{W}.L{L}.g{g}"`` tallying the shapes
+    the scan launches at (unpadded on the card, on the bucket ladder on the
+    CPU); the count lands in the calls slot of the usual PROFILE pair
+    (seconds stays 0.0), so ``profile_snapshot`` deltas work unchanged.
     """
     with _STATS_LOCK:
         slot = PROFILE.get(key)
@@ -270,20 +270,29 @@ def _up(a: np.ndarray, device: str):
 
 
 def _scan_on(avail, Vs, ks, plo, phi, reverse=False, *, device: str):
-    """One windowed scan launch: upload the padded window, scan, download.
+    """One windowed scan launch.
 
-    The padding is the reference's (window -1.0, demand 2.0, k = 1, shapes
-    on the bucket ladder): ticks beyond ``t_live`` are masked infeasible,
-    so the padding never flips a bit.
+    On the card, `kernel.scan_call`: the live window ``avail[:, plo:hi]``
+    (no padding), the ``ceil32`` demands and the durations go up in one
+    pinned copy, and the bitmaps come back already in walk order.  On the
+    CPU, the plain version over the reference's padded launch (window -1.0,
+    demand 2.0, k = 1, shapes on the bucket ladder): ticks beyond
+    ``t_live`` are masked infeasible, so the padding never flips a bit.
+    ``PROFILE`` tallies each launch's shape (``scan.<impl>.shape.*``).
     """
-    from ...kernels.placement_scan import ops as ps_ops
-
     m, T, d = avail.shape
     g = len(ks)
     W = phi - plo
     kmax = int(ks.max())
     hi_read = min(T, phi + kmax - 1)
     L = hi_read - plo
+    if device == "cuda":
+        from ...kernels.placement_scan import kernel as ps_kernel
+
+        transfer_add(f"scan.cuda.shape.m{m}.W{W}.L{L}.g{g}", 1)
+        return ps_kernel.scan_call(avail, plo, L, ceil32(Vs), ks, W, reverse)
+    from ...kernels.placement_scan import ops as ps_ops
+
     Wb = bucket(W)
     Lp = bucket(max(Wb + kmax, L))
     gb = pad8(g)
@@ -293,8 +302,7 @@ def _scan_on(avail, Vs, ks, plo, phi, reverse=False, *, device: str):
     Vs_p[:g] = ceil32(np.asarray(Vs))
     ks_p = np.ones(gb, dtype=np.int32)
     ks_p[:g] = ks
-    impl = "cuda" if device == "cuda" else "torch"
-    transfer_add(f"scan.{impl}.shape.m{m}.W{Wb}.L{Lp}.g{gb}", 1)
+    transfer_add(f"scan.torch.shape.m{m}.W{Wb}.L{Lp}.g{gb}", 1)
     out = ps_ops.scan_bitmaps(_up(win_p, device), _up(Vs_p, device),
                               _up(ks_p, device), L, W=Wb)
     good = out[:g, :W, :].cpu().numpy() != 0

@@ -23,61 +23,155 @@
 //
 // Every entry point launches on the stream it is handed, allocates nothing,
 // and returns cudaGetLastError() so the Python wrapper can raise on a
-// refused launch.
+// refused launch (ps_scan_call, which also synchronizes its stream, returns
+// the first error of its copy, launch or synchronize).
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+#include <string.h>
 
 // ---------------------------------------------------------------------------
 // Kernel 1: windowed feasibility scan
 //
-// Bound: bytes.  Each (g, w, m) output reads at most k window cells of d
-// floats; the window itself is a few tens of KB (m ~ 4 machines x L ~ 224
-// ticks x d = 4) and stays in L1/L2, so the kernel is one short launch whose
-// time is launch latency.  Design: one thread per output cell with a direct
-// k-tick test that stops at the first infeasible tick; a start is good iff
-// every tick in [w, w + k) is below t_live and fits on every dim, which is
-// exactly the plain version's cumsum test run[w] == k (L >= W + max(ks)
-// keeps every read in bounds).
+// Bound: bytes, and in practice the call around it.  The work a window
+// needs is one pass over its live cells per task (d compares each) and one
+// run test per start: a few tens of KB (m ~ 4 machines x L ~ 256 ticks x
+// d = 4 floats), microseconds of device time.  Design:
+//
+//   * one warp per (task, machine) row.  Lanes test 32 consecutive ticks
+//     at a time (one float4 per lane when d = 4, 512 contiguous bytes per
+//     warp) and __ballot_sync packs the results into one 32-bit word of
+//     feasible ticks; ticks at or past t_live (or L) read as 0.  The words
+//     of a row sit in shared memory.
+//   * each lane then decides 32 starts at a time: start w is good iff bits
+//     [w, w + k) are all set, which is at most ceil(k / 32) + 1 masked word
+//     tests, and a run that would reach past the live ticks is never good.
+//
+// That is the plain version's test (a start is good iff every tick of
+// [w, w + k) is below t_live and fits on every dim; demands are ceil32
+// float32 values compared with >=), run over O(g m t_live) cells instead
+// of O(g W m k).  `ps_scan_call` wraps the launch in the builder's whole
+// call: the live window, demands and durations packed on the host into one
+// pinned buffer and copied to the card at once, the launch writing the
+// bitmaps into pinned host memory, one stream synchronize.
 // ---------------------------------------------------------------------------
 
-__global__ void scan_bitmaps_kernel(const float* __restrict__ win,
-                                    const float* __restrict__ Vs,
-                                    const int* __restrict__ ks, int t_live,
-                                    int m, int L, int d, int g, int W,
-                                    int8_t* __restrict__ out) {
-  long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  long long total = (long long)g * W * m;
-  if (idx >= total) return;
-  int mm = (int)(idx % m);
-  int w = (int)((idx / m) % W);
-  int gg = (int)(idx / ((long long)m * W));
-  int k = ks[gg];
-  const float* v = Vs + (long long)gg * d;
-  const float* row = win + (long long)mm * L * d;
-  int8_t good = 1;
-  for (int t = w; t < w + k; ++t) {
-    if (t >= t_live || t >= L) { good = 0; break; }
-    const float* cell = row + (long long)t * d;
-    bool ok = true;
-    for (int j = 0; j < d; ++j) ok = ok && (cell[j] >= v[j]);
-    if (!ok) { good = 0; break; }
+constexpr int SCAN_WARPS = 4;          // rows per block
+
+__global__ void __launch_bounds__(SCAN_WARPS * 32)
+    scan_bitmaps_kernel(const float* __restrict__ win,
+                        const float* __restrict__ Vs,
+                        const int* __restrict__ ks, int t_live, int m, int L,
+                        int d, int g, int W, int reverse, int vec4,
+                        int nwords, int8_t* __restrict__ out) {
+  extern __shared__ unsigned scan_words[];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int row = blockIdx.x * SCAN_WARPS + warp;
+  if (row >= g * m) return;            // whole warps only
+  const int gg = row / m, mm = row % m;
+  unsigned* words = scan_words + warp * nwords;
+  const int live = min(t_live, L);
+  const float* v = Vs + (size_t)gg * d;
+  const float4 v4 = vec4 ? make_float4(v[0], v[1], v[2], v[3])
+                         : make_float4(0.f, 0.f, 0.f, 0.f);
+  const float* cells = win + (size_t)mm * L * d;
+  for (int c = 0; c < nwords; ++c) {
+    const int t = c * 32 + lane;
+    bool ok = t < live;
+    if (ok && vec4) {
+      const float4 x = reinterpret_cast<const float4*>(cells)[t];
+      ok = x.x >= v4.x && x.y >= v4.y && x.z >= v4.z && x.w >= v4.w;
+    } else if (ok) {
+      for (int j = 0; j < d; ++j)
+        ok = ok && (cells[(size_t)t * d + j] >= v[j]);
+    }
+    const unsigned word = __ballot_sync(0xffffffffu, ok);
+    if (lane == 0) words[c] = word;
   }
-  out[idx] = good;
+  __syncwarp();
+  const int k = ks[gg];
+  int8_t* o = out + (size_t)gg * W * m + mm;
+  for (int w = lane; w < W; w += 32) {
+    const int end = w + k;             // the run is [w, end)
+    int8_t good = end <= live;
+    for (int t = w; good && t < end;) {
+      const int b = t & 31;
+      const int n = min(32 - b, end - t);
+      const unsigned mask = (n == 32 ? 0xffffffffu : ((1u << n) - 1u)) << b;
+      good = (words[t >> 5] & mask) == mask;
+      t += n;
+    }
+    o[(size_t)(reverse ? W - 1 - w : w) * m] = good;
+  }
 }
 
+static int launch_scan(const float* win, const float* Vs, const int* ks,
+                       int t_live, int m, int L, int d, int g, int W,
+                       int reverse, int8_t* out, cudaStream_t stream) {
+  if (d < 1) return (int)cudaErrorInvalidValue;
+  const long long rows = (long long)g * m;
+  if (rows <= 0 || W <= 0) return (int)cudaGetLastError();
+  const int nwords = (L + 31) / 32;
+  const size_t smem = (size_t)SCAN_WARPS * nwords * sizeof(unsigned);
+  if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
+  const int blocks = (int)((rows + SCAN_WARPS - 1) / SCAN_WARPS);
+  // float4 cells when d = 4 and the window is 16-byte aligned
+  const int vec4 = d == 4 && (reinterpret_cast<uintptr_t>(win) & 15) == 0;
+  scan_bitmaps_kernel<<<blocks, SCAN_WARPS * 32, smem, stream>>>(
+      win, Vs, ks, t_live, m, L, d, g, W, reverse, vec4, nwords, out);
+  return (int)cudaGetLastError();
+}
+
+// win (m, L, d), Vs (g, d), ks (g,) on the card -> out (g, W, m) int8.
 extern "C" int ps_scan_bitmaps(const float* win, const float* Vs,
                                const int* ks, int t_live, int m, int L, int d,
                                int g, int W, int8_t* out, void* stream) {
-  long long total = (long long)g * W * m;
-  if (total > 0) {
-    int threads = 256;
-    int blocks = (int)((total + threads - 1) / threads);
-    scan_bitmaps_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-        win, Vs, ks, t_live, m, L, d, g, W, out);
-  }
-  return (int)cudaGetLastError();
+  return launch_scan(win, Vs, ks, t_live, m, L, d, g, W, 0, out,
+                     (cudaStream_t)stream);
+}
+
+// The whole scan call from host arrays.  The live window
+// avail[:, plo:plo + L, :] of the grid (m rows of `row` floats, the window
+// at float offset `first` of each), the demands Vs (g, d) f32 and the
+// durations ks (g,) i32 are packed into host_in (pinned: the window at
+// byte 0, Vs at off_vs, ks at off_ks) and copied to dev_in in one
+// transfer; the kernel scans with t_live = L and writes the bitmaps
+// (g, W, m), starts descending when reverse, straight into host_out
+// (pinned; host_out_dev is the card's address of it), which the host may
+// read once this returns: no copy back is queued.
+extern "C" int ps_scan_call(const float* avail, long long row,
+                            long long first, int m, int L, int d,
+                            const float* Vs, const int* ks, int g, int W,
+                            int reverse, void* host_in, void* dev_in,
+                            long long off_vs, long long off_ks,
+                            void* host_out_dev, void* stream) {
+  const cudaStream_t s = (cudaStream_t)stream;
+  char* h = static_cast<char*>(host_in);
+  const size_t cells = (size_t)L * d * sizeof(float);
+  for (int mm = 0; mm < m; ++mm)
+    memcpy(h + (size_t)mm * cells, avail + (size_t)mm * row + first, cells);
+  memcpy(h + off_vs, Vs, (size_t)g * d * sizeof(float));
+  memcpy(h + off_ks, ks, (size_t)g * sizeof(int));
+  cudaError_t e = cudaMemcpyAsync(dev_in, host_in,
+                                  (size_t)off_ks + (size_t)g * sizeof(int),
+                                  cudaMemcpyHostToDevice, s);
+  if (e != cudaSuccess) return (int)e;
+  const char* base = static_cast<const char*>(dev_in);
+  const int err = launch_scan(reinterpret_cast<const float*>(base),
+                              reinterpret_cast<const float*>(base + off_vs),
+                              reinterpret_cast<const int*>(base + off_ks), L,
+                              m, L, d, g, W, reverse,
+                              static_cast<int8_t*>(host_out_dev), s);
+  if (err != 0) return err;
+  return (int)cudaStreamSynchronize(s);
+}
+
+// The address under which the card sees pinned host memory (the same
+// pointer under unified addressing); fails for memory that is not pinned.
+extern "C" int ps_host_device_ptr(void* host, void** dev) {
+  return (int)cudaHostGetDevicePointer(dev, host, 0);
 }
 
 // ---------------------------------------------------------------------------

@@ -8,13 +8,21 @@ Each wrapper checks device, dtype, shape and contiguity, launches on
 PyTorch's current stream, raises if ``cudaGetLastError`` reports a refused
 launch, and adds one to its entry in ``LAUNCHES``.  Nothing here is
 imported or compiled until a wrapper runs on a CUDA tensor.
+
+`scan_call` is the builder's whole scan in one C call (``ps_scan_call``):
+the window, demands and durations packed into one pinned host buffer and
+copied to the card at once, the launch writing the bitmaps into pinned
+host memory, one stream synchronize; the buffers and the call's stream
+(`ScanStage`) are made once and reused.
 """
 
 from __future__ import annotations
 
 import ctypes
+import threading
 from pathlib import Path
 
+import numpy as np
 import torch
 
 from ..build import NvccLibrary, check_launch as _check, need as _need, \
@@ -43,12 +51,18 @@ def launch_counts() -> dict[str, int]:
 
 def _bind(handle: ctypes.CDLL) -> None:
     vp, i = ctypes.c_void_p, ctypes.c_int
+    ll = ctypes.c_longlong
     handle.ps_scan_bitmaps.argtypes = [vp, vp, vp, i, i, i, i, i, i, vp, vp]
+    handle.ps_scan_call.argtypes = ([vp, ll, ll, i, i, i, ctypes.c_char_p,
+                                     ctypes.c_char_p, i, i, i, vp, vp, ll,
+                                     ll, vp, vp])
+    handle.ps_host_device_ptr.argtypes = [vp, ctypes.POINTER(vp)]
     handle.ps_heartbeat_eligible.argtypes = [vp] * 6 + [i, i, i, vp, vp]
     handle.ps_match_wave.argtypes = (
         [vp, vp, i, vp, vp, vp, vp, vp, vp, i, vp, vp, vp, i, vp, vp,
          i, i, i, vp, vp, vp, vp, vp, vp])
-    for fn in (handle.ps_scan_bitmaps, handle.ps_heartbeat_eligible,
+    for fn in (handle.ps_scan_bitmaps, handle.ps_scan_call,
+               handle.ps_host_device_ptr, handle.ps_heartbeat_eligible,
                handle.ps_match_wave):
         fn.restype = ctypes.c_int
 
@@ -75,6 +89,99 @@ def scan_bitmaps(win: torch.Tensor, Vs: torch.Tensor, ks: torch.Tensor,
     _check(err, "scan_bitmaps")
     LAUNCHES["scan_bitmaps"] += 1
     return out
+
+
+def _align16(n: int) -> int:
+    return (n + 15) & ~15
+
+
+def _addr(a: np.ndarray) -> int:
+    return a.__array_interface__["data"][0]
+
+
+class ScanStage:
+    """The staged scan call's resources on one device: a pinned host buffer
+    for the packed inputs and its device twin, a pinned host buffer the
+    kernel writes the bitmaps into (and the card's address of it), and a
+    stream of the call's own, which it synchronizes before returning (so
+    the call neither waits on nor is ordered against other work).  The
+    buffers grow to the next power of two when a call needs more and are
+    reused otherwise; a lock keeps one call at a time on them."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.lock = threading.Lock()
+        self.stream = torch.cuda.Stream(device)
+        self.stream_ptr = self.stream.cuda_stream
+        self.cap_in = self.cap_out = 0
+
+    def reserve(self, n_in: int, n_out: int) -> None:
+        if n_in > self.cap_in:
+            self.cap_in = 1 << max(16, (n_in - 1).bit_length())
+            self.h_in = torch.empty(self.cap_in, dtype=torch.uint8,
+                                    pin_memory=True)
+            self.d_in = torch.empty(self.cap_in, dtype=torch.uint8,
+                                    device=self.device)
+            self.h_in_ptr = self.h_in.data_ptr()
+            self.d_in_ptr = self.d_in.data_ptr()
+        if n_out > self.cap_out:
+            self.cap_out = 1 << max(16, (n_out - 1).bit_length())
+            self.h_out = torch.empty(self.cap_out, dtype=torch.uint8,
+                                     pin_memory=True)
+            self.h_out_np = self.h_out.numpy().view(bool)
+            dev = ctypes.c_void_p()
+            _check(lib().ps_host_device_ptr(self.h_out.data_ptr(),
+                                            ctypes.byref(dev)),
+                   "scan_bitmaps (pinned output)")
+            self.h_out_dev = dev.value
+
+
+_STAGES: dict[str, ScanStage] = {}
+
+
+def stage_for(device) -> ScanStage:
+    key = str(device)
+    st = _STAGES.get(key)
+    if st is None:
+        dev = torch.device(device)
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+        st = _STAGES.setdefault(key, ScanStage(dev))
+    return st
+
+
+def scan_call(avail: np.ndarray, plo: int, L: int, Vs: np.ndarray,
+              ks: np.ndarray, W: int, reverse: bool = False,
+              device="cuda") -> np.ndarray:
+    """The scan of one window on the card, from host arrays to host bitmaps.
+
+    avail (m, T, d), the grid: the window is its L live ticks from ``plo``
+    (every one counts); Vs (g, d) float32 demands, already ``ceil32``; ks
+    (g,) durations.  Returns bool (g, W * m): bit (g, w, machine) says
+    whether the run [plo + w, plo + w + ks[g]) fits, starts descending when
+    ``reverse``; a run reaching past the window is not good.  One
+    ``ps_scan_call``: the window, demands and durations packed into one
+    pinned buffer and uploaded at once, the launch writing the bitmaps into
+    pinned host memory, one stream synchronize.
+    """
+    avail = np.ascontiguousarray(avail, dtype=np.float32)
+    m, T, d = avail.shape
+    g = len(ks)
+    vs = np.asarray(Vs, dtype=np.float32).tobytes()
+    kb = np.asarray(ks, dtype=np.int32).tobytes()
+    off_vs = _align16(m * L * d * 4)
+    off_ks = _align16(off_vs + g * d * 4)
+    n_out = g * W * m
+    st = stage_for(device)
+    with st.lock:
+        st.reserve(off_ks + g * 4, n_out)
+        err = lib().ps_scan_call(
+            _addr(avail), T * d, plo * d, m, L, d, vs, kb, g, W, int(reverse),
+            st.h_in_ptr, st.d_in_ptr, off_vs, off_ks, st.h_out_dev,
+            st.stream_ptr)
+        _check(err, "scan_bitmaps")
+        LAUNCHES["scan_bitmaps"] += 1
+        return st.h_out_np[:n_out].reshape(g, W * m).copy()
 
 
 def heartbeat_eligible(dem32: torch.Tensor, thr_fit: torch.Tensor,

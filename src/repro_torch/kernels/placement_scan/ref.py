@@ -15,6 +15,10 @@ against them on the card.
   * ``demand_min`` / ``visit_may_pick`` — numpy twins of the wave kernel's
     visit skip: a machine on which no untaken candidate can be eligible is
     passed over without a pass over the candidates.
+  * ``tick_words`` / ``scan_words`` — numpy twins of the scan kernel's
+    word-and-run test: the feasible ticks of each (task, machine) row
+    packed 32 to a word, and each start decided from the words its run
+    covers.
 
 The first two are integer/boolean pipelines over float32 comparisons; the
 wave repeats the numpy matcher's float64 ops one by one (PyTorch's CPU and
@@ -207,3 +211,52 @@ def visit_may_pick(row: np.ndarray, dmin: np.ndarray, consts: np.ndarray,
     norig = bool(np.any(np.asarray(rd_mask, bool) & (dmin > thr)))
     nofung = bool(np.any(np.asarray(fg_mask, bool) & (dmin > thr_g)))
     return not (nofit and (not use_overbooking or norig or nofung))
+
+
+def tick_words(win: np.ndarray, Vs: np.ndarray, t_live: int) -> np.ndarray:
+    """(g, m, ceil(L / 32)) uint32: bit b of word c is set iff tick
+    32 c + b is below ``min(t_live, L)`` and fits demand ``Vs[g]`` on every
+    dim, as the scan kernel's ``__ballot_sync`` packs it (lane b, tick
+    32 c + b)."""
+    win = np.asarray(win, dtype=np.float32)
+    Vs = np.asarray(Vs, dtype=np.float32)
+    m, L, _d = win.shape
+    live = min(int(t_live), L)
+    nw = (L + 31) // 32
+    ok = np.zeros((len(Vs), m, nw * 32), dtype=bool)
+    ok[:, :, :live] = (win[None, :, :live, :]
+                       >= Vs[:, None, None, :]).all(axis=3)
+    bits = ok.reshape(len(Vs), m, nw, 32).astype(np.uint64)
+    return (bits << np.arange(32, dtype=np.uint64)).sum(
+        axis=3).astype(np.uint32)
+
+
+def scan_words(win: np.ndarray, Vs: np.ndarray, ks: np.ndarray, t_live: int,
+               W: int, reverse: bool = False) -> np.ndarray:
+    """The scan kernel's run test over `tick_words` -> (g, W, m) int8.
+
+    Start w of task g is good iff its run [w, w + ks[g]) ends at or before
+    ``min(t_live, L)`` and every bit of it is set, tested a word at a time
+    with the kernel's masks (a word's bits from the run's first tick in it,
+    up to 32 or the run's end).  Starts run descending when ``reverse``.
+    Unlike `scan_bitmaps`, L may be shorter than W + max(ks): a run past L
+    is simply not good.
+    """
+    words = tick_words(win, Vs, t_live)
+    g, m, _nw = words.shape
+    live = min(int(t_live), np.asarray(win).shape[1])
+    out = np.zeros((g, W, m), dtype=np.int8)
+    for gi in range(g):
+        k = int(ks[gi])
+        for w in range(W):
+            end = w + k
+            good = np.full(m, end <= live)
+            t = w
+            while t < end and good.any():
+                b = t & 31
+                n = min(32 - b, end - t)
+                mask = np.uint32(((1 << n) - 1) << b)
+                good &= (words[gi, :, t >> 5] & mask) == mask
+                t += n
+            out[gi, W - 1 - w if reverse else w] = good
+    return out

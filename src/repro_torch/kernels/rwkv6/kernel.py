@@ -16,7 +16,7 @@ import torch
 from ..build import NvccLibrary, check_launch, need, ptr, stream
 
 _SRC = Path(__file__).resolve().parent / "csrc" / "wkv6.cu"
-#: head widths the kernel is instantiated for (one thread per state column)
+#: head widths the kernel is instantiated for
 HEAD_SIZES = (16, 32, 64)
 
 #: launches since the last `reset_launches` (the wrapper is the only writer)
@@ -66,6 +66,10 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
     need(w, "w", torch.float32, (B, S, H, N), dev)
     need(u, "u", torch.float32, (H, N), dev)
     need(state, "state", torch.float32, (B, H, N, N), dev)
+    # the kernel reads 16-byte units: a view that starts off that grain
+    # (a rare storage offset) is copied to a fresh, aligned tensor
+    r, k, v, w, state = (t if t.data_ptr() % 16 == 0 else t.clone()
+                         for t in (r, k, v, w, state))
     y = torch.empty_like(r)
     sT = torch.empty_like(state)
     if B == 0 or H == 0:

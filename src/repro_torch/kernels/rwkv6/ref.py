@@ -41,6 +41,53 @@ def wkv6_step(r, k, v, w, u, state):
     return y.to(r.dtype), wf[..., :, None] * state + kv
 
 
+#: rows of the state each kernel thread sums in order, per head size
+#: (``csrc/wkv6.cu`` ``launch``; at N = 64 its ``WKV_ROWS``)
+TILE_ROWS = {16: 8, 32: 16, 64: 16}
+
+
+def wkv6_tiled(r, k, v, w, u, state, rows: int | None = None):
+    """`wkv6` summed in the kernel's order, in float32 without FMAs.
+
+    Per step, y_j is the row groups' partial sums (``rows`` rows each,
+    added in order) added in a pairwise tree over the groups, plus v_j
+    times one bonus dot product sum_i (r_i u_i) k_i: taken in order over
+    the rows of each 16-byte unit of r (8 rows in bf16, 4 in float32),
+    then in a pairwise tree over the units.  The state update is the plain
+    version's.  Same arguments and results as `wkv6`.
+
+    The reordering stays inside `f32_error_bound`: the state's share of y
+    is rounded at most ``rows`` + log2(N / rows) + 1 times, the bonus's at
+    most 8 + 3 + log2(N / 4), both at most N + 4 for N >= 16.
+    """
+    B, S, H, N = r.shape
+    R = rows or TILE_ROWS[N]
+    P = N // R
+    epu = 16 // r.element_size()
+    rf, kf, vf, wf = (x.float() for x in (r, k, v, w))
+    uf = u.float()
+    s = state.float()
+    ys = torch.empty(rf.shape, dtype=torch.float32, device=rf.device)
+    for t in range(S):
+        rt, kt, vt, wt = rf[:, t], kf[:, t], vf[:, t], wf[:, t]
+        part = torch.zeros((B, H, P, N), dtype=torch.float32,
+                           device=rf.device)
+        for i in range(R):
+            idx = torch.arange(P, device=rf.device) * R + i
+            part = part + rt[:, :, idx, None] * s[:, :, idx, :]
+        while part.shape[2] > 1:
+            part = part[:, :, 0::2] + part[:, :, 1::2]
+        ruk = ((rt * uf) * kt).view(B, H, N // epu, epu)
+        dot = ruk[..., 0]
+        for a in range(1, epu):
+            dot = dot + ruk[..., a]
+        while dot.shape[2] > 1:
+            dot = dot[:, :, 0::2] + dot[:, :, 1::2]
+        ys[:, t] = part[:, :, 0] + vt * dot
+        s = wt[..., :, None] * s + kt[..., :, None] * vt[..., None, :]
+    return ys.to(r.dtype), s
+
+
 #: float32's machine epsilon (twice its unit roundoff)
 F32_EPS = 2.0 ** -23
 

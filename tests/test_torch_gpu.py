@@ -8,13 +8,15 @@ toolkit alone:
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 
 Inputs are made from numpy seeds.  The scheduler's kernels and the rg_lru
-scan are compared bitwise; the flash kernel's two wgmma layouts alone
+scan are compared bitwise (the scan also as the builder's whole staged
+call, at the main path's launch shapes and at edge shapes); the flash kernel's two wgmma layouts alone
 against torch in float32 (``wgmma_probe``); flash attention within 2e-5 (f32) and 2e-2
 (bf16), the tolerances of ``tests/test_kernels.py`` (it sums in another
 order, and its bf16 variant rounds the softmax weights to bf16 for the
 tensor cores); wkv6 within the same limits for y and 1e-3 for the final
 state (it sums over i in another order), and in float32 at the model's
-scale within twice the first-order rounding bound ``ref.f32_error_bound``.
+scale within twice the first-order rounding bound ``ref.f32_error_bound``
+of the plain version and of its order twin ``ref.wkv6_tiled``.
 """
 
 import dataclasses
@@ -71,6 +73,84 @@ def test_scan_kernel_matches_plain_and_numpy(kernel, seed):
     ks_t = torch.from_numpy(np.minimum(ks, 32).astype(np.int32)).cuda()
     assert torch.equal(kernel.scan_bitmaps(win, Vs_t, ks_t, 150, 128),
                        tref.scan_bitmaps(win, Vs_t, ks_t, 150, 128))
+
+
+#: the scan's launch shapes (m, W, L, g) with more than 100 launches on
+#: the smoke's main paths (48 jobs on 2048 machines, exact and routed),
+#: as padded by the route before the staged call; each becomes one call
+#: of W starts over an L-tick window for g tasks
+SCAN_PATH_SHAPES = [
+    (4, 192, 256, 8), (4, 64, 96, 8), (4, 128, 192, 8), (4, 192, 384, 8),
+    (4, 96, 128, 8), (4, 64, 128, 8), (4, 96, 192, 8), (4, 192, 256, 16),
+    (4, 64, 192, 8), (4, 128, 256, 8), (4, 256, 384, 8), (4, 192, 256, 24),
+    (4, 96, 256, 8), (4, 192, 256, 32)]
+#: edge shapes (m, W, L, g, d, kmax): one start, k = 1 everywhere, k =
+#: LONG_K, W and L off the 32-tick word, g off 8, one machine, d off 4
+#: (scalar cells), a window longer than 32 words
+SCAN_EDGE_SHAPES = [
+    (4, 1, 1, 1, 4, 1), (3, 31, 31, 5, 4, 1), (4, 33, 160, 9, 4, 128),
+    (1, 45, 77, 3, 4, 33), (5, 100, 227, 13, 3, 128), (2, 7, 40, 1, 1, 34),
+    (4, 1500, 1627, 2, 4, 128)]
+
+
+def _scan_window(seed, m, W, L, g, d=4, kmax=None):
+    """A grid whose window [plo, plo + W) reads exactly L ticks (kmax =
+    L - W + 1 unless given; runs of longer tasks reach the grid's end)."""
+    rng = np.random.default_rng(seed)
+    kmax = kmax or min(128, L - W + 1)
+    plo = int(rng.integers(0, 5))
+    T = plo + L
+    avail = rng.uniform(0.3, 1.0, (m, T, d)).astype(np.float32)
+    dips = rng.random((m, T, d)) < 0.01
+    avail[dips] = rng.uniform(0.0, 0.3, int(dips.sum()))
+    Vs = ceil32(rng.uniform(0.01, 0.3, (g, d)))
+    for _ in range(T // 4):                # cells exactly at a demand
+        avail[rng.integers(m), rng.integers(T)] = Vs[rng.integers(g)]
+    ks = rng.integers(1, kmax + 1, g)
+    ks[0] = kmax
+    return avail, Vs, ks, plo, plo + W
+
+
+def _check_scan_call(kernel, avail, Vs, ks, plo, phi):
+    before = kernel.LAUNCHES["scan_bitmaps"]
+    for rev in (False, True):
+        want = tk.scan_starts(avail, Vs, ks, plo, phi, rev)
+        got = tk._scan_on(avail, Vs, ks, plo, phi, rev, device="cuda")
+        assert got.dtype == bool and got.shape == want.shape
+        assert got.tobytes() == want.tobytes(), rev
+    assert kernel.LAUNCHES["scan_bitmaps"] == before + 2
+
+
+@pytest.mark.parametrize("shape", SCAN_PATH_SHAPES)
+def test_scan_call_bitwise_at_path_shapes(kernel, shape):
+    """The staged call (one pinned upload, launch, pinned readback) equals
+    the numpy scan and the plain version; the kernel alone on the card
+    equals the plain version on the same tensors."""
+    m, W, L, g = shape
+    avail, Vs, ks, plo, phi = _scan_window(sum(shape), m, W, L, g)
+    _check_scan_call(kernel, avail, Vs, ks, plo, phi)
+    plain = tk._scan_on(avail, Vs, ks, plo, phi, False, device="cpu")
+    assert plain.tobytes() == tk.scan_starts(avail, Vs, ks, plo, phi,
+                                             False).tobytes()
+    win = torch.from_numpy(np.ascontiguousarray(avail[:, plo:])).cuda()
+    Vs_t = torch.from_numpy(Vs.astype(np.float32)).cuda()
+    ks_t = torch.from_numpy(ks.astype(np.int32)).cuda()
+    for t_live in (L, L - 37):
+        assert torch.equal(kernel.scan_bitmaps(win, Vs_t, ks_t, t_live, W),
+                           tref.scan_bitmaps(win, Vs_t, ks_t, t_live, W))
+
+
+@pytest.mark.parametrize("shape", SCAN_EDGE_SHAPES)
+def test_scan_call_bitwise_at_edge_shapes(kernel, shape):
+    m, W, L, g, d, kmax = shape
+    avail, Vs, ks, plo, phi = _scan_window(7 * sum(shape), m, W, L, g, d,
+                                           kmax)
+    _check_scan_call(kernel, avail, Vs, ks, plo, phi)
+    # a run past the grid's end (the window reads fewer than W + k - 1
+    # ticks) is never good; in a longer grid the same starts may be
+    if (ks > 1).any():
+        T = avail.shape[1]
+        _check_scan_call(kernel, avail, Vs, ks, T - W, T)
 
 
 @pytest.mark.parametrize("seed", range(3))
@@ -443,6 +523,13 @@ WKV_CARD_CASES = [
     ((4, 1, 8, 64), "float32"),
     ((8, 1, 64, 64), "bfloat16"),
     ((1, 33, 2, 16), "bfloat16"),
+    # each head size at S = 1, and S off the 16-step staging chunk
+    ((3, 1, 5, 16), "bfloat16"),
+    ((2, 1, 3, 32), "float32"),
+    ((2, 1, 4, 16), "float32"),
+    ((1, 1, 6, 32), "bfloat16"),
+    ((2, 17, 3, 32), "float32"),
+    ((1, 4097, 2, 64), "bfloat16"),
 ]
 
 
@@ -492,6 +579,37 @@ def test_wkv6_kernel_f32_at_model_scale_within_error_bound(lm_kernels, shape):
     assert float(yb.max()) < 5e-3 * float(y2.abs().max())
     assert bool(((y.double() - y2.double()).abs() <= 2 * yb).all())
     assert bool(((sT.double() - sT2.double()).abs() <= 2 * sb).all())
+
+
+def test_wkv6_kernel_takes_views_off_the_16_byte_grain(lm_kernels):
+    """r and w starting one element into their storage: the wrapper copies
+    them to aligned tensors, and the result is the aligned run's."""
+    wk = lm_kernels[2]
+    args = _wkv_inputs(2, 40, 3, 64, "bfloat16", 5)
+    y, sT = wk.wkv6(*args)
+    r, k, v, w, u, s0 = args
+    rb = torch.empty(r.numel() + 1, dtype=r.dtype, device="cuda")
+    wb = torch.empty(w.numel() + 1, dtype=w.dtype, device="cuda")
+    r2 = rb[1:].view(r.shape).copy_(r)
+    w2 = wb[1:].view(w.shape).copy_(w)
+    assert r2.data_ptr() % 16 and w2.data_ptr() % 16
+    y2, sT2 = wk.wkv6(r2, k, v, w2, u, s0)
+    assert torch.equal(y, y2) and torch.equal(sT, sT2)
+
+
+def test_wkv6_kernel_near_its_order_twin(lm_kernels):
+    """Kernel and `ref.wkv6_tiled` (the kernel's summation order, without
+    FMAs) in float32 at the model's scale: within twice the first-order
+    bound, as any two float32 evaluations."""
+    from repro_torch.kernels.rwkv6 import ref as wref
+    wk = lm_kernels[2]
+    for shape in ((2, 64, 3, 16), (2, 48, 2, 32), (1, 80, 2, 64)):
+        args = _wkv_inputs(*shape, "float32", sum(shape), model=True)
+        y, sT = wk.wkv6(*args)
+        y2, sT2 = wref.wkv6_tiled(*args)
+        yb, sb = wref.f32_error_bound(*args)
+        assert bool(((y.double() - y2.double()).abs() <= 2 * yb).all())
+        assert bool(((sT.double() - sT2.double()).abs() <= 2 * sb).all())
 
 
 def test_wkv6_kernel_refuses_what_it_does_not_take(lm_kernels):

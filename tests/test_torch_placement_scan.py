@@ -80,6 +80,66 @@ def test_scan_dispatch_matches_numpy_and_pallas(seed):
         assert got.tobytes() == pal.tobytes()
 
 
+#: word-and-run cases (m, W, L, g, t_live, kmax): the padded launch of
+#: `_padded`'s kind, then unpadded shapes (W off the 32-tick word, g off 8),
+#: t_live < L, k = 1 throughout, and k = LONG_K = 128
+WORD_CASES = [(3, 48, 96, 5, 70, 11), (4, 45, 77, 3, 77, 33),
+              (2, 33, 64, 9, 50, 1), (3, 70, 197, 7, 197, tk.LONG_K),
+              (1, 1, 1, 1, 1, 1), (4, 31, 160, 13, 150, tk.LONG_K)]
+
+
+def _word_case(seed, m, W, L, g, t_live, kmax, d=4):
+    rng = np.random.default_rng(seed)
+    win = rng.uniform(0.3, 1.0, (m, L, d)).astype(np.float32)
+    dips = rng.random((m, L, d)) < 0.002
+    win[dips] = rng.uniform(0.0, 0.3, int(dips.sum()))
+    Vs = ceil32(rng.uniform(0.01, 0.3, (g, d))).astype(np.float32)
+    for _ in range(L // 4):                # cells exactly at a demand
+        win[rng.integers(m), rng.integers(L)] = Vs[rng.integers(g)]
+    ks = rng.integers(1, kmax + 1, g).astype(np.int32)
+    ks[0] = kmax
+    return win, Vs, ks
+
+
+@pytest.mark.parametrize("case", WORD_CASES)
+def test_scan_words_matches_plain_and_pallas(case):
+    """The scan kernel's word-and-run test (numpy twin) against the plain
+    version and the reference's Pallas kernel in interpret mode, bitwise."""
+    m, W, L, g, t_live, kmax = case
+    win, Vs, ks = _word_case(sum(case), m, W, L, g, t_live, kmax)
+    words = tref.tick_words(win, Vs, t_live)
+    assert words.dtype == np.uint32 and words.shape == (g, m, (L + 31) // 32)
+    got = tref.scan_words(win, Vs, ks, t_live, W)
+    plain = tref.scan_bitmaps(torch.from_numpy(win), torch.from_numpy(Vs),
+                              torch.from_numpy(ks), t_live, W).numpy()
+    pal = np.asarray(jops.scan_bitmaps(win, Vs, ks, np.int32(t_live), W=W))
+    assert got.dtype == np.int8 and got.shape == (g, W, m)
+    assert got.tobytes() == plain.tobytes() == pal.astype(np.int8).tobytes()
+    assert got.any() and (got.size == 1 or not got.all())
+    rev = tref.scan_words(win, Vs, ks, t_live, W, reverse=True)
+    assert rev.tobytes() == got[:, ::-1].tobytes()
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_scan_words_on_live_windows_match_numpy(seed):
+    """The twin on the card route's input, the live ticks only (L may be
+    shorter than W + max(ks) where the grid ends), against scan_starts."""
+    avail, Vs, ks, rng = _grid(seed, T=96)
+    avail = np.maximum(avail, np.float32(0.7))   # room for long runs
+    T = avail.shape[1]
+    for plo, phi in ((int(rng.integers(0, 8)), int(rng.integers(40, 60))),
+                     (T - 40, T)):
+        kmax = int(ks.max())
+        hi = min(T, phi + kmax - 1)
+        for rev in (False, True):
+            want = tk.scan_starts(avail, Vs, ks, plo, phi, rev)
+            got = tref.scan_words(avail[:, plo:hi], Vs, ks, hi - plo,
+                                  phi - plo, rev)
+            assert (got != 0).reshape(len(ks), -1).tobytes() \
+                == want.tobytes()
+            assert want.any()
+
+
 def _elig_state(seed, n=12, m=20, d=4):
     rng = np.random.default_rng(seed)
     avail = rng.uniform(-0.05, 1.0, (m, d))

@@ -186,6 +186,52 @@ def test_wkv6_f32_within_error_bound_at_model_scale(shape):
     assert (np.abs(sT.numpy() - _f32(sTp)) <= 2 * sb).all()
 
 
+@pytest.mark.parametrize("shape", [(1, 128, 2, 16), (1, 96, 2, 32),
+                                   (1, 48, 2, 64)])
+def test_wkv6_kernel_order_twin_within_error_bound(shape):
+    """`ref.wkv6_tiled` sums as the CUDA kernel does (row groups in order,
+    a pairwise tree over the groups, the bonus factored into v_j times one
+    dot product: its rows in 16-byte units, the units in a tree).  At the
+    model's scale in float32 it lies within `ref.f32_error_bound` of the
+    float64 result, and within twice it of the plain version and of the
+    reference's Pallas kernel."""
+    a = _wkv_inputs(*shape, seed=3 * sum(shape))
+    a = [x * 2 if i < 3 else x for i, x in enumerate(a)]
+    js, ts = _to(a, "float32")
+    y, sT = twr.wkv6_tiled(*ts)
+    assert y.dtype == torch.float32 and y.shape == ts[0].shape
+    yb, sb = (x.numpy() for x in twr.f32_error_bound(*ts))
+    y64, s64 = _wkv6_f64(*a)
+    assert float(np.abs(y64).max()) > 30.0
+    assert (np.abs(y.numpy() - y64) <= yb).all()
+    assert (np.abs(sT.numpy() - s64) <= sb).all()
+    y2, sT2 = twr.wkv6(*ts)
+    assert (np.abs(y.numpy() - y2.numpy()) <= 2 * yb).all()
+    assert torch.equal(sT, sT2)      # the state update is the same
+    yp, _ = jwk.wkv6(*js, chunk=16, interpret=True)
+    assert (np.abs(y.numpy() - _f32(yp)) <= 2 * yb).all()
+
+
+@pytest.mark.parametrize("N", [16, 32, 64])
+def test_wkv6_kernel_order_twin_bf16_halves_and_step(N):
+    """The order twin in bf16 (8-row bonus units) within 2e-2 of the plain
+    version; chained halves bitwise; S = 1 against ``wkv6_step``."""
+    js, ts = _to(_wkv_inputs(2, 24, 3, N, seed=N), "bfloat16")
+    y, sT = twr.wkv6_tiled(*ts)
+    y2, sT2 = twr.wkv6(*ts)
+    assert y.dtype == torch.bfloat16
+    np.testing.assert_allclose(_f32(y), _f32(y2), **_tol("bfloat16"))
+    np.testing.assert_allclose(sT.numpy(), sT2.numpy(), **STATE_TOL)
+    r, k, v, w, u, s0 = ts
+    ya, sA = twr.wkv6_tiled(*[t[:, :10] for t in (r, k, v, w)], u, s0)
+    yb, sB = twr.wkv6_tiled(*[t[:, 10:] for t in (r, k, v, w)], u, sA)
+    assert torch.equal(torch.cat([ya, yb], 1), y) and torch.equal(sB, sT)
+    ys, ss = twr.wkv6_step(*[t[:, 0] for t in (r, k, v, w)], u, s0)
+    y1, s1 = twr.wkv6_tiled(*[t[:, :1] for t in (r, k, v, w)], u, s0)
+    np.testing.assert_allclose(_f32(y1[:, 0]), _f32(ys), **_tol("bfloat16"))
+    assert torch.equal(s1, ss)
+
+
 # ----------------------------------------------------------------------
 # the RWKV6 block
 # ----------------------------------------------------------------------
