@@ -14,7 +14,12 @@ per source, all started together.  Phases, each printing its own lines:
      bitwise, at main-path shapes, with CUDA-event times for both; the scan
      also in a CUDA graph (``device_ms``, the kernel without the host's
      issue rate) and as the builder's whole call on the host's clock
-     (``call_ms``: upload, launch, readback); the wave at s13 and on a busy
+     (``call_ms``: upload, launch, readback); the eligibility call, staged
+     with its rounding on the card, at s13 and at a main-path wave against
+     the host-rounded plain version and on an edge corpus (subnormals, one
+     ulp either side, beyond FLT_MAX, +-inf, NaN), its kernel in a CUDA
+     graph, the whole call beside the numpy op and the previous route on
+     the host clock; the wave at s13 and on a busy
      cluster (most visits skipped), each with the length of its chain
      (visits, walked visits, pick iterations) and the time per iteration;
   3. the scheduler's main path in exact mode: ``run_workload`` of 48
@@ -22,13 +27,20 @@ per source, all started together.  Phases, each printing its own lines:
      numpy-pinned twin (every JCT, the makespan and the Jain index equal to
      the last bit), with the build phase and the scan's and the wave op's
      calls and seconds on either side;
-  4. the same population in routed mode against its numpy-pinned twin;
+  4. the same population in routed mode against its numpy-pinned twin, in
+     one shard and in four of 512 machines (``REPRO_SHARD_MACHINES=512``),
+     and in exact mode in four shards with the numpy wave
+     (``REPRO_KERNELS=match_wave=numpy``), whose eligibility calls fan out
+     over the shard threads; the eligibility op's calls and ms a call on
+     either side;
   5. the LM kernels (flash attention, RG-LRU scan) against their plain
      versions on the card at the serving path's shapes, plus a ragged and a
      soft-capped non-causal flash case: flash within 2e-2 (bf16) / 2e-5
-     (f32), rg_lru bitwise; CUDA-event times of kernel, plain version and,
-     for flash, ``scaled_dot_product_attention``, with flash's TFLOP/s,
-     share of its bound and ratio to the library call;
+     (f32), rg_lru bitwise at the prefill and at decode (B=4 and B=8);
+     CUDA-event times of kernel, plain version and, for flash,
+     ``scaled_dot_product_attention``, with flash's TFLOP/s, share of its
+     bound and ratio to the library call; rg_lru's device time in a CUDA
+     graph and its share of the bound;
   6. full-width recurrentgemma-2b (random bf16 weights from a seeded
      generator on the card): ``greedy_generate`` on 4 prompts of 4,096
      tokens, 32 new tokens, against its twin pinned to the plain versions
@@ -173,25 +185,36 @@ def graph_time_ms(fn, reps: int) -> float:
     return ms
 
 
-class TimedScanCall:
-    """The placement-scan library with its C scan call (``ps_scan_call``:
-    upload, launch, readback, synchronize) timed on the host clock, to be
-    swapped in for ``kernel.lib``; the rest of the call (`kernel.scan_call`
-    and `kernels._scan_on` around it) is Python."""
+class TimedCalls:
+    """The placement-scan library with its staged C calls (``ps_scan_call``,
+    ``ps_eligible_call``: upload, launch, results in pinned memory,
+    synchronize) timed on the host clock, to be swapped in for
+    ``kernel.lib``; the rest of either call (`kernel.scan_call` /
+    `kernel.eligible_call` and `kernels._scan_on` /
+    `kernels._machines_with_candidates_on` around it) is Python."""
+
+    NAMES = ("ps_scan_call", "ps_eligible_call")
 
     def __init__(self, kernel):
         self.kernel, self.handle = kernel, kernel.lib()
-        self.calls, self.s = 0, 0.0
+        self.calls = dict.fromkeys(self.NAMES, 0)
+        self.secs = dict.fromkeys(self.NAMES, 0.0)
+        for name in self.NAMES:
+            setattr(self, name, self._timed(name))
+
+    def _timed(self, name):
+        fn = getattr(self.handle, name)
+
+        def call(*args):
+            t = time.perf_counter()
+            err = fn(*args)
+            self.secs[name] += time.perf_counter() - t
+            self.calls[name] += 1
+            return err
+        return call
 
     def __getattr__(self, name):
         return getattr(self.handle, name)
-
-    def ps_scan_call(self, *args):
-        t = time.perf_counter()
-        err = self.handle.ps_scan_call(*args)
-        self.s += time.perf_counter() - t
-        self.calls += 1
-        return err
 
     def __enter__(self):
         self.kernel.lib = lambda: self
@@ -292,12 +315,13 @@ def scan_case(label, m, W, L, g, kmax, seed):
                          50)
     for _ in range(20):
         K._scan_on(grid, Vs, ks, plo, plo + W, True, device="cuda")
-    with TimedScanCall(kernel) as timed:
+    with TimedCalls(kernel) as timed:
         t0 = time.perf_counter()
         for _ in range(500):
             K._scan_on(grid, Vs, ks, plo, plo + W, True, device="cuda")
         call_ms = (time.perf_counter() - t0) * 2.0
-    c_ms = timed.s * 1e3 / timed.calls
+    c_ms = (timed.secs["ps_scan_call"] * 1e3
+            / timed.calls["ps_scan_call"])
     # the work this input needs, as a running count along ticks: each
     # task's (machine, live tick) cell is d compares and one count update,
     # and each of its W starts one compare of the count with k
@@ -324,7 +348,20 @@ def kernel_scan(report: list) -> None:
             "bound_by")}))
 
 
-def kernel_eligible(report: list) -> None:
+def eligible_case(label, avail, dem, slack, ob) -> dict:
+    """One eligibility case on the card: the staged call
+    (`kernels._machines_with_candidates_on`, rounding on the card) bitwise
+    against the host-rounded plain version (``ref.heartbeat_eligible`` on
+    the host's operands) and a superset of the exact numpy eligibility; the
+    kernel alone bitwise against ``ref.heartbeat_eligible64`` on the same
+    tensors.  Times: the kernel back to back (``ms``) and in a CUDA graph
+    (``device_ms``); the whole call on the host clock (``call_ms``, its C
+    call ``c_call_ms``; ``spaced_call_ms`` with the card idle 1 ms before
+    each call while the host spins, as between the path's waves) beside
+    the numpy op's
+    (``numpy_ms``) and the
+    previous route's (``old_call_ms``: host rounding, six uploads, the
+    first kernel, readback); the first kernel alone (``old_ms``)."""
     import numpy as np
     import torch
 
@@ -333,40 +370,156 @@ def kernel_eligible(report: list) -> None:
     from repro_torch.core.online import FUNGIBLE, RIGID
     from repro_torch.kernels.placement_scan import kernel, ref
 
-    batch, avail0, _alive = s13_corpus()
-    fd = np.arange(4)
-    rd = np.asarray(RIGID)
-    gd = np.asarray(FUNGIBLE)
-    args, _empty = K._eligibility_launch_args(avail0, batch.dem, fd, rd, gd,
-                                              0.25, True)
-    dem32, thr_fit, thr_fung, masks = args
-    dev = torch.device("cuda")
-    ts = [torch.from_numpy(a).to(dev)
-          for a in (dem32, thr_fit, thr_fung, *masks)]
-    got = kernel.heartbeat_eligible(*ts)
-    want = ref.heartbeat_eligible(*ts)
+    fd, rd, gd = np.arange(4), np.asarray(RIGID), np.asarray(FUNGIBLE)
+    n, m = dem.shape[0], avail.shape[0]
+
+    def call():
+        return K._machines_with_candidates_on(avail, dem, fd, rd, gd, slack,
+                                              ob, device="cuda")
+
+    def old_call():
+        args, _ = K._eligibility_launch_args(avail, dem, fd, rd, gd, slack,
+                                             ob)
+        ts = [torch.from_numpy(a).to("cuda")
+              for a in (*args[:3], *args[3])]
+        out = kernel.heartbeat_eligible(*ts).cpu().numpy() != 0
+        return out, out.any(axis=0)
+
+    got, got_any = call()
+    args, _ = K._eligibility_launch_args(avail, dem, fd, rd, gd, slack, ob)
+    ts = [torch.from_numpy(a).to("cuda") for a in (*args[:3], *args[3])]
+    want = ref.heartbeat_eligible(*ts).cpu().numpy() != 0
+    check(got.tobytes() == want.tobytes()
+          and got_any.tobytes() == want.any(axis=0).tobytes(),
+          f"staged eligibility call != host-rounded plain version ({label})")
+    exact, _ = packing.machines_with_candidates(avail, dem, fd, rd, gd, slack,
+                                                ob)
+    check(bool((exact <= got).all()),
+          f"eligibility call dropped an exactly eligible pair ({label})")
+    check(bool(exact.any()), f"eligibility case {label} has no eligible pair")
+    f2, r2, g2, sl = K._eligibility_dims(fd, rd, gd, slack, ob)
+    masks = [torch.from_numpy(mk).to("cuda")
+             for mk in K._dim_masks(4, f2, r2, g2)]
+    bits = K._dim_bits(4, f2, r2, g2)
+    a_t = torch.from_numpy(avail).to("cuda")
+    d_t = torch.from_numpy(dem).to("cuda")
+    sl = max(sl, 0.0)
+
+    def launch():
+        return kernel.eligible_launch(a_t, d_t, sl, packing.EPS, *bits)
+
+    k_el, k_any = launch()
+    p_el, p_any = ref.heartbeat_eligible64(a_t, d_t, sl, packing.EPS, *masks)
     torch.cuda.synchronize()
-    check(torch.equal(got, want), "heartbeat_eligible kernel != plain version")
-    exact, _ = packing.machines_with_candidates(avail0, batch.dem, fd, rd, gd,
-                                                0.25, True)
-    check(bool((exact <= (got.cpu().numpy() != 0)).all()),
-          "heartbeat_eligible dropped an exactly eligible pair")
-    err = float((got.int() - want.int()).abs().max())
-    ms = cuda_time_ms(lambda: kernel.heartbeat_eligible(*ts), 200)
-    plain = cuda_time_ms(lambda: ref.heartbeat_eligible(*ts), 50)
-    n, m = dem32.shape[0], thr_fit.shape[0]
-    # 3 masked compares per dim per pair plus the or/and
-    b, by = bound_ms(nbytes(*ts, got), float(n * m * (3 * 4 + 2)),
-                     F32_OPS_PER_S)
-    say("kernel", name="heartbeat_eligible", shape=f"n={n},m={m},d=4",
-        bitwise=True, ms=round(ms, 6), plain_ms=round(plain, 6),
-        bound_ms=f"{b:.3e}")
+    check(torch.equal(k_el.t(), p_el) and torch.equal(k_any, p_any),
+          f"eligibility kernel != plain version ({label})")
+    err = float((k_el.t().int() - p_el.int()).abs().max())
+    ms = cuda_time_ms(launch, 200)
+    dev_ms = graph_time_ms(launch, 200)
+    plain = cuda_time_ms(lambda: ref.heartbeat_eligible64(
+        a_t, d_t, sl, packing.EPS, *masks), 50)
+    old_ms = cuda_time_ms(lambda: kernel.heartbeat_eligible(*ts), 200)
+
+    def host_ms(fn, reps=500):
+        for _ in range(20):
+            fn()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        return (time.perf_counter() - t0) * 1e3 / reps
+
+    def spaced_ms(fn, reps=200, gap_s=1e-3):
+        """ms a call when the card idles ``gap_s`` between calls while the
+        host stays busy, as between the path's waves (the gap itself not
+        counted; `scripts/eligible_idle.py` sweeps the gap)."""
+        total = 0.0
+        for _ in range(reps):
+            end = time.perf_counter() + gap_s
+            while time.perf_counter() < end:
+                pass
+            t0 = time.perf_counter()
+            fn()
+            total += time.perf_counter() - t0
+        return total * 1e3 / reps
+
+    with TimedCalls(kernel) as timed:
+        call_ms = host_ms(call)
+    c_ms = (timed.secs["ps_eligible_call"] * 1e3
+            / timed.calls["ps_eligible_call"])
+    spaced = spaced_ms(call)
+    old_call_ms = host_ms(old_call)
+    numpy_ms = host_ms(lambda: packing.machines_with_candidates(
+        avail, dem, fd, rd, gd, slack, ob))
+    # bytes: the float64 rows in, eligible and machine_any out; operations:
+    # the rounding (1 conversion a demand value, 2 adds and 2 conversions a
+    # threshold, 3 for the overbooked one) and 3 masked compares a dim per
+    # pair plus the or/and
+    n_ops = float(n * 4 + m * 4 * 7 + n * m * (3 * 4 + 2))
+    b, by = bound_ms(nbytes(a_t, d_t, k_el, k_any), n_ops, F32_OPS_PER_S)
+    say("kernel", name="heartbeat_eligible", case=label,
+        shape=f"n={n},m={m},d=4", bitwise=True, ms=round(ms, 6),
+        device_ms=round(dev_ms, 6), call_ms=round(call_ms, 6),
+        c_call_ms=round(c_ms, 6), spaced_call_ms=round(spaced, 6),
+        numpy_ms=round(numpy_ms, 6),
+        old_call_ms=round(old_call_ms, 6), old_ms=round(old_ms, 6),
+        plain_ms=round(plain, 6), bound_ms=f"{b:.3e}", bound_by=by)
+    return dict(case=label, shape=(n, m), max_abs_err=err, ms=ms,
+                device_ms=dev_ms, call_ms=call_ms, c_call_ms=c_ms,
+                spaced_call_ms=spaced, numpy_ms=numpy_ms,
+                old_call_ms=old_call_ms, old_ms=old_ms,
+                plain_ms=plain, bound_ms=b, bound_by=by)
+
+
+def kernel_eligible(report: list) -> None:
+    """The eligibility call at s13 (512 candidates) and at a wave of the
+    main path (32 candidates on 2048 busy machines), then the edge corpus
+    (subnormals, one float32 ulp either side, beyond FLT_MAX, +-inf, NaN)
+    through the staged call against the host-rounded plain version."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.engine import kernels as K
+    from repro_torch.core.engine import packing
+    from repro_torch.core.online import FUNGIBLE, RIGID
+    from repro_torch.kernels.placement_scan import ref
+
+    cases = []
+    for label, corpus in (("s13", s13_corpus()),
+                          ("path_wave", busy_corpus())):
+        batch, avail0, _alive = corpus
+        cases.append(eligible_case(label, avail0, batch.dem, 0.25, True))
+    fd, rd, gd = np.arange(4), np.asarray(RIGID), np.asarray(FUNGIBLE)
+    n_edge = 0
+    for seed in range(4):
+        avail, dem = ref.eligibility_edge_corpus(seed, packing.EPS, m=2048,
+                                                 n=64)
+        for slack, ob in ((0.0, True), (0.25, True), (0.25, False)):
+            with np.errstate(invalid="ignore", over="ignore"):
+                got, got_any = K._machines_with_candidates_on(
+                    avail, dem, fd, rd, gd, slack, ob, device="cuda")
+                args, _ = K._eligibility_launch_args(avail, dem, fd, rd, gd,
+                                                     slack, ob)
+                exact, _ = packing.machines_with_candidates(
+                    avail, dem, fd, rd, gd, slack, ob)
+            ts = [torch.from_numpy(a).to("cuda")
+                  for a in (*args[:3], *args[3])]
+            want = ref.heartbeat_eligible(*ts).cpu().numpy() != 0
+            check(got.tobytes() == want.tobytes()
+                  and got_any.tobytes() == want.any(axis=0).tobytes(),
+                  f"eligibility call != plain version on edge values "
+                  f"(seed {seed}, slack {slack}, overbooking {ob})")
+            check(bool((exact <= got).all()),
+                  "eligibility call dropped an exactly eligible edge pair")
+            n_edge += 1
+    say("kernel", name="heartbeat_eligible", case="edge", bitwise=True,
+        corpora=n_edge)
     report.append(dict(
         name="heartbeat_eligible", route="cuda",
         source="src/repro_torch/kernels/placement_scan/csrc/placement_scan.cu",
         replaces="src/repro/kernels/placement_scan/kernel.py:159",
-        max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b, bound_by=by,
-        library_ms=None))
+        library_ms=None, cases=cases, edge_corpora=n_edge,
+        **{k: cases[0][k] for k in ("max_abs_err", "ms", "device_ms",
+                                    "plain_ms", "bound_ms", "bound_by")}))
 
 
 def wave_work(args, kw, got) -> tuple[float, dict]:
@@ -567,20 +720,23 @@ def kernel_wave(report: list) -> None:
 # phases 3 and 4: the main path against its numpy-pinned twin
 # ----------------------------------------------------------------------
 
-def run_path(dags, mode: str, pin_numpy: bool):
+def run_path(dags, mode: str, pin: str):
+    """One main-path run; ``pin`` is its ``REPRO_KERNELS`` (empty: every
+    op on the card)."""
     from repro_torch.core.engine import kernels as K
     from repro_torch.kernels.placement_scan import kernel
     from repro_torch.sim import run_workload
 
-    if pin_numpy:
-        os.environ[K.KERNELS_ENV] = "all=numpy"
+    pin_numpy = pin == "all=numpy"
+    if pin:
+        os.environ[K.KERNELS_ENV] = pin
     else:
         os.environ.pop(K.KERNELS_ENV, None)
     K.reset_profile()
     kernel.reset_launches()
     t0 = time.perf_counter()
     try:
-        with TimedScanCall(kernel) as timed:
+        with TimedCalls(kernel) as timed:
             res = run_workload(dags, "dagps", n_machines=N_MACHINES,
                                interarrival=0.5, seed=SEED, build_machines=4,
                                matcher_mode=mode, profile=True,
@@ -590,7 +746,10 @@ def run_path(dags, mode: str, pin_numpy: bool):
     wall = time.perf_counter() - t0
     prof = K.profile_snapshot()
     if not pin_numpy:
-        prof["scan.cuda.c_call"] = (timed.calls, timed.s)
+        prof["scan.cuda.c_call"] = (timed.calls["ps_scan_call"],
+                                    timed.secs["ps_scan_call"])
+        prof["machines_with_candidates.cuda.c_call"] = (
+            timed.calls["ps_eligible_call"], timed.secs["ps_eligible_call"])
     return res, wall, prof, kernel.launch_counts()
 
 
@@ -627,33 +786,47 @@ def decisions(res) -> dict:
 PATH_TURNS = ("cuda", "numpy", "numpy", "cuda")
 
 
-def main_path(mode: str, dags, need: tuple, summary: dict) -> dict:
+def main_path(label: str, mode: str, dags, need: tuple, summary: dict,
+              pin: str = "", shard_machines: int | None = None,
+              rebuild: bool = False) -> dict:
+    """``label``'s runs in turns: ``mode`` with the kernels (``pin``: a
+    ``REPRO_KERNELS`` pin of some ops to numpy) against the all-numpy twin,
+    at ``shard_machines`` machines a shard (``REPRO_SHARD_MACHINES``, for
+    these runs only; default: one shard); ``rebuild`` clears the schedule
+    cache before every run, so that every run builds every schedule."""
+    from repro_torch.core.shard import SHARD_MACHINES_ENV
     from repro_torch.sim import clear_schedule_cache
 
     runs: dict = {"cuda": [], "numpy": []}
-    for side in PATH_TURNS:
-        if mode == "exact":
-            clear_schedule_cache()      # every run builds every schedule
-        runs[side].append(run_path(dags, mode, pin_numpy=side == "numpy"))
+    if shard_machines is not None:
+        os.environ[SHARD_MACHINES_ENV] = str(shard_machines)
+    try:
+        for side in PATH_TURNS:
+            if rebuild:
+                clear_schedule_cache()
+            runs[side].append(run_path(
+                dags, mode, pin if side == "cuda" else "all=numpy"))
+    finally:
+        os.environ.pop(SHARD_MACHINES_ENV, None)
     for res, _wall, prof, _launches in runs["cuda"]:
         check(len(res.jobs) == len(dags),
-              f"{mode}: {len(res.jobs)} of {len(dags)} jobs completed")
+              f"{label}: {len(res.jobs)} of {len(dags)} jobs completed")
         bad = [k for k in prof if k.endswith(".demoted")]
-        check(not bad, f"{mode}: demotion: {bad}")
+        check(not bad, f"{label}: demotion: {bad}")
         for key in need:
-            check(prof.get(key, (0, 0.0))[0] > 0, f"{mode}: {key} never ran")
+            check(prof.get(key, (0, 0.0))[0] > 0, f"{label}: {key} never ran")
     for _res, _wall, ref_prof, _launches in runs["numpy"]:
         check(not any(k.split(".")[1] in ("cuda", "torch") for k in ref_prof
                       if k.count(".") >= 1),
-              f"{mode}: the numpy-pinned twin dispatched a kernel")
+              f"{label}: the numpy-pinned twin dispatched a kernel")
     theirs = decisions(runs["numpy"][0][0])
     for side in ("cuda", "numpy"):
         for r in runs[side]:
             check(decisions(r[0]) == theirs,
-                  f"{mode}: results differ from the numpy twin")
+                  f"{label}: results differ from the numpy twin")
     launches = runs["cuda"][0][3]
     check(runs["cuda"][1][3] == launches,
-          f"{mode}: the two kernel runs launched differently")
+          f"{label}: the two kernel runs launched differently")
     res, _wall, prof, _launches = runs["cuda"][0]
     mine = decisions(res)
 
@@ -679,7 +852,12 @@ def main_path(mode: str, dags, need: tuple, summary: dict) -> dict:
     secs = {k: round(v[1], 4) for k, v in prof.items() if v[1] > 0}
     np_secs = {k: round(v[1], 4) for k, v in runs["numpy"][0][2].items()
                if v[1] > 0}
-    say(f"path:{mode}", jobs=len(res.jobs), identical_to_numpy=True,
+    elig = op("cuda", "machines_with_candidates.cuda")
+    elig_c = op("cuda", "machines_with_candidates.cuda.c_call")
+    np_elig = op("numpy", "machines_with_candidates.numpy")
+    say(f"path:{label}", mode=mode, pin=pin or "none",
+        n_shards=res.shard_stats["n_shards"], jobs=len(res.jobs),
+        identical_to_numpy=True,
         turns=",".join(PATH_TURNS), wall_s=round(wall["cuda"], 3),
         numpy_wall_s=round(wall["numpy"], 3),
         build_s=round(build["cuda"], 3),
@@ -692,6 +870,12 @@ def main_path(mode: str, dags, need: tuple, summary: dict) -> dict:
         scan_numpy_calls=int(np_scans[0]), scan_numpy_s=round(np_scans[1], 4),
         scan_numpy_ms_per_call=round(
             np_scans[1] * 1e3 / max(np_scans[0], 1), 6),
+        elig_calls=int(elig[0]), elig_cuda_s=round(elig[1], 4),
+        elig_cuda_ms_per_call=round(elig[1] * 1e3 / max(elig[0], 1), 6),
+        elig_c_call_ms_per_call=round(elig_c[1] * 1e3 / max(elig[0], 1), 6),
+        elig_numpy_calls=int(np_elig[0]), elig_numpy_s=round(np_elig[1], 4),
+        elig_numpy_ms_per_call=round(
+            np_elig[1] * 1e3 / max(np_elig[0], 1), 6),
         waves=waves, match_wave_cuda_s=round(wave_s["cuda"], 4),
         match_wave_numpy_s=round(wave_s["numpy"], 4),
         walls=json.dumps({side: [round(r[1], 3) for r in runs[side]]
@@ -700,8 +884,11 @@ def main_path(mode: str, dags, need: tuple, summary: dict) -> dict:
         op_s=json.dumps(secs, separators=(",", ":")),
         numpy_op_s=json.dumps(np_secs, separators=(",", ":")),
         makespan=mine["makespan"], jain_60=mine["jain_60"])
-    summary[mode] = dict(
-        turns=PATH_TURNS, wall_s=wall["cuda"], numpy_wall_s=wall["numpy"],
+    summary[label] = dict(
+        mode=mode, pin=pin, n_shards=res.shard_stats["n_shards"],
+        turns=PATH_TURNS, elig_calls=elig[0], elig_s=elig[1],
+        elig_c_call_s=elig_c[1], elig_numpy_calls=np_elig[0],
+        elig_numpy_s=np_elig[1], wall_s=wall["cuda"], numpy_wall_s=wall["numpy"],
         build_s=build["cuda"], numpy_build_s=build["numpy"],
         phase_times={side: [r[0].phase_times for r in runs[side]]
                      for side in runs},
@@ -800,6 +987,8 @@ def kernel_flash(report: list) -> None:
 
 
 def rglru_case(label, B, S, D, seed):
+    """The RG-LRU kernel bitwise against the plain loop, timed back to
+    back (``ms``) and in a CUDA graph (``device_ms``), with its bound."""
     import torch
 
     from repro_torch.kernels.rg_lru import kernel, ref
@@ -813,26 +1002,31 @@ def rglru_case(label, B, S, D, seed):
     torch.cuda.synchronize()
     check(torch.equal(y, y2) and torch.equal(hT, hT2),
           f"rglru_scan {label}: kernel != plain version (bitwise)")
-    ms = cuda_time_ms(lambda: kernel.rglru_scan(x, a, h0), 20)
+    reps = 20 if S > 1 else 200
+    ms = cuda_time_ms(lambda: kernel.rglru_scan(x, a, h0), reps)
+    dev_ms = graph_time_ms(lambda: kernel.rglru_scan(x, a, h0), reps)
     plain = cuda_time_ms(lambda: ref.rglru_scan(x, a, h0), 2, 1)
     # one multiply and one add per element
     b, by = bound_ms(nbytes(x, a, h0, y, hT), 2.0 * B * S * D, F32_OPS_PER_S)
     say("kernel", name="rglru_scan", case=label, shape=f"B={B},S={S},D={D}",
-        bitwise=True, ms=round(ms, 6), plain_ms=round(plain, 6),
+        bitwise=True, ms=round(ms, 6), device_ms=round(dev_ms, 6),
+        bound_share=round(b / dev_ms, 4), plain_ms=round(plain, 6),
         bound_ms=f"{b:.3e}", bound_by=by)
     return dict(case=label, shape=(B, S, D), max_abs_err=0.0, ms=ms,
-                plain_ms=plain, bound_ms=b, bound_by=by)
+                device_ms=dev_ms, plain_ms=plain, bound_ms=b, bound_by=by)
 
 
 def kernel_rglru(report: list) -> None:
     cases = [rglru_case("prefill", GEN_B, GEN_S, 2560, 31),
-             rglru_case("decode", GEN_B, 1, 2560, 32)]
+             rglru_case("decode", GEN_B, 1, 2560, 32),
+             rglru_case("decode_b8", SERVE_B, 1, 2560, 33)]
     report.append(dict(
         name="rglru_scan", route="cuda",
         source="src/repro_torch/kernels/rg_lru/csrc/rg_lru.cu",
         replaces="src/repro/kernels/rg_lru/kernel.py:47",
         library_ms=None, cases=cases, **{k: cases[0][k] for k in (
-            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")}))
+            "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
+            "bound_by")}))
 
 
 #: wkv6 cases: (label, (B, S, H, N), dtype); the first is the prefill of
@@ -1347,12 +1541,22 @@ def main() -> int:
 
     dags = online_mix_workload(N_JOBS, seed=SEED)
     summary: dict = {}
-    exact = main_path("exact", dags, ("scan.cuda", "match_wave.cuda"),
-                      summary)
-    # the routed runs reuse the (bit-identical) schedules phase 3 built
-    routed = main_path("routed", dags, ("machines_with_candidates.cuda",),
-                       summary)
-    launches = {k: exact[k] + routed[k] for k in exact}
+    path_launches = [
+        main_path("exact", "exact", dags, ("scan.cuda", "match_wave.cuda"),
+                  summary, rebuild=True),
+        # the later runs reuse the (bit-identical) schedules phase 3 built
+        main_path("routed", "routed", dags,
+                  ("machines_with_candidates.cuda",), summary),
+        # four shards of 512 machines: per-shard eligibility calls, in the
+        # routed wave and in the numpy wave's threaded fan-out
+        main_path("routed_4shards", "routed", dags,
+                  ("machines_with_candidates.cuda",), summary,
+                  shard_machines=512),
+        main_path("exact_4shards_numpy_wave", "exact", dags,
+                  ("machines_with_candidates.cuda",), summary,
+                  pin="match_wave=numpy", shard_machines=512)]
+    launches = {k: sum(p[k] for p in path_launches)
+                for k in path_launches[0]}
     # the scan's line reports the case the path launched most often
     shapes = scan_shapes(summary)
     top = sorted(shapes.items(), key=lambda kv: -kv[1])

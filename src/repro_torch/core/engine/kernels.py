@@ -35,7 +35,9 @@ Exactness contract per op:
     eligibility yields bit-identical scheduling decisions.  The cuda and
     torch implementations compute supersets by directed rounding: demands
     rounded *down* to float32, thresholds ``avail + slack + eps`` rounded
-    *up*, so no exact-eligible pair is ever dropped.
+    *up*, so no exact-eligible pair is ever dropped (the cuda impl
+    rounds on the card, ``__double2float_rd``/``_ru``; the torch impl on
+    the host).
   * ``match_wave`` — a whole heartbeat wave as one op over a
     `wave.WaveContext`; bit-identical under every implementation (float64
     with no fused multiply-adds, see ``engine/wave.py``).
@@ -356,38 +358,77 @@ def _superset_operands(avail, demands, fit_dims, rigid_dims, fungible_dims,
         sel(fungible_dims)
 
 
+def _eligibility_dims(fit_dims, rigid_dims, fungible_dims, overbook_slack,
+                      use_overbooking):
+    """The (fit, rigid, fungible, slack) the device ops test.  Without
+    overbooking, eligibility is the plain fit mask: the rigid half reuses
+    the fit dims and the fungible half is empty, so the kernel stays one
+    shape."""
+    if not use_overbooking:
+        return fit_dims, fit_dims, np.empty(0, np.int64), 0.0
+    return fit_dims, rigid_dims, fungible_dims, overbook_slack
+
+
+def _dim_masks(d: int, *dim_sets) -> list[np.ndarray]:
+    """Each dim set as a (d,) float32 {0, 1} mask."""
+    masks = []
+    for dims in dim_sets:
+        mk = np.zeros(d, dtype=np.float32)
+        mk[np.asarray(dims, dtype=np.int64)] = 1.0
+        masks.append(mk)
+    return masks
+
+
+def _dim_bits(d: int, *dim_sets) -> list[int]:
+    """Each dim set as a bitmask over d dims (the staged call's form)."""
+    return [sum(1 << int(j) for j in np.flatnonzero(mk))
+            for mk in _dim_masks(d, *dim_sets)]
+
+
 def _eligibility_launch_args(avail, demands, fit_dims, rigid_dims,
                              fungible_dims, overbook_slack, use_overbooking):
-    """Shared preamble of the device eligibility op.
+    """Shared preamble of the eligibility op's plain (CPU) route.
 
     Returns ``(dem32, thr_fit, thr_fung, masks)`` ready for the launch, or
     the ``(eligible, machine_any)`` empty-result shortcut when there are no
     candidates.
     """
-    if not use_overbooking:
-        # no overbooking: eligibility is the plain fit mask; reuse the
-        # fit threshold for both halves so the kernel stays one shape
-        rigid_dims = fit_dims
-        fungible_dims = np.empty(0, np.int64)
-        overbook_slack = 0.0
     dem32, thr_fit, thr_fung, fd, rd, gd = _superset_operands(
-        avail, demands, fit_dims, rigid_dims, fungible_dims, overbook_slack)
+        avail, demands, *_eligibility_dims(fit_dims, rigid_dims,
+                                           fungible_dims, overbook_slack,
+                                           use_overbooking))
     n, d = dem32.shape
     if n == 0:
         m = thr_fit.shape[0]
         return None, (np.zeros((n, m), dtype=bool), np.zeros(m, dtype=bool))
-    masks = []
-    for dims in (fd, rd, gd):
-        mk = np.zeros(d, dtype=np.float32)
-        mk[dims] = 1.0
-        masks.append(mk)
-    return (dem32, thr_fit, thr_fung, masks), None
+    return (dem32, thr_fit, thr_fung, _dim_masks(d, fd, rd, gd)), None
 
 
 def _machines_with_candidates_on(avail, demands, fit_dims, rigid_dims,
                                  fungible_dims, overbook_slack=0.0,
                                  use_overbooking=True, *, device: str):
-    """Sound-superset eligibility in one launch (see module doc)."""
+    """Sound-superset eligibility in one launch (see module doc).
+
+    On the card, `kernel.eligible_call`: the float64 rows go up in one
+    pinned copy, the kernel rounds them itself (as `_superset_operands`
+    does on the host) and writes ``eligible`` and ``machine_any`` into
+    pinned host memory.  On the CPU, the host rounding and the plain
+    version of the comparison.
+    """
+    if device == "cuda":
+        from ...kernels.placement_scan import kernel as ps_kernel
+
+        avail = np.atleast_2d(np.asarray(avail, dtype=np.float64))
+        demands = np.atleast_2d(np.asarray(demands, dtype=np.float64))
+        n, m = demands.shape[0], avail.shape[0]
+        if n == 0:
+            return np.zeros((n, m), dtype=bool), np.zeros(m, dtype=bool)
+        fd, rd, gd, slack = _eligibility_dims(
+            fit_dims, rigid_dims, fungible_dims, overbook_slack,
+            use_overbooking)
+        return ps_kernel.eligible_call(avail, demands, max(slack, 0.0),
+                                       packing.EPS,
+                                       *_dim_bits(avail.shape[1], fd, rd, gd))
     from ...kernels.placement_scan import ops as ps_ops
 
     args, empty = _eligibility_launch_args(avail, demands, fit_dims,

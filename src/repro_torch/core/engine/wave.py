@@ -155,9 +155,12 @@ class DeviceWaveState:
         self.device = device
         self.avail_dev = None
         self.avail_shadow = None
-        # candidate-column cache: array identities of the last upload
+        # candidate-column cache: array identities of the last upload, and
+        # the arrays themselves, held so that no new array can take a
+        # freed one's id (CPython reuses the address of a freed object)
         self.n_cap = 0
         self.col_ids = None
+        self.col_refs = None
         self.dem_dev = self.pri_dev = self.srpt_dev = None
         self.gidx_dev = self.loc_dev = self.taken0_dev = None
         self.gidx_np = None
@@ -307,6 +310,7 @@ def _sync_batch(st: DeviceWaveState, batch: CandidateBatch,
         _bstat(impl, "bytes_h2d", loc.nbytes)
     st.n_cap = n_cap
     st.col_ids = ids
+    st.col_refs = (batch.dem, batch.pri, batch.srpt, batch.grp, batch.loc)
 
 
 def _sync_ledgers(st: DeviceWaveState, matcher, impl: str) -> None:
@@ -442,7 +446,15 @@ def wave_launch_args(st: DeviceWaveState, sm, batch: CandidateBatch,
 
 
 def device_wave(ctx: WaveContext, impl: str, device: str) -> int:
-    """cuda/torch driver: sync mirrors, launch, replay the picks."""
+    """cuda/torch driver: sync mirrors, launch, replay the picks.
+
+    The walk tests eligibility inside its own pass, so it never asks
+    ``ShardedMatcher.eligibility`` for a machine filter and never passes
+    the ``shard_launch`` fault seam (nor its retry and quarantine), exactly
+    like the reference's device wave.  Only the numpy loop does; a run
+    that exercises the seam pins ``REPRO_KERNELS=match_wave=numpy``, the
+    wave the reference runs below its 1536-machine promotion threshold.
+    """
     import torch
 
     from ...kernels.placement_scan import ops as ps_ops

@@ -342,6 +342,15 @@ class ShardedMatcher:
         all-eligible mask — which is decision-exact by the superset
         argument.  Without either, the healthy fast path below runs
         unchanged.
+
+        Only the numpy wave (`engine/wave.py` ``match_wave_numpy``) calls
+        this method; the routed wave calls `_launch`, the seam without the
+        guard, as the reference does.  The device wave (``cuda`` and its
+        plain ``torch`` twin) tests eligibility inside its own walk and
+        never passes ``shard_launch``, exactly like the reference's device
+        wave; the reference reaches the seam at small clusters only
+        because it runs the numpy loop below 1536 machines, which the port
+        selects with ``REPRO_KERNELS=match_wave=numpy``.
         """
         plan = self.plan
         slices = plan.slices()

@@ -7,7 +7,10 @@
 //                          scan_bitmaps (_scan_kernel): the builder's windowed
 //                          feasibility scan.
 //   ps_heartbeat_eligible  replaces kernel.py heartbeat_eligible (_elig_kernel):
-//                          the online matcher's sound-superset machine filter.
+//                          the online matcher's sound-superset machine filter
+//                          on operands rounded by the host; ps_eligible_call
+//                          is the matcher's whole call staged in one C call,
+//                          the rounding done on the card.
 //   ps_match_wave          replaces kernel.py match_wave_walk (_wave_kernel
 //                          running core/engine/wave.py wave_core): one whole
 //                          heartbeat wave in float64.
@@ -23,8 +26,8 @@
 //
 // Every entry point launches on the stream it is handed, allocates nothing,
 // and returns cudaGetLastError() so the Python wrapper can raise on a
-// refused launch (ps_scan_call, which also synchronizes its stream, returns
-// the first error of its copy, launch or synchronize).
+// refused launch (ps_scan_call and ps_eligible_call, which also synchronize
+// their stream, return the first error of the copy, launch or synchronize).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -220,6 +223,162 @@ extern "C" int ps_heartbeat_eligible(const float* dem, const float* thr_fit,
         dem, thr_fit, thr_fung, fd_mask, rd_mask, gd_mask, n, m, d, out);
   }
   return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// Kernel 2, staged: the matcher's whole eligibility call
+//
+// On the main path the kernel above is the least of the call's cost: its
+// operands were rounded on the host, uploaded by six pageable copies into
+// a fresh allocation, and the (n, m) result read back and reduced on the
+// host.  `ps_eligible_call` is the whole call in one C call, the way
+// `ps_scan_call` stages the scan: the shard's float64 avail rows (m, d) and
+// the candidates' float64 demands (n, d) are packed into one pinned buffer
+// and copied up at once on the caller's stream; one launch does the
+// directed rounding itself and writes `eligible` (machine-major, (m, n))
+// and `machine_any` (m) straight into pinned host memory; one stream
+// synchronize.  Nothing is allocated and nothing is left for the host but
+// the copy out.
+//
+// Rounding on the card.  The sound superset rounds each demand down and
+// each float64 threshold up to float32, exactly as the host's
+// _round_down32 / _round_up32 do (core/engine/kernels.py): the largest
+// float <= x is __double2float_rd(x) and the smallest float >= x is
+// __double2float_ru(x), for every double (+-inf, NaN, values beyond
+// FLT_MAX, float32 subnormals: the file is built without -ftz, so the
+// conversions keep subnormals).  The thresholds are formed in the host's
+// float64 order: avail + eps, and (avail + slack) + eps.
+//
+// Bound: the call's latency (one copy, one launch, one synchronize); the
+// device work is m*n compares over a few tens of KB.  Design: a block owns
+// `rows` consecutive machines (the host picks rows so that a block has
+// about 512 (machine, candidate) pairs: 16 machines at the path's 32
+// candidates, 1 at s13's 512, so there are blocks enough for every SM)
+// and all the candidates.  It rounds its machines' thresholds and the
+// candidates' demands (512 candidates at a time, dim-major so that
+// neighbour threads read neighbour words) into shared memory once, then
+// its threads walk the block's pairs
+// in machine-major order, neighbour threads on neighbour pairs: the
+// (rows, n) slab of `eligible` the block owns is one contiguous range, so
+// the byte stores into host memory coalesce for any n.  machine_any is
+// the OR of a machine's row, gathered in shared memory (threads only ever
+// write 1 there) and stored once.
+// ---------------------------------------------------------------------------
+
+constexpr int ELIG_THREADS = 256;
+constexpr int ELIG_CHUNK = 512;                // candidates staged at a time
+constexpr int ELIG_MAX_ROWS = 128;             // machines per block
+constexpr int ELIG_MAX_D = 8;
+
+__global__ void __launch_bounds__(ELIG_THREADS) eligible_call_kernel(
+    const double* __restrict__ avail, const double* __restrict__ dem, int m,
+    int n, int d, int rows_per_block, double slack, double eps,
+    unsigned fd_bits, unsigned rd_bits, unsigned gd_bits,
+    int8_t* __restrict__ elig, int8_t* __restrict__ any_out) {
+  __shared__ float s_dem[ELIG_MAX_D * ELIG_CHUNK];   // [dim][candidate]
+  // per machine row and dim: fit threshold (fit dims), fit threshold
+  // (rigid dims), overbooked threshold (fungible dims); +inf elsewhere
+  __shared__ float s_thr[ELIG_MAX_ROWS][3][ELIG_MAX_D];
+  __shared__ int s_any[ELIG_MAX_ROWS];
+  const int mm0 = blockIdx.x * rows_per_block;
+  const int rows = min(rows_per_block, m - mm0);
+  const float inf = __int_as_float(0x7f800000);
+  for (int i = threadIdx.x; i < rows * d; i += ELIG_THREADS) {
+    const int r = i / d, j = i - r * d;
+    const double av = avail[(size_t)mm0 * d + i];
+    const float fit = __double2float_ru(__dadd_rn(av, eps));
+    const float fung = __double2float_ru(__dadd_rn(__dadd_rn(av, slack),
+                                                   eps));
+    s_thr[r][0][j] = ((fd_bits >> j) & 1u) ? fit : inf;
+    s_thr[r][1][j] = ((rd_bits >> j) & 1u) ? fit : inf;
+    s_thr[r][2][j] = ((gd_bits >> j) & 1u) ? fung : inf;
+  }
+  for (int r = threadIdx.x; r < rows; r += ELIG_THREADS) s_any[r] = 0;
+  for (int c0 = 0; c0 < n; c0 += ELIG_CHUNK) {
+    const int cw = min(ELIG_CHUNK, n - c0);
+    __syncthreads();                   // the previous chunk is done
+    for (int i = threadIdx.x; i < cw * d; i += ELIG_THREADS) {
+      const int k = i / d, j = i - k * d;
+      s_dem[j * ELIG_CHUNK + k] = __double2float_rd(dem[(size_t)c0 * d + i]);
+    }
+    __syncthreads();
+    for (int p = threadIdx.x; p < rows * cw; p += ELIG_THREADS) {
+      const int r = p / cw, k = p - r * cw;
+      bool fits = true, rigid = true, fung = true;
+#pragma unroll
+      for (int j = 0; j < ELIG_MAX_D; ++j) {
+        if (j < d) {
+          const float x = s_dem[j * ELIG_CHUNK + k];
+          fits = fits & (x <= s_thr[r][0][j]);
+          rigid = rigid & (x <= s_thr[r][1][j]);
+          fung = fung & (x <= s_thr[r][2][j]);
+        }
+      }
+      const bool e = fits | (rigid & fung);
+      elig[(size_t)(mm0 + r) * n + c0 + k] = (int8_t)e;
+      if (e) s_any[r] = 1;
+    }
+  }
+  __syncthreads();
+  for (int r = threadIdx.x; r < rows; r += ELIG_THREADS)
+    any_out[mm0 + r] = (int8_t)s_any[r];
+}
+
+static int launch_eligible(const double* avail, const double* dem, int m,
+                           int n, int d, double slack, double eps,
+                           unsigned fd, unsigned rd, unsigned gd,
+                           int8_t* elig, int8_t* any_out, cudaStream_t s) {
+  if (d < 1 || d > ELIG_MAX_D || m < 0 || n < 0)
+    return (int)cudaErrorInvalidValue;
+  if (m > 0) {
+    // about 512 pairs a block
+    const int rows = max(1, min(ELIG_MAX_ROWS, 512 / max(n, 1)));
+    const int blocks = (m + rows - 1) / rows;
+    eligible_call_kernel<<<blocks, ELIG_THREADS, 0, s>>>(
+        avail, dem, m, n, d, rows, slack, eps, fd, rd, gd, elig, any_out);
+  }
+  return (int)cudaGetLastError();
+}
+
+// The kernel alone on device operands: avail (m, d) and dem (n, d) float64
+// -> elig (m, n) and any_out (m,) int8 (for timing and graph capture).
+extern "C" int ps_eligible_launch(const double* avail, const double* dem,
+                                  int m, int n, int d, double slack,
+                                  double eps, unsigned fd, unsigned rd,
+                                  unsigned gd, int8_t* elig, int8_t* any_out,
+                                  void* stream) {
+  return launch_eligible(avail, dem, m, n, d, slack, eps, fd, rd, gd, elig,
+                         any_out, (cudaStream_t)stream);
+}
+
+// The whole call from host arrays: avail (m, d) and dem (n, d) float64 are
+// packed into host_in (pinned: avail at byte 0, dem at off_dem) and copied
+// to dev_in in one transfer; the kernel writes elig (m, n) at byte 0 of
+// host_out and machine_any (m) at off_any (pinned; host_out_dev is the
+// card's address of it), which the host may read once this returns.
+extern "C" int ps_eligible_call(const double* avail, const double* dem,
+                                int m, int n, int d, double slack,
+                                double eps, unsigned fd, unsigned rd,
+                                unsigned gd, void* host_in, void* dev_in,
+                                long long off_dem, void* host_out_dev,
+                                long long off_any, void* stream) {
+  const cudaStream_t s = (cudaStream_t)stream;
+  char* h = static_cast<char*>(host_in);
+  const size_t a_bytes = (size_t)m * d * sizeof(double);
+  const size_t d_bytes = (size_t)n * d * sizeof(double);
+  memcpy(h, avail, a_bytes);
+  memcpy(h + off_dem, dem, d_bytes);
+  const cudaError_t e = cudaMemcpyAsync(
+      dev_in, host_in, (size_t)off_dem + d_bytes, cudaMemcpyHostToDevice, s);
+  if (e != cudaSuccess) return (int)e;
+  const char* base = static_cast<const char*>(dev_in);
+  int8_t* out = static_cast<int8_t*>(host_out_dev);
+  const int err = launch_eligible(
+      reinterpret_cast<const double*>(base),
+      reinterpret_cast<const double*>(base + off_dem), m, n, d, slack, eps,
+      fd, rd, gd, out, out + off_any, s);
+  if (err != 0) return err;
+  return (int)cudaStreamSynchronize(s);
 }
 
 // ---------------------------------------------------------------------------

@@ -13,7 +13,11 @@ imported or compiled until a wrapper runs on a CUDA tensor.
 the window, demands and durations packed into one pinned host buffer and
 copied to the card at once, the launch writing the bitmaps into pinned
 host memory, one stream synchronize; the buffers and the call's stream
-(`ScanStage`) are made once and reused.
+(`CallStage`) are made once and reused.  `eligible_call` stages the
+matcher's heartbeat eligibility the same way (``ps_eligible_call``), with
+the directed rounding on the card; it runs on the shard threads, so each
+thread has a stage of its own (`thread_stage`) and shards overlap instead
+of queueing behind one lock.
 """
 
 from __future__ import annotations
@@ -35,6 +39,8 @@ NVCC_FLAGS = ("-fmad=false",)
 #: launches per kernel since the last `reset_launches` (the wrappers below
 #: are the only writers: one per kernel launch, nowhere else)
 LAUNCHES = {"scan_bitmaps": 0, "heartbeat_eligible": 0, "match_wave_walk": 0}
+#: the eligibility call counts from the shard threads at once
+_COUNT_LOCK = threading.Lock()
 
 #: wave kernel flag bits (csrc/placement_scan.cu F_*)
 F_PACKING, F_SRPT, F_OVERBOOK, F_DRF = 1, 2, 4, 8
@@ -58,11 +64,16 @@ def _bind(handle: ctypes.CDLL) -> None:
                                      ll, vp, vp])
     handle.ps_host_device_ptr.argtypes = [vp, ctypes.POINTER(vp)]
     handle.ps_heartbeat_eligible.argtypes = [vp] * 6 + [i, i, i, vp, vp]
+    f64, u32 = ctypes.c_double, ctypes.c_uint
+    elig = [vp, vp, i, i, i, f64, f64, u32, u32, u32]
+    handle.ps_eligible_launch.argtypes = elig + [vp, vp, vp]
+    handle.ps_eligible_call.argtypes = elig + [vp, vp, ll, vp, ll, vp]
     handle.ps_match_wave.argtypes = (
         [vp, vp, i, vp, vp, vp, vp, vp, vp, i, vp, vp, vp, i, vp, vp,
          i, i, i, vp, vp, vp, vp, vp, vp])
     for fn in (handle.ps_scan_bitmaps, handle.ps_scan_call,
                handle.ps_host_device_ptr, handle.ps_heartbeat_eligible,
+               handle.ps_eligible_launch, handle.ps_eligible_call,
                handle.ps_match_wave):
         fn.restype = ctypes.c_int
 
@@ -99,14 +110,15 @@ def _addr(a: np.ndarray) -> int:
     return a.__array_interface__["data"][0]
 
 
-class ScanStage:
-    """The staged scan call's resources on one device: a pinned host buffer
-    for the packed inputs and its device twin, a pinned host buffer the
-    kernel writes the bitmaps into (and the card's address of it), and a
-    stream of the call's own, which it synchronizes before returning (so
-    the call neither waits on nor is ordered against other work).  The
-    buffers grow to the next power of two when a call needs more and are
-    reused otherwise; a lock keeps one call at a time on them."""
+class CallStage:
+    """A staged call's resources on one device: a pinned host buffer for the
+    packed inputs and its device twin, a pinned host buffer the kernel
+    writes its results into (and the card's address of it), and a stream of
+    the call's own, which it synchronizes before returning (so the call
+    neither waits on nor is ordered against other work).  The buffers grow
+    to the next power of two when a call needs more and are reused
+    otherwise, so a caller copies what it reads out before the next call.
+    ``lock`` serialises callers that share the stage."""
 
     def __init__(self, device: torch.device):
         self.device = device
@@ -132,21 +144,45 @@ class ScanStage:
             dev = ctypes.c_void_p()
             _check(lib().ps_host_device_ptr(self.h_out.data_ptr(),
                                             ctypes.byref(dev)),
-                   "scan_bitmaps (pinned output)")
+                   "staged call (pinned output)")
             self.h_out_dev = dev.value
 
 
-_STAGES: dict[str, ScanStage] = {}
+def _cuda_device(device) -> torch.device:
+    dev = torch.device(device)
+    if dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
 
 
-def stage_for(device) -> ScanStage:
+_STAGES: dict[str, CallStage] = {}
+
+
+def stage_for(device) -> CallStage:
+    """The scan call's stage on ``device``, shared by every thread (the
+    builder calls from one thread; the lock keeps one call at a time)."""
     key = str(device)
     st = _STAGES.get(key)
     if st is None:
-        dev = torch.device(device)
-        if dev.index is None:
-            dev = torch.device("cuda", torch.cuda.current_device())
-        st = _STAGES.setdefault(key, ScanStage(dev))
+        st = _STAGES.setdefault(key, CallStage(_cuda_device(device)))
+    return st
+
+
+_THREAD_STAGES = threading.local()
+
+
+def thread_stage(device) -> CallStage:
+    """This thread's own stage on ``device``: the eligibility call runs on
+    the shard threads at once, each on its own buffers and stream.  A
+    thread abandoned inside a hung attempt keeps its stage to itself, so
+    the attempts that replace it never share its buffers."""
+    stages = getattr(_THREAD_STAGES, "stages", None)
+    if stages is None:
+        stages = _THREAD_STAGES.stages = {}
+    key = str(device)
+    st = stages.get(key)
+    if st is None:
+        st = stages[key] = CallStage(_cuda_device(device))
     return st
 
 
@@ -182,6 +218,74 @@ def scan_call(avail: np.ndarray, plo: int, L: int, Vs: np.ndarray,
         _check(err, "scan_bitmaps")
         LAUNCHES["scan_bitmaps"] += 1
         return st.h_out_np[:n_out].reshape(g, W * m).copy()
+
+
+def eligible_launch(avail: torch.Tensor, dem: torch.Tensor, slack: float,
+                    eps: float, fd_bits: int, rd_bits: int,
+                    gd_bits: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The staged call's kernel alone, on device operands: avail (m, d) and
+    dem (n, d) float64 -> (eligible (m, n) int8, machine-major;
+    machine_any (m,) int8).  ``*_bits``: the fit, rigid and fungible dims
+    as bitmasks (d <= 8)."""
+    m, d = avail.shape
+    n = dem.shape[0]
+    dev = avail.device
+    _need(avail, "avail", torch.float64, (m, d), dev)
+    _need(dem, "dem", torch.float64, (n, d), dev)
+    if not 1 <= d <= 8:
+        raise ValueError(f"the eligibility call takes 1 <= d <= 8, got {d}")
+    out = torch.empty(m * n + m, dtype=torch.int8, device=dev)
+    err = lib().ps_eligible_launch(
+        _p(avail), _p(dem), m, n, d, float(slack), float(eps), int(fd_bits),
+        int(rd_bits), int(gd_bits), _p(out), out[m * n:].data_ptr(),
+        _stream(avail))
+    _check(err, "heartbeat_eligible")
+    LAUNCHES["heartbeat_eligible"] += 1
+    return out[:m * n].view(m, n), out[m * n:]
+
+
+def eligible_call(avail: np.ndarray, dem: np.ndarray, slack: float,
+                  eps: float, fd_bits: int, rd_bits: int, gd_bits: int,
+                  device="cuda") -> tuple[np.ndarray, np.ndarray]:
+    """The matcher's heartbeat eligibility on the card, host arrays in and
+    out: avail (m, d) and dem (n, d) float64, the overbooking ``slack``
+    (already clamped at 0) and ``eps``, the fit, rigid and fungible dims as
+    bitmasks.  Returns (eligible (n, m) bool, machine_any (m,) bool), the
+    sound superset of ``ref.heartbeat_eligible64``; ``eligible`` is the
+    transposed view of a machine-major copy, so a machine's column
+    (``eligible[:, mm]``, what the waves read) is contiguous.  One
+    ``ps_eligible_call``: one pinned upload, one launch writing into pinned
+    host memory, one synchronize, on this thread's stage."""
+    avail = np.ascontiguousarray(avail, dtype=np.float64)
+    dem = np.ascontiguousarray(dem, dtype=np.float64)
+    m, d = avail.shape
+    n = dem.shape[0]
+    if dem.shape[1] != d:
+        raise ValueError(f"dem has {dem.shape[1]} dims, avail {d}")
+    if not 1 <= d <= 8:
+        raise ValueError(f"the eligibility call takes 1 <= d <= 8, got {d}")
+    off_dem = _align16(m * d * 8)
+    off_any = _align16(m * n)
+    st = thread_stage(device)
+    st.reserve(off_dem + n * d * 8, off_any + m)
+    err = lib().ps_eligible_call(
+        _addr(avail), _addr(dem), m, n, d, float(slack), float(eps),
+        int(fd_bits), int(rd_bits), int(gd_bits), st.h_in_ptr, st.d_in_ptr,
+        off_dem, st.h_out_dev, off_any, st.stream_ptr)
+    _check(err, "heartbeat_eligible")
+    with _COUNT_LOCK:
+        LAUNCHES["heartbeat_eligible"] += 1
+    return unpack_eligible(st.h_out_np, m, n, off_any)
+
+
+def unpack_eligible(buf: np.ndarray, m: int, n: int,
+                    off_any: int) -> tuple[np.ndarray, np.ndarray]:
+    """The staged call's results copied out of its bool output buffer:
+    ``eligible`` (machine-major (m, n) at byte 0) as its (n, m) transposed
+    view, ``machine_any`` (m,) from byte ``off_any``.  Copies, never views:
+    the next call on the stage overwrites the buffer."""
+    return (buf[:m * n].reshape(m, n).copy().T,
+            buf[off_any:off_any + m].copy())
 
 
 def heartbeat_eligible(dem32: torch.Tensor, thr_fit: torch.Tensor,

@@ -9,7 +9,8 @@ against them on the card.
     whether task g's demand fits the machine for ks[g] consecutive ticks
     from window offset w, counting only ticks < t_live.
   * ``heartbeat_eligible`` — sound-superset heartbeat eligibility over
-    directed-rounded float32 operands.
+    directed-rounded float32 operands; ``heartbeat_eligible64`` is the
+    staged call's contract, the rounding from float64 included.
   * ``match_wave_walk`` — one heartbeat wave: machines in host order, a
     bundling loop of picks per machine, all in float64.
   * ``demand_min`` / ``visit_may_pick`` — numpy twins of the wave kernel's
@@ -71,6 +72,70 @@ def heartbeat_eligible(dem32: torch.Tensor, thr_fit: torch.Tensor,
     rigid = (dm <= tr).all(dim=2)
     fung = (dm <= tg).all(dim=2)
     return (fits | (rigid & fung)).to(torch.int8)
+
+
+def round_down32(x: torch.Tensor) -> torch.Tensor:
+    """Largest float32 <= x (float64 in): the nearest float32, stepped
+    down when it rounded up (``__double2float_rd`` on the card)."""
+    x32 = x.to(torch.float32)
+    down = torch.nextafter(x32, torch.full_like(x32, -float("inf")))
+    return torch.where(x32.to(torch.float64) > x, down, x32)
+
+
+def round_up32(x: torch.Tensor) -> torch.Tensor:
+    """Smallest float32 >= x (``__double2float_ru`` on the card)."""
+    x32 = x.to(torch.float32)
+    up = torch.nextafter(x32, torch.full_like(x32, float("inf")))
+    return torch.where(x32.to(torch.float64) < x, up, x32)
+
+
+def heartbeat_eligible64(avail: torch.Tensor, dem: torch.Tensor,
+                         slack: float, eps: float, fd_mask: torch.Tensor,
+                         rd_mask: torch.Tensor, gd_mask: torch.Tensor):
+    """The staged eligibility call's contract (``kernel.eligible_call``):
+    avail (m, d) and dem (n, d) float64, ``slack`` already clamped at 0,
+    masks (d,) f32 {0,1} -> (eligible (n, m) int8, machine_any (m,) int8).
+
+    The operands are rounded as the host's ``_superset_operands`` rounds
+    them (demands down, thresholds ``avail + eps`` and
+    ``(avail + slack) + eps`` formed in float64, then up), and compared as
+    `heartbeat_eligible` compares them."""
+    dem32 = round_down32(dem)
+    thr_fit = round_up32(avail + eps)
+    thr_fung = round_up32(avail + slack + eps)
+    out = heartbeat_eligible(dem32, thr_fit, thr_fung, fd_mask, rd_mask,
+                             gd_mask)
+    return out, out.any(dim=0).to(torch.int8)
+
+
+def eligibility_edge_corpus(seed: int, eps: float, m: int = 96, n: int = 40,
+                            d: int = 4) -> tuple[np.ndarray, np.ndarray]:
+    """float64 avail (m, d) and demands (n, d) at the edges of the
+    eligibility call's rounding: float32 values and their neighbours one
+    ulp either side, doubles just off the float32 grid, thresholds that
+    land on it once ``eps`` is added, float32 subnormals and doubles below
+    them, values beyond FLT_MAX, +-inf and NaN.  Every demand also sits
+    exactly at some machine's fit threshold, so the compares meet their
+    boundaries."""
+    rng = np.random.default_rng(seed)
+    f32 = np.float32
+    grid = rng.uniform(0.0, 1.0, 24).astype(f32)
+    near = np.concatenate([grid, np.nextafter(grid, f32(np.inf)),
+                           np.nextafter(grid, f32(-np.inf))]).astype(
+                               np.float64)
+    big = float(np.finfo(f32).max)
+    special = np.array([0.0, -0.0, 2.0 ** -149, 2.0 ** -150, 3 * 2.0 ** -151,
+                        1e-40, -1e-40, 2.0 ** -126, 1e-50, -1e-50, big,
+                        big * (1 + 2.0 ** -30), 3.5e38, -3.5e38, 1e300,
+                        -1e300, np.inf, -np.inf, np.nan])
+    pool = np.concatenate([near, near * (1 + 2.0 ** -40),
+                           near * (1 - 2.0 ** -40), near - eps, special])
+    avail = rng.choice(pool, (m, d))
+    dem = rng.choice(pool, (n, d))
+    rows = rng.integers(0, m, n)
+    with np.errstate(invalid="ignore", over="ignore"):
+        dem[: n // 2] = avail[rows[: n // 2]] + eps
+    return avail, dem
 
 
 #: consts vector layout (core/engine/wave.py _C_*): eps, overbook slack,

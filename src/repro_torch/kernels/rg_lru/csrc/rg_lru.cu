@@ -6,60 +6,158 @@
 //
 // What bounds it on an H100: the data is 12 bytes per element (x and a
 // read, y written, all f32) for two flops, so the floor is the memory rate
-// (at B=4, S=4096, D=2560: 503 MB, 0.150 ms at 3.35 TB/s).  But the
-// recurrence is a dependent chain of S steps per channel, and there are
-// only B*D chains (10,240 on the main path), too few threads to hide
-// memory latency by occupancy alone.
+// (at B=4, S=4096, D=2560: 503 MB, 0.150 ms at 3.35 TB/s).  The recurrence
+// is a dependent chain of S steps per channel, and there are only B*D
+// chains (10,240 on the main path), too few threads to hide the memory
+// latency by occupancy: the card needs about 2 MB in flight (3.35 TB/s
+// times ~0.7 us), some 17 KB per SM.  The chain itself is short: 4,096
+// dependent mul+add pairs, ~33k cycles (~18 us) against the 150 us floor.
 //
-// Design: one thread per (b, channel), h in a register, blocks of 64
-// channels so loads are coalesced across channels and the 160 blocks of
-// the main path spread over the 132 SMs.  The loads of x and a do not
-// depend on h, so each thread issues UNROLL steps of loads at once and
-// only then runs the chain over registers: one memory round trip per
-// UNROLL steps instead of one per step.  The step is spelled
-// __fadd_rn(__fmul_rn(a, h), x) so nvcc cannot contract it into an FMA:
-// the kernel is bit-identical to the plain PyTorch loop (one mul, one add).
+// Design: keep the loads running ahead of the chain.  One warp per block,
+// one lane per channel (32 consecutive channels of one batch row, so every
+// load and store of a step is one 128-byte coalesced row), and a ring of
+// RGLRU_STAGES stages of RGLRU_T steps of x and a in shared memory, filled
+// by cp.async: each lane copies its own channel, so a lane waits only on
+// its own copies (cp.async.wait_group) and the ring needs no barrier.
+// While the chain runs over one stage, the next RGLRU_STAGES - 1 stages
+// (56 steps, 14 KB a warp at the defaults) are in flight.  The main path's
+// 320 blocks (B=4, D=2560) all stay resident (16 KB of shared memory a
+// block), two or three a SM, so no second wave of blocks trails the first;
+// the SMs with three carry 1.24x the mean, within what their in-flight
+// bytes can pull.  y is stored with streaming stores as each step
+// completes.  D need not be a multiple of anything: each lane copies 4
+// bytes, so only float alignment is needed, and lanes past D do nothing.
+// The decode step (S=1) has nothing to run ahead of: it takes a one-step
+// kernel with direct loads, at the first kernel's 64 channels a block (the
+// ring's cp.async round trip, its commits and 1-warp blocks made it ~15%
+// slower there).  Neither path adds host work or a tensor map.
+//
+// The step is spelled __fadd_rn(__fmul_rn(a, h), x), each channel's chain
+// runs in order, and nvcc cannot contract it into an FMA: the kernel is
+// bit-identical to the plain PyTorch loop (one mul, one add).
 
 #include <cuda_runtime.h>
 #include <stddef.h>
+#include <stdint.h>
+
+#ifndef RGLRU_T
+#define RGLRU_T 8          // steps per stage
+#endif
+#ifndef RGLRU_STAGES
+#define RGLRU_STAGES 8     // stages in the ring
+#endif
 
 namespace {
 
-constexpr int kThreads = 64;
-constexpr int kUnroll = 32;
+constexpr int kLanes = 32;
+constexpr int kT = RGLRU_T;
+constexpr int kStages = RGLRU_STAGES;
+static_assert(kStages >= 2, "the ring needs two stages at least");
 
-__global__ void rglru_scan_kernel(const float* __restrict__ x,
-                                  const float* __restrict__ a,
-                                  const float* __restrict__ h0,
-                                  float* __restrict__ y,
-                                  float* __restrict__ hT, int S, int D) {
-  const int d = blockIdx.x * kThreads + threadIdx.x;
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_ring() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kStages - 1) : "memory");
+}
+
+typedef float Stage[kT][2][kLanes];   // [step][0: x, 1: a][lane]
+
+// Stage s (steps [s*kT, s*kT + kT), those below S) into slot s % kStages,
+// this lane's channel only; committed as a group even when empty, so the
+// ring's wait counts stages.
+__device__ __forceinline__ void load_stage(Stage* ring, int s,
+                                           int n_stages, int S, int lane,
+                                           const float* xp, const float* ap,
+                                           size_t stride) {
+  if (s < n_stages) {
+    Stage& st = ring[s % kStages];
+    const int t0 = s * kT;
+#pragma unroll
+    for (int u = 0; u < kT; ++u) {
+      const int t = t0 + u;
+      if (t < S) {
+        cp_async4(&st[u][0][lane], xp + (size_t)t * stride);
+        cp_async4(&st[u][1][lane], ap + (size_t)t * stride);
+      }
+    }
+  }
+  cp_async_commit();
+}
+
+__global__ void __launch_bounds__(kLanes)
+    rglru_scan_kernel(const float* __restrict__ x,
+                      const float* __restrict__ a,
+                      const float* __restrict__ h0, float* __restrict__ y,
+                      float* __restrict__ hT, int S, int D) {
+  // the ring of stages: lanes on consecutive words, no bank conflicts
+  __shared__ Stage ring[kStages];
+  const int lane = threadIdx.x;
+  const int d = blockIdx.x * kLanes + lane;
   const int b = blockIdx.y;
   if (d >= D) return;
   const size_t stride = (size_t)D;
   const size_t base = (size_t)b * (size_t)S * stride + (size_t)d;
+  const float* xp = x + base;
+  const float* ap = a + base;
+  float* yp = y + base;
+  const int n_stages = (S + kT - 1) / kT;
+
+  for (int s = 0; s < kStages - 1; ++s)
+    load_stage(ring, s, n_stages, S, lane, xp, ap, stride);
   float h = h0[(size_t)b * stride + d];
-  int t = 0;
-  for (; t + kUnroll <= S; t += kUnroll) {
-    float av[kUnroll], xv[kUnroll];
+  for (int s = 0; s < n_stages; ++s) {
+    // refill the slot the previous stage's steps were read from (this
+    // lane's own reads, done: the chain consumed them in order)
+    load_stage(ring, s + kStages - 1, n_stages, S, lane, xp, ap, stride);
+    cp_async_wait_ring();              // stage s has landed
+    const int slot = s % kStages;
+    const int t0 = s * kT;
+    float* yo = yp + (size_t)t0 * stride;
+    if (t0 + kT <= S) {
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const size_t i = base + (size_t)(t + u) * stride;
-      av[u] = __ldg(a + i);
-      xv[u] = __ldg(x + i);
-    }
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      h = __fadd_rn(__fmul_rn(av[u], h), xv[u]);
-      y[base + (size_t)(t + u) * stride] = h;
+      for (int u = 0; u < kT; ++u) {
+        h = __fadd_rn(__fmul_rn(ring[slot][u][1][lane], h),
+                      ring[slot][u][0][lane]);
+        __stcs(yo + (size_t)u * stride, h);
+      }
+    } else {
+      for (int u = 0; u < S - t0; ++u) {
+        h = __fadd_rn(__fmul_rn(ring[slot][u][1][lane], h),
+                      ring[slot][u][0][lane]);
+        __stcs(yo + (size_t)u * stride, h);
+      }
     }
   }
-  for (; t < S; ++t) {
-    const size_t i = base + (size_t)t * stride;
-    h = __fadd_rn(__fmul_rn(__ldg(a + i), h), __ldg(x + i));
-    y[i] = h;
-  }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
   hT[(size_t)b * stride + d] = h;
+}
+
+// One step (the decode step): nothing to run ahead of, so each lane loads
+// its a and x straight into registers; 64 channels a block, as the first
+// kernel had, so the decode launch is no larger than it was.
+constexpr int kStepThreads = 64;
+
+__global__ void __launch_bounds__(kStepThreads)
+    rglru_step_kernel(const float* __restrict__ x,
+                      const float* __restrict__ a,
+                      const float* __restrict__ h0, float* __restrict__ y,
+                      float* __restrict__ hT, int D) {
+  const int d = blockIdx.x * kStepThreads + threadIdx.x;
+  const size_t i = (size_t)blockIdx.y * D + d;
+  if (d >= D) return;
+  const float h = __fadd_rn(__fmul_rn(__ldg(a + i), __ldg(h0 + i)),
+                            __ldg(x + i));
+  y[i] = h;
+  hT[i] = h;
 }
 
 }  // namespace
@@ -68,7 +166,12 @@ extern "C" int rglru_scan(const float* x, const float* a, const float* h0,
                           float* y, float* hT, int B, int S, int D,
                           cudaStream_t stream) {
   if (B > 65535) return (int)cudaErrorInvalidConfiguration;
-  dim3 grid((D + kThreads - 1) / kThreads, B);
-  rglru_scan_kernel<<<grid, kThreads, 0, stream>>>(x, a, h0, y, hT, S, D);
+  if (S == 1) {
+    dim3 grid((D + kStepThreads - 1) / kStepThreads, B);
+    rglru_step_kernel<<<grid, kStepThreads, 0, stream>>>(x, a, h0, y, hT, D);
+  } else {
+    dim3 grid((D + kLanes - 1) / kLanes, B);
+    rglru_scan_kernel<<<grid, kLanes, 0, stream>>>(x, a, h0, y, hT, S, D);
+  }
   return (int)cudaGetLastError();
 }

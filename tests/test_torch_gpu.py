@@ -9,7 +9,9 @@ toolkit alone:
 
 Inputs are made from numpy seeds.  The scheduler's kernels and the rg_lru
 scan are compared bitwise (the scan also as the builder's whole staged
-call, at the main path's launch shapes and at edge shapes); the flash kernel's two wgmma layouts alone
+call, at the main path's launch shapes and at edge shapes; the eligibility
+call, staged with its rounding on the card, against the host-rounded plain
+version, on an edge corpus and from four threads at once); the flash kernel's two wgmma layouts alone
 against torch in float32 (``wgmma_probe``); flash attention within 2e-5 (f32) and 2e-2
 (bf16), the tolerances of ``tests/test_kernels.py`` (it sums in another
 order, and its bf16 variant rounds the softmax weights to bf16 for the
@@ -169,6 +171,115 @@ def test_heartbeat_kernel_matches_plain_and_is_superset(kernel, seed):
     exact, _ = packing.machines_with_candidates(avail, dem, fd, rd, gd, slack,
                                                 ob)
     assert (exact <= (got.cpu().numpy() != 0)).all()
+
+
+def _host_rounded_eligible(avail, dem, slack, ob, fd, rd, gd):
+    """The CPU route's answer on the card: host rounding + the plain
+    comparison (`ref.heartbeat_eligible`) on CUDA tensors."""
+    args, empty = tk._eligibility_launch_args(avail, dem, fd, rd, gd, slack,
+                                              ob)
+    if empty is not None:
+        return empty
+    ts = [torch.from_numpy(a).cuda() for a in (*args[:3], *args[3])]
+    out = tref.heartbeat_eligible(*ts).cpu().numpy() != 0
+    return out, out.any(axis=0)
+
+
+def _elig_case(seed, n, m):
+    rng = np.random.default_rng(seed)
+    avail = rng.uniform(-0.05, 1.0, (m, 4))
+    dem = rng.uniform(0.0, 0.9, (n, 4))
+    if n and m:
+        avail[0] = dem[0]
+        avail[-1] = dem[-1] - packing.EPS
+    return (avail, dem, float(rng.uniform(0.0, 0.5)), bool(seed % 2),
+            np.arange(4), np.array([0, 1]), np.array([2, 3]))
+
+
+@pytest.mark.parametrize("n", [0, 1, 32, 512])
+@pytest.mark.parametrize("m", [24, 512, 2048])
+def test_staged_eligible_call_bitwise(kernel, n, m):
+    """The staged call (rounding on the card, one pinned upload, results
+    written into pinned host memory) equals the host-rounded plain
+    version bitwise and is a superset of the exact eligibility; the
+    kernel alone equals `ref.heartbeat_eligible64` on the same tensors."""
+    for seed in (n + m, n + m + 1):
+        avail, dem, slack, ob, fd, rd, gd = _elig_case(seed, n, m)
+        before = kernel.LAUNCHES["heartbeat_eligible"]
+        got, got_any = tk._machines_with_candidates_on(
+            avail, dem, fd, rd, gd, slack, ob, device="cuda")
+        assert kernel.LAUNCHES["heartbeat_eligible"] == before + (n > 0)
+        want, want_any = _host_rounded_eligible(avail, dem, slack, ob, fd,
+                                                rd, gd)
+        assert got.shape == (n, m) and got.dtype == bool
+        assert got.tobytes() == want.tobytes()
+        assert got_any.tobytes() == want_any.tobytes()
+        exact, _ = packing.machines_with_candidates(avail, dem, fd, rd, gd,
+                                                    slack, ob)
+        assert (exact <= got).all()
+        fd2, rd2, gd2, sl = tk._eligibility_dims(fd, rd, gd, slack, ob)
+        masks = [torch.from_numpy(mk).cuda()
+                 for mk in tk._dim_masks(4, fd2, rd2, gd2)]
+        bits = tk._dim_bits(4, fd2, rd2, gd2)
+        a_t = torch.from_numpy(avail).cuda()
+        d_t = torch.from_numpy(dem).cuda()
+        k_el, k_any = kernel.eligible_launch(a_t, d_t, max(sl, 0.0),
+                                             packing.EPS, *bits)
+        p_el, p_any = tref.heartbeat_eligible64(a_t, d_t, max(sl, 0.0),
+                                                packing.EPS, *masks)
+        torch.cuda.synchronize()
+        assert torch.equal(k_el.t(), p_el) and torch.equal(k_any, p_any)
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_staged_eligible_call_on_edge_values(kernel, seed):
+    """Subnormals, one float32 ulp either side, beyond FLT_MAX, +-inf and
+    NaN: the card's __double2float_rd/_ru equal the host's rounding."""
+    avail, dem = tref.eligibility_edge_corpus(seed, packing.EPS)
+    fd, rd, gd = np.arange(4), np.array([0, 1]), np.array([2, 3])
+    for slack, ob in ((0.0, True), (0.25, True), (0.25, False)):
+        with np.errstate(invalid="ignore", over="ignore"):
+            got, got_any = tk._machines_with_candidates_on(
+                avail, dem, fd, rd, gd, slack, ob, device="cuda")
+            want, want_any = _host_rounded_eligible(avail, dem, slack, ob,
+                                                    fd, rd, gd)
+            exact, _ = packing.machines_with_candidates(avail, dem, fd, rd,
+                                                        gd, slack, ob)
+        assert got.tobytes() == want.tobytes(), (slack, ob)
+        assert got_any.tobytes() == want_any.tobytes()
+        assert (exact <= got).all()
+
+
+def test_staged_eligible_call_from_four_threads(kernel):
+    """Four shard threads call at once, each on its own stage and stream:
+    every result equals its plain version, and the launch count is
+    exact."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    fd, rd, gd = np.arange(4), np.array([0, 1]), np.array([2, 3])
+    cases = [_elig_case(700 + i, int(n), 512)
+             for i, n in enumerate([1, 7, 32, 64, 65, 200, 3, 32] * 4)]
+    want = [_host_rounded_eligible(c[0], c[1], c[2], c[3], fd, rd, gd)
+            for c in cases]
+
+    def shard(s):
+        outs = []
+        for i in range(s, len(cases), 4):
+            avail, dem, slack, ob = cases[i][:4]
+            for _ in range(5):
+                got = tk._machines_with_candidates_on(
+                    avail, dem, fd, rd, gd, slack, ob, device="cuda")
+            outs.append((i, got))
+        return outs
+
+    before = kernel.LAUNCHES["heartbeat_eligible"]
+    with ThreadPoolExecutor(4) as pool:
+        results = [r for part in pool.map(shard, range(4)) for r in part]
+    assert kernel.LAUNCHES["heartbeat_eligible"] == before + 5 * len(cases)
+    assert len(results) == len(cases)
+    for i, (el, any_) in results:
+        assert el.tobytes() == want[i][0].tobytes(), i
+        assert any_.tobytes() == want[i][1].tobytes(), i
 
 
 def _corpus(seed, m=None):
@@ -346,29 +457,42 @@ def test_cuda_wave_unknown_group_and_custom_fairness(kernel, seed,
             sm.match_wave(avail0.copy(), alive, batch, lambda gi, mm: None)
 
 
-@pytest.mark.parametrize("mode", ["exact", "routed"])
-def test_sim_on_cuda_matches_numpy_pinned(kernel, mode, monkeypatch):
+def _sim_against_numpy(mode, pin_kernels, monkeypatch, n_shards=2):
+    """The simulator on the card (``pin_kernels``: a ``REPRO_KERNELS`` pin
+    of some ops to numpy, or none) against its all-numpy twin."""
     from repro_torch.sim import make_workload, run_workload
 
     dags = make_workload("tpch", 4, seed=5)
     out = {}
-    for pin in ("", "all=numpy"):
+    for pin in (pin_kernels, "all=numpy"):
         monkeypatch.setenv(tk.KERNELS_ENV, pin)
         tk.reset_profile()
         res = run_workload(dags, "dagps", n_machines=64, interarrival=2.0,
-                           seed=5, n_groups=2, matcher_shards=2,
+                           seed=5, n_groups=2, matcher_shards=n_shards,
                            matcher_mode=mode, schedule_cache=False,
                            device="cuda")
         out[pin] = ({j.job_id: repr(j.jct) for j in res.jobs},
                     repr(res.makespan))
         prof = tk.profile_snapshot()
-        if not pin:
+        if pin != "all=numpy":
             assert not any(k.endswith(".demoted") for k in prof)
             assert prof["scan.cuda"][0] > 0
-            key = "match_wave.cuda" if mode == "exact" \
+            key = "match_wave.cuda" if mode == "exact" and not pin \
                 else "machines_with_candidates.cuda"
             assert prof[key][0] > 0
-    assert out[""] == out["all=numpy"]
+    assert out[pin_kernels] == out["all=numpy"]
+
+
+@pytest.mark.parametrize("mode", ["exact", "routed"])
+def test_sim_on_cuda_matches_numpy_pinned(kernel, mode, monkeypatch):
+    _sim_against_numpy(mode, "", monkeypatch)
+
+
+def test_sim_numpy_wave_fans_eligibility_out_on_the_card(kernel,
+                                                          monkeypatch):
+    """The numpy wave asks the card for each shard's eligibility from the
+    shard threads at once (4 shards, a stage per thread)."""
+    _sim_against_numpy("exact", "match_wave=numpy", monkeypatch, n_shards=4)
 
 
 # ----------------------------------------------------------------------
@@ -463,7 +587,9 @@ def test_flash_kernel_refuses_what_it_does_not_take(lm_kernels):
 
 
 @pytest.mark.parametrize("shape", [(2, 1000, 300), (8, 1, 2560),
-                                   (1, 4099, 64)])
+                                   (1, 4099, 64), (3, 1, 301), (2, 7, 333),
+                                   (2, 4096, 2561), (4, 4096, 2560),
+                                   (1, 9, 31)])
 def test_rglru_kernel_bitwise_equal_to_plain(lm_kernels, shape):
     from repro_torch.kernels.rg_lru import ref as rref
     rk = lm_kernels[1]

@@ -20,8 +20,11 @@ from repro.kernels.placement_scan import ops as jops
 from repro_torch.core.engine import kernels as tk
 from repro_torch.core.engine import packing as tpacking
 from repro_torch.core.engine.base import ceil32
+from repro_torch.kernels.placement_scan import kernel as tkernel
 from repro_torch.kernels.placement_scan import ops as tops
 from repro_torch.kernels.placement_scan import ref as tref
+from repro_torch.sim import run_workload
+from repro_torch.sim.workload import online_mix_workload
 
 # the tensors here are tiny: one intra-op thread is several times
 # faster than a pool, and leaves the other test workers their cores
@@ -173,6 +176,129 @@ def test_heartbeat_superset_of_exact_eligibility(seed):
     pal, _ = jk._machines_with_candidates_pallas(avail, dem, FD, RD, GD,
                                                  slack, ob)
     assert np.array_equal(sup, pal)
+
+
+def _host_rounded(avail, dem, slack, ob):
+    """The CPU route's answer: host rounding + the plain comparison."""
+    args, empty = tk._eligibility_launch_args(avail, dem, FD, RD, GD, slack,
+                                              ob)
+    if empty is not None:
+        return empty[0].astype(np.int8), empty[1]
+    out = tref.heartbeat_eligible(*[torch.from_numpy(a) for a in
+                                    (*args[:3], *args[3])]).numpy()
+    return out, out.any(axis=0)
+
+
+def _call_plain(avail, dem, slack, ob):
+    """The staged call's contract, as `_machines_with_candidates_on` hands
+    it to the card, through its plain version: float64 in, dims and slack
+    mapped, rounding with ``torch.nextafter``."""
+    fd, rd, gd, sl = tk._eligibility_dims(FD, RD, GD, slack, ob)
+    masks = [torch.from_numpy(mk) for mk in tk._dim_masks(4, fd, rd, gd)]
+    got, any_ = tref.heartbeat_eligible64(
+        torch.from_numpy(avail), torch.from_numpy(dem), max(sl, 0.0),
+        tpacking.EPS, *masks)
+    return got.numpy(), any_.numpy() != 0
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_staged_call_contract_matches_host_rounding_and_pallas(seed):
+    avail, dem, slack, ob = _elig_state(200 + seed, n=40, m=64)
+    got, got_any = _call_plain(avail, dem, slack, ob)
+    want, want_any = _host_rounded(avail, dem, slack, ob)
+    assert got.tobytes() == want.tobytes()
+    assert np.array_equal(got_any, want_any)
+    args, _ = tk._eligibility_launch_args(avail, dem, FD, RD, GD, slack, ob)
+    pal = np.asarray(jops.heartbeat_eligible(*args[:3], *args[3]))
+    assert got.tobytes() == pal.astype(np.int8).tobytes()
+    exact, any_exact = tpacking.machines_with_candidates(avail, dem, FD, RD,
+                                                         GD, slack, ob)
+    assert (exact <= (got != 0)).all() and (any_exact <= got_any).all()
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_directed_rounding_on_edge_values(seed):
+    """torch's rounding (the plain version of the card's
+    ``__double2float_rd``/``_ru``) equals the host's bit for bit on the
+    edge corpus, and the call's contract equals the host route there."""
+    avail, dem = tref.eligibility_edge_corpus(seed, tpacking.EPS)
+    for x in (avail, dem, avail + tpacking.EPS):
+        xt = torch.from_numpy(x)
+        with np.errstate(over="ignore"):
+            down, up = tk._round_down32(x), tk._round_up32(x)
+        assert tref.round_down32(xt).numpy().tobytes() == down.tobytes()
+        assert tref.round_up32(xt).numpy().tobytes() == up.tobytes()
+    lo = tref.round_down32(torch.from_numpy(dem)).double().numpy()
+    hi = tref.round_up32(torch.from_numpy(avail)).double().numpy()
+    with np.errstate(invalid="ignore"):
+        assert not (lo > dem).any() and not (hi < avail).any()
+    for slack, ob in ((0.0, True), (0.25, True), (0.25, False),
+                      (-0.5, True)):
+        with np.errstate(invalid="ignore", over="ignore"):
+            got, got_any = _call_plain(avail, dem, slack, ob)
+            want, want_any = _host_rounded(avail, dem, slack, ob)
+            exact, _ = tpacking.machines_with_candidates(avail, dem, FD, RD,
+                                                         GD, slack, ob)
+        assert got.tobytes() == want.tobytes(), (slack, ob)
+        assert np.array_equal(got_any, want_any)
+        assert (exact <= (got != 0)).all()
+
+
+def _as_staged_call(avail, demands, fit_dims, rigid_dims, fungible_dims,
+                    overbook_slack=0.0, use_overbooking=True):
+    """The cuda impl's route with the plain version in the kernel's place:
+    the machine-major result packed into a buffer laid out as the staged
+    call's output, unpacked by the code the card's route uses."""
+    avail = np.atleast_2d(np.asarray(avail, dtype=np.float64))
+    demands = np.atleast_2d(np.asarray(demands, dtype=np.float64))
+    n, m = demands.shape[0], avail.shape[0]
+    if n == 0:
+        return np.zeros((n, m), dtype=bool), np.zeros(m, dtype=bool)
+    fd, rd, gd, sl = tk._eligibility_dims(fit_dims, rigid_dims,
+                                          fungible_dims, overbook_slack,
+                                          use_overbooking)
+    masks = [torch.from_numpy(mk) for mk in
+             tk._dim_masks(avail.shape[1], fd, rd, gd)]
+    elig, any_ = tref.heartbeat_eligible64(
+        torch.from_numpy(avail), torch.from_numpy(demands), max(sl, 0.0),
+        tpacking.EPS, *masks)
+    off_any = tkernel._align16(m * n)
+    buf = np.ones(off_any + m + 64, dtype=bool)       # stale bytes around
+    buf[:m * n] = elig.numpy().T.reshape(-1) != 0
+    buf[off_any:off_any + m] = any_.numpy() != 0
+    out = tkernel.unpack_eligible(buf, m, n, off_any)
+    buf[:] = False                     # the next call overwrites the stage
+    return out
+
+
+def test_unpacked_layout_against_every_consumer(monkeypatch):
+    """The staged call's transposed (n, m) view through the consumers that
+    read it (the numpy wave's shard fan-out and concatenation, the routed
+    wave's per-shard loop), against the host route's C-ordered arrays:
+    the same decisions and the same eligibility, 3 shards."""
+    avail, dem, slack, ob = _elig_state(7, n=9, m=30)
+    got = _as_staged_call(avail, dem, FD, RD, GD, slack, ob)
+    want = tk._machines_with_candidates_on(avail, dem, FD, RD, GD, slack, ob,
+                                           device="cpu")
+    assert got[0].shape == want[0].shape and got[0].flags.f_contiguous
+    assert np.array_equal(got[0], want[0]) and np.array_equal(got[1], want[1])
+    for mm in range(avail.shape[0]):
+        assert np.array_equal(got[0][:, mm], want[0][:, mm])
+    dags = online_mix_workload(4, seed=3)
+    kw = dict(n_machines=12, interarrival=2.0, seed=3, n_groups=2,
+              matcher_shards=3, record_placements=True, device="cpu")
+    monkeypatch.setenv(tk.KERNELS_ENV, "match_wave=numpy")
+    for mode in ("exact", "routed"):
+        base = run_workload(dags, "dagps", matcher_mode=mode, **kw)
+        with monkeypatch.context() as mp:
+            mp.setitem(tk._REGISTRY, ("machines_with_candidates", "torch"),
+                       (_as_staged_call, lambda: True))
+            tk.reset_profile()
+            staged = run_workload(dags, "dagps", matcher_mode=mode, **kw)
+            assert tk.profile_snapshot()[
+                "machines_with_candidates.torch"][0] > 0
+        assert staged.placements == base.placements, mode
+        assert repr(staged.makespan) == repr(base.makespan), mode
 
 
 def test_ops_reject_other_devices():

@@ -5,7 +5,11 @@ versions) must reproduce the committed goldens and the reference package's
 own runs to the last bit: JCTs, makespan and Jain index by ``repr``,
 placements by ``==``.  The builder reproduces ``golden_builder.json``, DAG
 digests match the reference byte for byte, and an injected ``kernel_impl``
-fault demotes an implementation without changing a decision.
+fault demotes an implementation without changing a decision.  Small seeded
+twins of the reference's own corpora hold the paths no golden covers:
+dynamic DAGs (``mutations=``, exact and routed), a heartbeat-fault plan and
+``memo``-fault plans, each compared with the reference's run by ``==``
+(the ``shard_launch`` recovery twins are in ``test_torch_faults.py``).
 """
 
 import json
@@ -15,16 +19,21 @@ import numpy as np
 import pytest
 import torch
 
+from repro.core import build_schedule as j_build_schedule
+from repro.core import faults as j_faults
 from repro.core.dag import dag_digest as j_digest
 from repro.sim import make_workload as j_make_workload
 from repro.sim import run_workload as j_run_workload
+from repro.sim.workload import periodic_dag as j_periodic_dag
+from repro.sim.workload import s12_dynamic as j_s12_dynamic
 
-from repro_torch.core import build_schedule
+from repro_torch.core import build_schedule, faults
 from repro_torch.core.dag import dag_digest, dag_from_arrays
 from repro_torch.core.engine import kernels as tk
 from repro_torch.launch import TPUJob, schedule_cluster
 from repro_torch.sim import make_workload, run_workload
-from repro_torch.sim.workload import production_dag, query_dag
+from repro_torch.sim.workload import (periodic_dag, production_dag,
+                                      query_dag, s12_dynamic)
 
 # the tensors here are tiny: one intra-op thread is several times
 # faster than a pool, and leaves the other test workers their cores
@@ -105,6 +114,62 @@ def test_sim_matches_reference_run(mode):
     key = "match_wave.torch" if mode == "exact" \
         else "machines_with_candidates.torch"
     assert tk.profile_snapshot()[key][0] > 0
+
+
+def _run_key(res):
+    """Decisions, placements and the run's mutation and fault counters
+    (``recovery_secs`` is wall time, not a decision)."""
+    stats = {k: v for k, v in res.fault_stats.items()
+             if k != "recovery_secs"}
+    return _decisions(res), res.mutation_stats, stats
+
+
+@pytest.mark.parametrize("mode", ["exact", "routed"])
+def test_dynamic_dags_match_reference_run(mode):
+    """tests/test_dynamic.py's midrun corpus: a stage appended to a running
+    job and a machine-speed change, rebuilt while the run goes on."""
+    kw = dict(n_machines=16, interarrival=10.0, seed=5, matcher_mode=mode,
+              matcher_shards=2, record_placements=True)
+    dags, muts = j_s12_dynamic("midrun", n_jobs=3)
+    want = j_run_workload(dags, "dagps", mutations=muts, **kw)
+    dags, muts = s12_dynamic("midrun", n_jobs=3)
+    got = run_workload(dags, "dagps", mutations=muts, device="cpu", **kw)
+    assert _run_key(got) == _run_key(want)
+    assert got.mutation_stats["applied"] >= 1
+    assert got.mutation_stats["speed_changes"] == 1
+
+
+def test_heartbeat_fault_plan_matches_reference_run():
+    """tests/test_sim_and_fault.py's heartbeat loss: every beat of machine
+    2 drops, it is suspected, lost, and its tasks requeue."""
+    kw = dict(n_machines=8, interarrival=6.0, seed=19, heartbeat_period=5.0,
+              fault_plan="seed=2;heartbeat:drop@1.0,machine=2",
+              record_placements=True)
+    want = j_run_workload(j_make_workload("production", 5, seed=19), "dagps",
+                          **kw)
+    got = run_workload(make_workload("production", 5, seed=19), "dagps",
+                       device="cpu", **kw)
+    assert _run_key(got) == _run_key(want)
+    assert got.fault_stats["heartbeat"]["losses"] >= 1
+
+
+@pytest.mark.parametrize("spec", ["seed=2;memo:corrupt@0.5",
+                                  "seed=3;memo:drop@0.4"])
+def test_memo_fault_plan_matches_reference_build(spec):
+    """tests/test_faults.py's memo corpus: corrupted or dropped memo
+    entries cost a rebuild, never a placement, on both sides alike."""
+    with j_faults.scope(spec):
+        want = j_build_schedule(j_periodic_dag(np.random.default_rng(6)), 6,
+                                memoize=True)
+        want_fired = j_faults.active_plan().snapshot()
+    with faults.scope(spec):
+        got = build_schedule(periodic_dag(np.random.default_rng(6)), 6,
+                             memoize=True, device="cpu")
+        fired = faults.active_plan().snapshot()
+    assert fired and fired == want_fired
+    assert got.tick == want.tick
+    assert [float(x) for x in got.start] == [float(x) for x in want.start]
+    assert [int(x) for x in got.machine] == [int(x) for x in want.machine]
 
 
 def test_injected_kernel_fault_demotes_decision_exactly():

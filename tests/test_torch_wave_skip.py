@@ -186,3 +186,44 @@ def test_skip_on_a_busy_cluster_passes_the_picks_and_skips_most():
             assert mm not in by_machine
         taken[by_machine.get(mm, [])] = True
     assert skipped > reached // 2, (skipped, reached)
+
+
+def test_wave_column_cache_never_trusts_a_reused_id():
+    """The device wave re-uploads a candidate column when its array is a
+    new object, judged by ``id``.  CPython hands a freed object's id to the
+    next object it allocates, so the state must hold the arrays it judged:
+    a batch made after the previous one was dropped, with other demands,
+    must reach the mirrors (it did not when only the ids were kept, and
+    the wave then ran on stale demands)."""
+    from repro_torch.core.online import CandidateBatch, MatcherConfig
+
+    m, n, d = 16, 8, 4
+    rng = np.random.default_rng(5)
+    avail = rng.uniform(0.2, 1.0, (m, d))
+    alive = np.ones(m, bool)
+    sm = ShardedMatcher(MatcherConfig(), m, {0: 1.0, 1: 1.0}, n_shards=1,
+                        capacity=float(m))
+    st = twave.DeviceWaveState("cpu")
+
+    def batch(seed):
+        r = np.random.default_rng(seed)
+        return CandidateBatch(
+            dem=r.uniform(0.05, 0.3, (n, d)), pri=r.uniform(0.5, 2.0, n),
+            srpt=r.uniform(1.0, 300.0, n), grp=r.integers(0, 2, n),
+            loc=np.full(n, -1), job=np.arange(n), tid=np.arange(n))
+
+    reused = 0
+    for seed in range(40):
+        b = batch(seed)
+        ids = (id(b.dem), id(b.pri), id(b.srpt))
+        args, _kw, _ = twave.wave_launch_args(st, sm, b, avail, alive,
+                                              "torch")
+        assert np.array_equal(args[2][:n].numpy(), b.dem)
+        assert np.array_equal(args[4][:n].numpy(), b.srpt)
+        del b, args
+        b2 = batch(1000 + seed)
+        reused += (id(b2.dem), id(b2.pri), id(b2.srpt)) == ids
+        del b2
+    # the check above is only as strong as CPython's reuse of ids: with the
+    # arrays held by the state, a fresh batch never takes their ids
+    assert reused == 0
