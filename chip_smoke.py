@@ -22,11 +22,24 @@ per source, all started together.  Phases, each printing its own lines:
      the host clock; the wave at s13 and on a busy
      cluster (most visits skipped), each with the length of its chain
      (visits, walked visits, pick iterations) and the time per iteration;
+     the jit backend's resident scan (the window read in place from a grid
+     mirror on the card) on the scan corpus and over 60 launches between
+     commits and restores, each launch bitwise against ``scan_starts`` on
+     the grid at launch, with its times and the bytes it uploads per call
+     beside the staged call's; ``heartbeat_masks``'s cuda impl against
+     numpy on s13 and the busy corpus (a superset union, the pairs and
+     machines it adds counted);
   3. the scheduler's main path in exact mode: ``run_workload`` of 48
      online-mix jobs on 2048 machines through the cuda kernels, against its
      numpy-pinned twin (every JCT, the makespan and the Jain index equal to
      the last bit), with the build phase and the scan's and the wave op's
-     calls and seconds on either side;
+     calls and seconds on either side; then with ``build_workers=W``
+     process workers on the card (W = min(8, CPU count)) in turns with a
+     twin whose workers scan with numpy, and with the jit backend in turns
+     with the batched one, each run making the serial run's decisions, no
+     build retried, crashed, quarantined or built inline; the workers'
+     CUDA contexts (start-up, memory) and their scan calls
+     (``scripts/buildsvc_workers.py``);
   4. the same population in routed mode against its numpy-pinned twin, in
      one shard and in four of 512 machines (``REPRO_SHARD_MACHINES=512``),
      and in exact mode in four shards with the numpy wave
@@ -266,23 +279,16 @@ SCAN_CASES = (("modal", 4, 192, 255, 1, 64),
               ("batch32", 4, 192, 255, 32, 64))
 
 
-def scan_case(label, m, W, L, g, kmax, seed):
-    """One scan launch against the plain version bitwise; the wrapper timed
-    back to back (``ms``), the kernel alone in a CUDA graph (``device_ms``)
-    and the whole call `kernels._scan_on` on the host's clock
-    (``call_ms``: one pinned upload, the launch, one pinned readback), with
-    the bound of this input's work."""
+def scan_grid(m, L, g, kmax, seed, d=4):
+    """A scan case's inputs: free capacity as a grid holds it (mostly room,
+    with rare deep dips) of plo + L ticks, ``ceil32`` demands (g, d) with
+    cells exactly at them, durations up to ``kmax``; the window
+    [plo, plo + W) reads the grid's L ticks from plo = 3."""
     import numpy as np
-    import torch
 
-    from repro_torch.core.engine import kernels as K
     from repro_torch.core.engine.base import ceil32
-    from repro_torch.kernels.placement_scan import kernel, ref
 
-    d = 4
     rng = np.random.default_rng(seed)
-    # free capacity as a grid holds it: mostly room, with rare deep dips;
-    # the window [plo, plo + W) reads the grid's L ticks from plo
     plo = 3
     grid = rng.uniform(0.3, 1.0, (m, plo + L, d)).astype(np.float32)
     dips = rng.random(grid.shape) < 0.005
@@ -293,6 +299,23 @@ def scan_case(label, m, W, L, g, kmax, seed):
         grid[mi, plo + t] = Vs[gi]
     ks = rng.integers(1, kmax + 1, g).astype(np.int32)
     ks[0] = kmax
+    return grid, Vs, ks, plo
+
+
+def scan_case(label, m, W, L, g, kmax, seed):
+    """One scan launch against the plain version bitwise; the wrapper timed
+    back to back (``ms``), the kernel alone in a CUDA graph (``device_ms``)
+    and the whole call `kernels._scan_on` on the host's clock
+    (``call_ms``: one pinned upload, the launch, one pinned readback), with
+    the bound of this input's work."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.engine import kernels as K
+    from repro_torch.kernels.placement_scan import kernel, ref
+
+    d = 4
+    grid, Vs, ks, plo = scan_grid(m, L, g, kmax, seed)
     dev = torch.device("cuda")
     win_t = torch.from_numpy(np.ascontiguousarray(grid[:, plo:])).to(dev)
     Vs_t = torch.from_numpy(Vs).to(dev)
@@ -346,6 +369,214 @@ def kernel_scan(report: list) -> None:
         library_ms=None, cases=cases, **{k: cases[0][k] for k in (
             "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
             "bound_by")}))
+
+
+def resident_graph_ms(dg, Vs, ks, plo, phi, reps: int = 200):
+    """Device ms of one resident scan (its demands' upload and the kernel)
+    from ``reps`` of them captured in one CUDA graph and replayed; None
+    (with the reason) if the capture is refused."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.placement_scan import kernel
+
+    sp = dg.space
+    m, T, d = sp.avail.shape
+    g, W = len(ks), phi - plo
+    L = min(T, phi + int(ks.max()) - 1) - plo
+    first = plo - sp.off - dg.base
+    stage = dg.stage
+    off_ks = (g * d * 4 + 15) & ~15
+    slot = stage.acquire(off_ks + g * 4, g * W * m)
+    vs = np.ascontiguousarray(Vs, dtype=np.float32).tobytes()
+    kb = np.asarray(ks, dtype=np.int32).tobytes()
+
+    def launch():
+        err = kernel.lib().ps_scan_resident(
+            dg.buf.data_ptr(), dg.Tb, first, m, L, d, vs, kb, g, W, 1,
+            slot.h_in_ptr, slot.d_in_ptr, 0, off_ks, slot.h_out_dev,
+            None, torch.cuda.current_stream().cuda_stream)
+        check(err == 0, f"resident scan launch in a graph: cudaError {err}")
+
+    try:
+        return graph_time_ms(launch, reps), None
+    except (RuntimeError, SmokeFailure) as exc:
+        torch.cuda.synchronize()
+        return None, str(exc).splitlines()[0][:200]
+    finally:
+        stage.release(slot)
+
+
+def kernel_resident(report: list) -> dict:
+    """The jit backend's resident scan (``ps_scan_resident``: the window
+    read in place from a grid mirror on the card, no synchronize): on the
+    scan corpus, each launch bitwise against ``scan_starts``, timed back to
+    back by CUDA events on the mirror's stream (``ms``), in a CUDA graph
+    (``device_ms``) and on the host clock as the backend calls it
+    (``call_ms``: launch, then wait and read every row) beside the staged
+    call's ``call_ms``, with the bytes each uploads per call; then 60
+    launches over 62 commits and restores, each launch's rows read only
+    after the next mutations and held against ``scan_starts`` on the grid
+    as it was at launch."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import Space
+    from repro_torch.core.engine import jit as J
+    from repro_torch.core.engine import kernels as K
+    from repro_torch.core.engine.base import ceil32
+
+    scan = next(r for r in report if r["name"] == "scan_bitmaps")
+    staged = {c["case"]: c for c in scan["cases"]}
+    cases = []
+    with K.use_device("cuda"):
+        for i, (label, m, W, L, g, kmax) in enumerate(SCAN_CASES):
+            grid, Vs, ks, plo = scan_grid(m, L, g, kmax, seed=7 + i)
+            sp = Space(m=m, d=4, horizon=grid.shape[1])
+            sp.avail[...] = grid
+            dg = J.DeviceGrid(sp, "cuda")
+            want = K.scan_starts(grid, Vs, ks, plo, plo + W, True)
+            J.reset_profile()
+            rows = dg.launch(Vs, ks, plo, plo + W, True)
+            got = np.stack([rows.row(j) for j in range(g)])
+            check(got.tobytes() == want.tobytes(),
+                  f"resident scan != scan_starts ({label})")
+            first_bytes = J.PROFILE["bytes_h2d"]
+
+            def call():
+                r = dg.launch(Vs, ks, plo, plo + W, True)
+                return r.row(0)
+
+            for _ in range(20):
+                call()
+            J.reset_profile()
+            t0 = time.perf_counter()
+            for _ in range(500):
+                call()
+            call_ms = (time.perf_counter() - t0) * 2.0
+            per_call = J.PROFILE["bytes_h2d"] / 500
+            stream = dg.stage.stream
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            for _ in range(2):              # the first pass makes the slots
+                held = []
+                start.record(stream)
+                for _ in range(100):
+                    held.append(dg.launch(Vs, ks, plo, plo + W, True))
+                end.record(stream)
+                end.synchronize()
+                del held
+            ms = start.elapsed_time(end) / 100
+            dev_ms, why = resident_graph_ms(dg, Vs, ks, plo, plo + W)
+            staged_bytes = m * L * 4 * 4 + g * 4 * 4 + g * 4
+            c = dict(case=label, shape=(m, W, L, g), bitwise=True, ms=ms,
+                     device_ms=dev_ms, call_ms=call_ms,
+                     staged_call_ms=staged[label]["call_ms"],
+                     bytes_per_call=per_call, first_call_bytes=first_bytes,
+                     staged_bytes_per_call=staged_bytes)
+            if why:
+                c["device_ms_error"] = why
+            say("kernel", name="scan_bitmaps", route="resident", case=label,
+                shape=f"m={m},W={W},L={L},g={g},kmax={kmax}", bitwise=True,
+                ms=round(ms, 6),
+                device_ms=round(dev_ms, 6) if dev_ms else "not measured",
+                call_ms=round(call_ms, 6),
+                staged_call_ms=round(staged[label]["call_ms"], 6),
+                bytes_per_call=per_call, first_call_bytes=first_bytes,
+                staged_bytes_per_call=staged_bytes)
+            cases.append(c)
+        # commits and restores between launches, rows read late
+        rng = np.random.default_rng(31)
+        sp = Space(m=4, d=4, horizon=256)
+        dg = J.DeviceGrid(sp, "cuda")
+        snaps, pending, mutations, launches = [], None, 0, 0
+        J.reset_profile()
+        for round_ in range(60):
+            for _ in range(2 if round_ % 3 else 1):
+                if rng.random() < 0.7 or not snaps:
+                    if rng.random() < 0.3:
+                        snaps.append(sp.snapshot())
+                    v = rng.uniform(0.05, 0.4, 4)
+                    k = int(rng.integers(1, 24))
+                    mm, t0 = sp.earliest_fit(v, k, int(rng.integers(0, 160)))
+                    sp.commit(round_, mm, t0, k, v)
+                else:
+                    sp.restore(snaps.pop())
+                mutations += 1
+            if pending is not None:
+                rows, g, want = pending
+                got = np.stack([rows.row(j) for j in range(g)])
+                check(got.tobytes() == want.tobytes(),
+                      f"resident scan read after later mutations != "
+                      f"scan_starts at launch (launch {launches})")
+            g = int(rng.integers(1, 33))
+            Vs = ceil32(rng.uniform(0.05, 0.5, (g, 4)))
+            ks = rng.integers(1, 65, g)
+            plo = int(rng.integers(0, sp.T - 40))
+            phi = int(rng.integers(plo + 8, min(plo + 192, sp.T)))
+            rev = bool(rng.integers(0, 2))
+            pending = (dg.launch(Vs, ks, plo, phi, rev), g,
+                       K.scan_starts(sp.avail, Vs, ks, plo, phi, rev))
+            launches += 1
+        rows, g, want = pending
+        check(np.stack([rows.row(j) for j in range(g)]).tobytes()
+              == want.tobytes(), "resident scan != scan_starts (last)")
+        seq = dict(launches=launches, mutations=mutations,
+                   bytes_per_launch=J.PROFILE["bytes_h2d"] / launches,
+                   sync_cells=J.PROFILE["sync_cells"],
+                   allocs=J.PROFILE["allocs"],
+                   reallocs=J.PROFILE["reallocs"])
+        check(mutations >= 50, "fewer than 50 mutations between launches")
+        say("kernel", name="scan_bitmaps", route="resident",
+            case="mutations", bitwise=True, **seq)
+    scan["resident"] = dict(cases=cases, mutations=seq)
+    return scan["resident"]
+
+
+def heartbeat_masks_op(summary: dict) -> None:
+    """``heartbeat_masks``'s cuda impl (the eligibility kernel plus the fit
+    mask on the card) against the numpy op on s13 and the busy corpus: the
+    union ``fits | over`` a superset of the exact union, the (candidate,
+    machine) pairs and the machines it adds counted, its call timed on the
+    host clock beside the numpy op's."""
+    import numpy as np
+
+    from repro_torch.core.engine import kernels as K
+    from repro_torch.core.engine import packing
+    from repro_torch.core.online import FUNGIBLE, RIGID
+
+    fd, rd, gd = np.arange(4), np.asarray(RIGID), np.asarray(FUNGIBLE)
+    out = {}
+    for label, corpus in (("s13", s13_corpus()), ("busy", busy_corpus())):
+        batch, avail, _alive = corpus
+        args = (avail, batch.dem, fd, rd, gd, 0.25, True)
+        fits, over = K._heartbeat_masks_on(*args, device="cuda")
+        fe, oe = packing.heartbeat_masks(*args)
+        union, exact = fits | over, fe | oe
+        check(bool((exact <= union).all()),
+              f"heartbeat_masks dropped an exactly eligible pair ({label})")
+        check(bool((fe <= fits).all()),
+              f"heartbeat_masks' fits dropped an exact fit ({label})")
+        added = int((union & ~exact).sum())
+        added_machines = int((union.any(0) & ~exact.any(0)).sum())
+
+        def host_ms(fn, reps=50):
+            fn()
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            return (time.perf_counter() - t0) * 1e3 / reps
+
+        ms = host_ms(lambda: K._heartbeat_masks_on(*args, device="cuda"))
+        np_ms = host_ms(lambda: packing.heartbeat_masks(*args))
+        out[label] = dict(pairs=int(union.size), exact_pairs=int(exact.sum()),
+                          added_pairs=added, added_machines=added_machines,
+                          call_ms=ms, numpy_ms=np_ms)
+        say("op", name="heartbeat_masks", impl="cuda", case=label,
+            shape=f"n={union.shape[0]},m={union.shape[1]},d=4",
+            superset=True, **{k: (round(v, 6) if isinstance(v, float) else v)
+                              for k, v in out[label].items()})
+    summary["heartbeat_masks"] = out
 
 
 def eligible_case(label, avail, dem, slack, ob) -> dict:
@@ -759,7 +990,7 @@ def scan_shapes(summary: dict) -> dict:
     unpadded)."""
     out: dict = {}
     for run in summary.values():
-        for key, (calls, _secs) in run["profile"].items():
+        for key, (calls, _secs) in run.get("profile", {}).items():
             if key.startswith("scan.cuda.shape."):
                 m, W, L, g = (int(p[1:]) for p in key.split(".")[3:])
                 out[(m, W, L, g)] = out.get((m, W, L, g), 0) + calls
@@ -896,10 +1127,167 @@ def main_path(label: str, mode: str, dags, need: tuple, summary: dict,
         scan_numpy_calls=np_scans[0], scan_numpy_s=np_scans[1],
         waves=waves, launches=launches, match_wave_s=wave_s,
         walls={side: [r[1] for r in runs[side]] for side in runs},
+        decisions=mine,
         profile={k: list(v) for k, v in prof.items()},
         numpy_profile={k: list(v) for k, v in runs["numpy"][0][2].items()},
         makespan=mine["makespan"], jain_60=mine["jain_60"])
     return launches
+
+
+def build_workers_path(dags, summary: dict) -> None:
+    """The exact path with ``build_workers=W`` process workers on the card
+    (W = min(8, the CPU count)), in turns with a twin whose workers scan
+    with numpy (``REPRO_KERNELS=scan=numpy``, carried to the workers by the
+    pool's initializer): workers, twin, twin, workers.  Every run makes the
+    serial run's decisions (phase 3's ``exact``), with no retry, crash,
+    inline build or quarantine.  Then the workers' CUDA contexts and their
+    scan calls (``scripts/buildsvc_workers.py``)."""
+    from repro_torch.core import buildsvc
+    from repro_torch.core.engine import kernels as K
+    from repro_torch.sim import clear_schedule_cache, run_workload
+
+    W = min(8, os.cpu_count() or 1)
+    method = buildsvc._default_mp_context().get_start_method()
+    serial = summary["exact"]
+    runs = {"cuda": [], "numpy": []}
+    os.environ[buildsvc.MODE_ENV] = "process"
+    try:
+        for side in PATH_TURNS:
+            if side == "numpy":
+                os.environ[K.KERNELS_ENV] = "scan=numpy"
+            else:
+                os.environ.pop(K.KERNELS_ENV, None)
+            clear_schedule_cache()
+            t0 = time.perf_counter()
+            res = run_workload(dags, "dagps", n_machines=N_MACHINES,
+                               interarrival=0.5, seed=SEED, build_machines=4,
+                               build_workers=W, profile=True, device="cuda")
+            runs[side].append((res, time.perf_counter() - t0))
+    finally:
+        os.environ.pop(buildsvc.MODE_ENV, None)
+        os.environ.pop(K.KERNELS_ENV, None)
+    for side in runs:
+        for res, _wall in runs[side]:
+            check(decisions(res) == serial["decisions"],
+                  f"build workers ({side}): decisions differ from the "
+                  "serial run")
+            bad = {k: v for k, v in res.fault_stats["build"].items()
+                   if k in ("retries", "worker_crashes", "inline_fallbacks",
+                            "quarantined_digests") and v}
+            check(not bad, f"build workers ({side}): {bad}")
+
+    def mean(side, f):
+        return sum(f(r) for r in runs[side]) / len(runs[side])
+
+    wall = {s: mean(s, lambda r: r[1]) for s in runs}
+    build = {s: mean(s, lambda r: r[0].phase_times["build"]) for s in runs}
+    sys.path.insert(0, ROOT)
+    from scripts import buildsvc_workers
+
+    probe = buildsvc_workers.probe(W, calls=500)
+    tog, alone = probe["together"], probe["alone"]
+    say("path:exact_build_workers", mode="exact", workers=W,
+        start_method=method, turns=",".join(PATH_TURNS),
+        identical_to_serial=True, retries=0, worker_crashes=0,
+        inline_fallbacks=0, quarantined_digests=0,
+        wall_s=round(wall["cuda"], 3), twin_wall_s=round(wall["numpy"], 3),
+        build_s=round(build["cuda"], 3),
+        twin_build_s=round(build["numpy"], 3),
+        serial_wall_s=round(serial["wall_s"], 3),
+        serial_build_s=round(serial["build_s"], 3),
+        walls=json.dumps({s: [round(r[1], 3) for r in runs[s]]
+                          for s in runs}, separators=(",", ":")),
+        context_mb_per_worker=round(tog["context_mb_per_worker"], 1),
+        smi_mb_per_worker=tog["smi_mb_per_worker"],
+        used_mb_seen_in_worker=json.dumps(
+            [round(x, 1) for x in tog["used_mb_seen_in_worker"]],
+            separators=(",", ":")),
+        worker_ready_s=json.dumps([round(x, 3) for x in tog["ready_s"]],
+                                  separators=(",", ":")),
+        worker_start_s=json.dumps([round(x, 3) for x in tog["start_s"]],
+                                  separators=(",", ":")),
+        scan_call_ms_in_workers=json.dumps(
+            [round(x, 6) for x in tog["scan_call_ms"]],
+            separators=(",", ":")),
+        scan_call_ms_alone=round(alone["scan_call_ms"][0], 6),
+        makespan=serial["makespan"])
+    summary["exact_build_workers"] = dict(
+        workers=W, start_method=method, turns=PATH_TURNS, wall_s=wall,
+        build_s=build, walls={s: [r[1] for r in runs[s]] for s in runs},
+        phase_times={s: [r[0].phase_times for r in runs[s]] for s in runs},
+        fault_stats={s: [r[0].fault_stats["build"] for r in runs[s]]
+                     for s in runs},
+        workers_probe=probe)
+
+
+def jit_path(dags, summary: dict) -> None:
+    """The exact path with ``placement_backend="jit"`` (the resident
+    mirror) in turns with the batched backend: jit, batched, batched, jit,
+    every build rebuilt; decision-identical.  Scan calls through the
+    dispatch layer (row 0 and small batches), resident launches, batches
+    below the floor, mirror allocations and regrowths, bytes uploaded."""
+    from repro_torch.core.engine import jit as J
+    from repro_torch.core.engine import kernels as K
+    from repro_torch.kernels.placement_scan import kernel
+    from repro_torch.sim import clear_schedule_cache, run_workload
+
+    runs = {"jit": [], "batched": []}
+    for side in ("jit", "batched", "batched", "jit"):
+        clear_schedule_cache()
+        K.reset_profile()
+        J.reset_profile()
+        t0 = time.perf_counter()
+        res = run_workload(dags, "dagps", n_machines=N_MACHINES,
+                           interarrival=0.5, seed=SEED, build_machines=4,
+                           placement_backend=side, profile=True,
+                           device="cuda")
+        runs[side].append((res, time.perf_counter() - t0,
+                           K.profile_snapshot(), dict(J.PROFILE)))
+    serial = summary["exact"]["decisions"]
+    for side in runs:
+        for r in runs[side]:
+            check(decisions(r[0]) == serial,
+                  f"jit path ({side}): decisions differ from the exact run")
+    for r in runs["jit"]:
+        check(r[3]["device_calls"] > 0, "jit path: no resident launch")
+        check(not any(k.startswith("scan.numpy") for k in r[2]),
+              "jit path: a scan ran on numpy")
+
+    def mean(side, f):
+        return sum(f(r) for r in runs[side]) / len(runs[side])
+
+    wall = {s: mean(s, lambda r: r[1]) for s in runs}
+    build = {s: mean(s, lambda r: r[0].phase_times["build"]) for s in runs}
+    jp = {k: mean("jit", lambda r, k=k: r[3][k]) for k in J.PROFILE}
+    scans = {s: (mean(s, lambda r: r[2].get("scan.cuda", (0, 0.0))[0]),
+                 mean(s, lambda r: r[2].get("scan.cuda", (0, 0.0))[1]))
+             for s in runs}
+    say("path:exact_jit", mode="exact", backend="jit",
+        turns="jit,batched,batched,jit", identical_to_batched=True,
+        wall_s=round(wall["jit"], 3), batched_wall_s=round(wall["batched"], 3),
+        build_s=round(build["jit"], 3),
+        batched_build_s=round(build["batched"], 3),
+        scan_calls=int(scans["jit"][0]),
+        scan_call_ms=round(scans["jit"][1] * 1e3 / max(scans["jit"][0], 1),
+                           6),
+        batched_scan_calls=int(scans["batched"][0]),
+        batched_scan_call_ms=round(
+            scans["batched"][1] * 1e3 / max(scans["batched"][0], 1), 6),
+        device_launches=int(jp["device_calls"]),
+        launch_ms=round(jp["scan_seconds"] * 1e3
+                        / max(jp["device_calls"], 1), 6),
+        fallback_calls=int(jp["fallback_calls"]),
+        mirror_allocs=int(jp["allocs"]), mirror_reallocs=int(jp["reallocs"]),
+        resident_slots=kernel.resident_stage("cuda").slots,
+        bytes_h2d=int(jp["bytes_h2d"]),
+        bytes_per_launch=round(jp["bytes_h2d"] / max(jp["device_calls"], 1),
+                               1),
+        walls=json.dumps({s: [round(r[1], 3) for r in runs[s]]
+                          for s in runs}, separators=(",", ":")))
+    summary["exact_jit"] = dict(
+        wall_s=wall, build_s=build, jit_profile=jp, scan_calls=scans,
+        walls={s: [r[1] for r in runs[s]] for s in runs},
+        phase_times={s: [r[0].phase_times for r in runs[s]] for s in runs})
 
 
 # ----------------------------------------------------------------------
@@ -1534,13 +1922,15 @@ def main() -> int:
     print(smi0, flush=True)
 
     report: list = []
+    summary: dict = {}
     kernel_scan(report)
+    kernel_resident(report)
     kernel_eligible(report)
+    heartbeat_masks_op(summary)
     kernel_wave(report)
     say("kernels", names=",".join(r["name"] for r in report))
 
     dags = online_mix_workload(N_JOBS, seed=SEED)
-    summary: dict = {}
     path_launches = [
         main_path("exact", "exact", dags, ("scan.cuda", "match_wave.cuda"),
                   summary, rebuild=True),
@@ -1555,6 +1945,10 @@ def main() -> int:
         main_path("exact_4shards_numpy_wave", "exact", dags,
                   ("machines_with_candidates.cuda",), summary,
                   pin="match_wave=numpy", shard_machines=512)]
+    # phase 3, continued: build workers and the jit backend (their launches
+    # run in worker processes or on the resident route: not counted below)
+    build_workers_path(dags, summary)
+    jit_path(dags, summary)
     launches = {k: sum(p[k] for p in path_launches)
                 for k in path_launches[0]}
     # the scan's line reports the case the path launched most often
@@ -1616,9 +2010,20 @@ def main() -> int:
     return 0
 
 
+def stop_forkserver() -> None:
+    """Stop the build pools' forkserver, if phase 3 started one, so that
+    the script leaves no process running."""
+    svc = sys.modules.get("repro_torch.core.buildsvc")
+    if svc is not None:
+        svc.stop_forkserver()
+
+
 if __name__ == "__main__":
     try:
-        sys.exit(main())
+        rc = main()
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
-        sys.exit(1)
+        rc = 1
+    finally:
+        stop_forkserver()
+    sys.exit(rc)

@@ -6,6 +6,8 @@ Layers:
               of the scan + fit/score/heartbeat/wave ops, selected per-op
   reference — per-task numpy grid search (the semantic oracle)
   batched   — windowed ready-set feasibility scan, (n_tasks, m, W) lift
+  jit       — batched placement scanning a grid mirror resident on the
+              session's device, launched asynchronously
   packing   — shared numpy fit/score kernels for the online layers
 
 Select backends with ``build_schedule(..., backend="batched")`` or the
@@ -20,11 +22,13 @@ from . import kernels
 from .kernels import scan_starts
 from .reference import ReferenceBackend
 from .batched import BatchedBackend
+from .jit import JitBackend
 from . import packing
 
 __all__ = [
     "BACKEND_ENV", "BACKWARD", "DEFAULT_BACKEND", "FORWARD", "PeerTask",
     "PlacementBackend", "PlacementSession", "available_backends",
     "get_backend", "register_backend", "ReferenceBackend", "BatchedBackend",
+    "JitBackend",
     "scan_starts", "packing", "kernels",
 ]

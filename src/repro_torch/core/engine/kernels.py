@@ -27,8 +27,18 @@ Exactness contract per op:
   * ``scan`` — all implementations are bit-identical: the grid is float32
     and demands are pre-rounded with ``ceil32``, so feasibility is a pure
     float32 comparison plus integer run-length counting on every path.
-  * ``fits_mask`` / ``pack_score`` / ``heartbeat_masks`` — numpy only (the
-    float64 decision oracles).
+  * ``fits_mask`` / ``pack_score`` / ``heartbeat_masks`` — explicit-only:
+    numpy (the float64 decision oracles) unless ``REPRO_KERNELS`` names
+    another impl for the op (``all=`` skips them).  Their cuda and torch
+    impls are approximations safe only for particular consumers:
+    ``fits_mask`` is a superset (host-side directed rounding, compared in
+    float32 on the device); ``pack_score`` a float32 product, close to but
+    not identical with the float64 scores; ``heartbeat_masks`` a superset
+    only in the union ``fits | over`` (the cuda impl's union is the
+    eligibility kernel's, ``kernel.eligible_launch``; ``over`` is that
+    union without ``fits``, so on its own it is neither a sub- nor a
+    superset of the exact ``over``).  No path of the repository calls
+    them.
   * ``machines_with_candidates`` — decision-exact under every
     implementation: its masks are used exclusively to *skip* machines
     that provably cannot pick a task, so any sound superset of the exact
@@ -64,7 +74,10 @@ KERNELS_ENV = "REPRO_KERNELS"
 
 OPS = ("scan", "fits_mask", "pack_score", "heartbeat_masks",
        "machines_with_candidates", "match_wave")
-#: ops with a numpy implementation only: ``all=<impl>`` skips them
+#: ops whose cuda/torch impls are approximate in ways that are safe only
+#: for particular consumers (see the exactness contract above): they
+#: resolve to numpy unless REPRO_KERNELS names them (``all=<impl>`` skips
+#: them), e.g. ``REPRO_KERNELS=heartbeat_masks=cuda``
 EXPLICIT_ONLY = ("fits_mask", "pack_score", "heartbeat_masks")
 IMPLS = ("cuda", "torch", "numpy")   # demotion order, strongest first
 DEVICES = ("cuda", "cpu")
@@ -106,9 +119,14 @@ def transfer_add(key: str, n: int) -> None:
 # device selection
 # ----------------------------------------------------------------------
 
-#: the device the kernel ops run on; process-wide (not thread-local) so the
-#: shard executor's worker threads see what the entry point chose
+#: the device the kernel ops run on where no `use_device` block is open
 _DEVICE = "cuda"
+#: the device of the innermost `use_device` block open on this thread.
+#: Thread-local, so that build-service worker threads running builds for
+#: different devices, or finishing after their caller left its block, never
+#: see each other's choice; a thread that works for a caller (the shard
+#: executor's) enters the caller's `current_device()` itself.
+_LOCAL = threading.local()
 
 
 def check_device(device) -> str:
@@ -125,17 +143,22 @@ def check_device(device) -> str:
     return kind
 
 
+def current_device() -> str:
+    """The device the kernel ops run on for this thread right now."""
+    return getattr(_LOCAL, "device", None) or _DEVICE
+
+
 @contextlib.contextmanager
 def use_device(device):
-    """Run the kernel ops on ``device`` for the duration of the block."""
-    global _DEVICE
+    """Run the kernel ops on ``device`` on this thread for the duration of
+    the block."""
     kind = check_device(device)
-    prev = _DEVICE
-    _DEVICE = kind
+    prev = getattr(_LOCAL, "device", None)
+    _LOCAL.device = kind
     try:
         yield kind
     finally:
-        _DEVICE = prev
+        _LOCAL.device = prev
 
 
 #: sticky runtime demotions: op -> impls excluded from resolution until
@@ -444,6 +467,94 @@ def _machines_with_candidates_on(avail, demands, fit_dims, rigid_dims,
     return eligible, eligible.any(axis=0)
 
 
+def _fits_mask_on(avail, demand, dims=None, slack=0.0, eps=packing.EPS, *,
+                  device: str):
+    """float32 fit mask, a superset of `packing.fits_mask` (not bit-exact):
+    the host rounds the thresholds ``avail + slack + eps`` up and the
+    demands down to float32, the device compares.  Same shapes as the
+    numpy op: (), (m,), (n,) or (n, m)."""
+    avail = np.asarray(avail, dtype=np.float64)
+    demand = np.asarray(demand, dtype=np.float64)
+    if dims is not None:
+        dims = np.asarray(dims, dtype=np.int64)
+        if len(dims) == 0:
+            if avail.ndim == 2 and demand.ndim == 2:
+                return np.ones((demand.shape[0], avail.shape[0]), dtype=bool)
+            shape = np.broadcast_shapes(avail.shape[:-1], demand.shape[:-1])
+            return np.ones(shape, dtype=bool)
+        avail = avail[..., dims]
+        demand = demand[..., dims]
+    thr = _up(_round_up32(avail + slack + eps), device)
+    dem = _up(_round_down32(demand), device)
+    if avail.ndim == 2 and demand.ndim == 2:
+        out = (dem[:, None, :] <= thr[None, :, :]).all(dim=2)
+    else:
+        out = (dem <= thr).all(dim=-1)
+    return out.cpu().numpy()
+
+
+def _pack_score_on(avail, demand, clip=False, *, device: str):
+    """Tetris scores as one float32 product on the device (close to, not
+    identical with, `packing.pack_score`'s float64)."""
+    import torch
+
+    a = _up(np.asarray(avail, dtype=np.float32), device)
+    if clip:
+        a = a.clamp_min(0.0)
+    dm = _up(np.asarray(demand, dtype=np.float32), device)
+    if a.ndim == 2 and dm.ndim == 2:
+        out = dm @ a.T
+    else:
+        out = (dm @ torch.atleast_2d(a).transpose(-1, -2)).squeeze()
+    return out.cpu().numpy().astype(np.float64)
+
+
+def _heartbeat_masks_on(avail, demands, fit_dims, rigid_dims, fungible_dims,
+                        overbook_slack=0.0, use_overbooking=True, *,
+                        device: str):
+    """Superset ``(fits, over)`` masks (n, m); see the exactness contract:
+    only ``fits | over`` is a superset of the exact union.  The union is
+    the eligibility kernel's (`kernel.eligible_launch` on the card, its
+    plain version ``ref.heartbeat_eligible64`` on the CPU: float64 rows in,
+    rounded on the device); ``fits`` is the fit dims' test rounded the same
+    way (demands down, ``avail + eps`` up), and ``over`` the union without
+    it."""
+    import torch
+
+    from ...kernels.placement_scan import ref as ps_ref
+
+    avail = np.atleast_2d(np.asarray(avail, dtype=np.float64))
+    demands = np.atleast_2d(np.asarray(demands, dtype=np.float64))
+    n, (m, d) = demands.shape[0], avail.shape
+    if n == 0:
+        empty = np.zeros((0, m), dtype=bool)
+        return empty, empty.copy()
+    fd, rd, gd, slack = _eligibility_dims(fit_dims, rigid_dims,
+                                          fungible_dims, overbook_slack,
+                                          use_overbooking)
+    slack = max(slack, 0.0)
+    a_t, d_t = _up(avail, device), _up(demands, device)
+    if device == "cuda":
+        from ...kernels.placement_scan import kernel as ps_kernel
+
+        el, _any = ps_kernel.eligible_launch(a_t, d_t, slack, packing.EPS,
+                                             *_dim_bits(d, fd, rd, gd))
+        union = el.t() != 0
+    else:
+        masks = [torch.from_numpy(mk) for mk in _dim_masks(d, fd, rd, gd)]
+        el, _any = ps_ref.heartbeat_eligible64(a_t, d_t, slack, packing.EPS,
+                                               *masks)
+        union = el != 0
+    fit = torch.from_numpy(np.asarray(fit_dims, dtype=np.int64)).to(device)
+    if len(fit):
+        thr = ps_ref.round_up32(a_t[:, fit] + packing.EPS)
+        dem = ps_ref.round_down32(d_t[:, fit])
+        fits = (dem[:, None, :] <= thr[None, :, :]).all(dim=2)
+    else:
+        fits = torch.ones((n, m), dtype=torch.bool, device=device)
+    return fits.cpu().numpy(), (union & ~fits).cpu().numpy()
+
+
 # ----------------------------------------------------------------------
 # registry + dispatch
 # ----------------------------------------------------------------------
@@ -483,6 +594,10 @@ for _impl, _dev, _avail in (("cuda", "cuda", have_cuda),
     register("match_wave", _impl,
              functools.partial(_wave.device_wave, impl=_impl, device=_dev),
              _avail)
+    for _op, _fn in (("fits_mask", _fits_mask_on),
+                     ("pack_score", _pack_score_on),
+                     ("heartbeat_masks", _heartbeat_masks_on)):
+        register(_op, _impl, functools.partial(_fn, device=_dev), _avail)
 
 
 _REQ_CACHE: tuple[str, dict] | None = None
@@ -518,12 +633,15 @@ def _requested() -> dict[str, str]:
 def resolve(op: str) -> tuple[str, Callable]:
     """(impl name, callable) for one op, honoring pin, device and demotion.
 
-    The wanted impl is the REPRO_KERNELS pin, else ``cuda`` on the cuda
-    device and ``torch`` on the cpu device.  An op without that impl (the
-    numpy-only ops) or one whose impl was sticky-demoted resolves down the
-    chain; a wanted cuda impl with no card raises instead.
+    The wanted impl is the REPRO_KERNELS pin, else ``numpy`` for the
+    explicit-only ops and, for the others, ``cuda`` on the cuda device and
+    ``torch`` on the cpu device.  An impl that was sticky-demoted resolves
+    down the chain; a wanted cuda impl with no card raises instead.
     """
-    want = _requested().get(op) or ("cuda" if _DEVICE == "cuda" else "torch")
+    want = _requested().get(op)
+    if want is None:
+        want = ("numpy" if op in EXPLICIT_ONLY
+                else "cuda" if current_device() == "cuda" else "torch")
     demoted = _DEMOTED.get(op, ())
     for impl in IMPLS[IMPLS.index(want):]:
         if impl in demoted:

@@ -96,6 +96,10 @@ class InjectedFault(RuntimeError):
         self.seam = seam
         self.ctx = ctx
 
+    def __reduce__(self):
+        # a build worker process sends it back to the service pickled
+        return type(self), (self.seam, self.ctx)
+
 
 class SimulatedOOM(InjectedFault):
     """``oom``-kind injection: models a device allocator failure inside a

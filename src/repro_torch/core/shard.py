@@ -238,6 +238,13 @@ class ShardedMatcher:
         self.kernel_secs[s] += time.perf_counter() - t0
         return out
 
+    def _launch_on(self, device: str, s: int, avail_rows: np.ndarray,
+                   dem: np.ndarray, attempt: int = 0):
+        """`_launch` on an executor thread, on the caller's device (the
+        device choice is per thread, `kernels.current_device`)."""
+        with kernels.use_device(device):
+            return self._launch(s, avail_rows, dem, attempt)
+
     @staticmethod
     def _conservative(avail_rows: np.ndarray,
                       dem: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
@@ -266,8 +273,9 @@ class ShardedMatcher:
         timeout = self.recovery.launch_timeout
         if timeout is None:
             return self._launch(s, avail_rows, dem, attempt)
-        fut = self._executor().submit(self._launch, s, avail_rows, dem,
-                                      attempt)
+        fut = self._executor().submit(self._launch_on,
+                                      kernels.current_device(), s,
+                                      avail_rows, dem, attempt)
         return fut.result(timeout=timeout)
 
     def _guarded_launch(self, s: int, avail_rows: np.ndarray,
@@ -360,8 +368,9 @@ class ShardedMatcher:
         elif plan.n_shards == 1:
             return self._launch(0, avail, dem)
         else:
+            dev = kernels.current_device()
             parts = list(self._executor().map(
-                lambda s: self._launch(s, avail[slices[s]], dem),
+                lambda s: self._launch_on(dev, s, avail[slices[s]], dem),
                 range(plan.n_shards)))
         if plan.n_shards == 1:
             return parts[0]

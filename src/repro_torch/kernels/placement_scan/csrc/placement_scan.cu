@@ -5,7 +5,9 @@
 //
 //   ps_scan_bitmaps        replaces src/repro/kernels/placement_scan/kernel.py
 //                          scan_bitmaps (_scan_kernel): the builder's windowed
-//                          feasibility scan.
+//                          feasibility scan; ps_scan_call is the builder's
+//                          whole call staged in one C call, ps_scan_resident
+//                          the jit backend's scan of a resident grid mirror.
 //   ps_heartbeat_eligible  replaces kernel.py heartbeat_eligible (_elig_kernel):
 //                          the online matcher's sound-superset machine filter
 //                          on operands rounded by the host; ps_eligible_call
@@ -27,7 +29,9 @@
 // Every entry point launches on the stream it is handed, allocates nothing,
 // and returns cudaGetLastError() so the Python wrapper can raise on a
 // refused launch (ps_scan_call and ps_eligible_call, which also synchronize
-// their stream, return the first error of the copy, launch or synchronize).
+// their stream, return the first error of the copy, launch or synchronize;
+// ps_scan_resident the first of its copy, launch or event record, the
+// event made beforehand by ps_event_create).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -58,12 +62,21 @@
 // call: the live window, demands and durations packed on the host into one
 // pinned buffer and copied to the card at once, the launch writing the
 // bitmaps into pinned host memory, one stream synchronize.
+//
+// The kernel reads machine mm's window at `win + mm * row_stride` (floats):
+// row_stride = L * d for a packed window, Tb * d for a window read in place
+// out of a resident (m, Tb, d) grid mirror (`ps_scan_resident`, the jit
+// placement backend), `win` then pointing at the window's first tick.
+// float4 loads need every row's window on a 16-byte boundary: d = 4, `win`
+// 16-byte aligned and row_stride a multiple of 4 floats.  A mirror keeps
+// that for every first tick (a tick of d = 4 floats is 16 bytes, Tb * 4 is
+// a multiple of 4); any other layout takes the scalar loads.
 // ---------------------------------------------------------------------------
 
 constexpr int SCAN_WARPS = 4;          // rows per block
 
 __global__ void __launch_bounds__(SCAN_WARPS * 32)
-    scan_bitmaps_kernel(const float* __restrict__ win,
+    scan_bitmaps_kernel(const float* __restrict__ win, long long row_stride,
                         const float* __restrict__ Vs,
                         const int* __restrict__ ks, int t_live, int m, int L,
                         int d, int g, int W, int reverse, int vec4,
@@ -79,7 +92,7 @@ __global__ void __launch_bounds__(SCAN_WARPS * 32)
   const float* v = Vs + (size_t)gg * d;
   const float4 v4 = vec4 ? make_float4(v[0], v[1], v[2], v[3])
                          : make_float4(0.f, 0.f, 0.f, 0.f);
-  const float* cells = win + (size_t)mm * L * d;
+  const float* cells = win + (size_t)mm * row_stride;
   for (int c = 0; c < nwords; ++c) {
     const int t = c * 32 + lane;
     bool ok = t < live;
@@ -110,9 +123,10 @@ __global__ void __launch_bounds__(SCAN_WARPS * 32)
   }
 }
 
-static int launch_scan(const float* win, const float* Vs, const int* ks,
-                       int t_live, int m, int L, int d, int g, int W,
-                       int reverse, int8_t* out, cudaStream_t stream) {
+static int launch_scan(const float* win, long long row_stride,
+                       const float* Vs, const int* ks, int t_live, int m,
+                       int L, int d, int g, int W, int reverse, int8_t* out,
+                       cudaStream_t stream) {
   if (d < 1) return (int)cudaErrorInvalidValue;
   const long long rows = (long long)g * m;
   if (rows <= 0 || W <= 0) return (int)cudaGetLastError();
@@ -120,10 +134,12 @@ static int launch_scan(const float* win, const float* Vs, const int* ks,
   const size_t smem = (size_t)SCAN_WARPS * nwords * sizeof(unsigned);
   if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
   const int blocks = (int)((rows + SCAN_WARPS - 1) / SCAN_WARPS);
-  // float4 cells when d = 4 and the window is 16-byte aligned
-  const int vec4 = d == 4 && (reinterpret_cast<uintptr_t>(win) & 15) == 0;
+  // float4 cells when d = 4 and every row's window is 16-byte aligned
+  const int vec4 = d == 4 && (reinterpret_cast<uintptr_t>(win) & 15) == 0 &&
+                   row_stride % 4 == 0;
   scan_bitmaps_kernel<<<blocks, SCAN_WARPS * 32, smem, stream>>>(
-      win, Vs, ks, t_live, m, L, d, g, W, reverse, vec4, nwords, out);
+      win, row_stride, Vs, ks, t_live, m, L, d, g, W, reverse, vec4, nwords,
+      out);
   return (int)cudaGetLastError();
 }
 
@@ -131,8 +147,8 @@ static int launch_scan(const float* win, const float* Vs, const int* ks,
 extern "C" int ps_scan_bitmaps(const float* win, const float* Vs,
                                const int* ks, int t_live, int m, int L, int d,
                                int g, int W, int8_t* out, void* stream) {
-  return launch_scan(win, Vs, ks, t_live, m, L, d, g, W, 0, out,
-                     (cudaStream_t)stream);
+  return launch_scan(win, (long long)L * d, Vs, ks, t_live, m, L, d, g, W, 0,
+                     out, (cudaStream_t)stream);
 }
 
 // The whole scan call from host arrays.  The live window
@@ -163,12 +179,74 @@ extern "C" int ps_scan_call(const float* avail, long long row,
   if (e != cudaSuccess) return (int)e;
   const char* base = static_cast<const char*>(dev_in);
   const int err = launch_scan(reinterpret_cast<const float*>(base),
+                              (long long)L * d,
                               reinterpret_cast<const float*>(base + off_vs),
                               reinterpret_cast<const int*>(base + off_ks), L,
                               m, L, d, g, W, reverse,
                               static_cast<int8_t*>(host_out_dev), s);
   if (err != 0) return err;
   return (int)cudaStreamSynchronize(s);
+}
+
+// The scan of a window read in place from a resident grid mirror (the jit
+// placement backend).  mirror (m, Tb, d) f32 on the card; the window is
+// ticks [first, first + L) of every machine's row, all of them live.  Vs
+// (g, d) f32 and ks (g,) i32 are packed into host_in (pinned; Vs at
+// off_vs, ks at off_ks) and copied up on `stream` into dev_in at the same
+// offsets; the kernel writes the bitmaps (g, W, m), starts descending
+// when reverse, into host_out (pinned; host_out_dev is the card's address
+// of it); `event` (when not null) is recorded after the launch and nothing
+// is waited on: the host reads host_out once the event has completed.
+// The mirror's slab uploads (`ps_copy_slab`) go on the same stream, so a
+// scan reads the grid as it was when the scan was issued.
+extern "C" int ps_scan_resident(const float* mirror, long long Tb,
+                                long long first, int m, int L, int d,
+                                const float* Vs, const int* ks, int g, int W,
+                                int reverse, void* host_in, void* dev_in,
+                                long long off_vs, long long off_ks,
+                                void* host_out_dev, void* event,
+                                void* stream) {
+  const cudaStream_t s = (cudaStream_t)stream;
+  char* h = static_cast<char*>(host_in);
+  memcpy(h + off_vs, Vs, (size_t)g * d * sizeof(float));
+  memcpy(h + off_ks, ks, (size_t)g * sizeof(int));
+  char* dv = static_cast<char*>(dev_in);
+  cudaError_t e = cudaMemcpyAsync(
+      dv + off_vs, h + off_vs,
+      (size_t)(off_ks - off_vs) + (size_t)g * sizeof(int),
+      cudaMemcpyHostToDevice, s);
+  if (e != cudaSuccess) return (int)e;
+  const int err = launch_scan(
+      mirror + (size_t)first * d, Tb * d,
+      reinterpret_cast<const float*>(dv + off_vs),
+      reinterpret_cast<const int*>(dv + off_ks), L, m, L, d, g, W, reverse,
+      static_cast<int8_t*>(host_out_dev), s);
+  if (err != 0) return err;
+  return event ? (int)cudaEventRecord((cudaEvent_t)event, s) : 0;
+}
+
+// One slab of a resident mirror from pinned host memory: ticks
+// [first, first + S) of every machine's row of mirror (m, Tb, d) f32, from
+// host (m, S, d) f32, in one strided copy on `stream`.
+extern "C" int ps_copy_slab(float* mirror, long long Tb, long long first,
+                            int m, int S, int d, const void* host,
+                            void* stream) {
+  const size_t width = (size_t)S * d * sizeof(float);
+  return (int)cudaMemcpy2DAsync(mirror + (size_t)first * d,
+                                (size_t)Tb * d * sizeof(float), host, width,
+                                width, (size_t)m, cudaMemcpyHostToDevice,
+                                (cudaStream_t)stream);
+}
+
+// Events of the resident scans (no timing): create, wait for.  A slot keeps
+// its event for the life of its thread's stage.
+extern "C" int ps_event_create(void** event) {
+  return (int)cudaEventCreateWithFlags(
+      reinterpret_cast<cudaEvent_t*>(event), cudaEventDisableTiming);
+}
+
+extern "C" int ps_event_sync(void* event) {
+  return (int)cudaEventSynchronize((cudaEvent_t)event);
 }
 
 // The address under which the card sees pinned host memory (the same

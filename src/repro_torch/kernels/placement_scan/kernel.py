@@ -15,13 +15,21 @@ copied to the card at once, the launch writing the bitmaps into pinned
 host memory, one stream synchronize; the buffers and the call's stream
 (`CallStage`) are made once and reused.  `eligible_call` stages the
 matcher's heartbeat eligibility the same way (``ps_eligible_call``), with
-the directed rounding on the card; it runs on the shard threads, so each
-thread has a stage of its own (`thread_stage`) and shards overlap instead
-of queueing behind one lock.
+the directed rounding on the card.  Both run on many threads at once (the
+shard threads; the build service's worker threads), so each thread has a
+stage of its own (`thread_stage`): calls overlap instead of queueing
+behind one lock, and no two threads share a pinned buffer.
+
+`scan_resident` is the jit placement backend's scan (``ps_scan_resident``):
+the window is read in place out of a grid mirror that stays on the card,
+and the call returns without waiting; the bitmaps land in a
+`ResidentSlot` of the thread's `ResidentStage`, whose event says when
+they may be read.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import threading
 from pathlib import Path
@@ -39,8 +47,13 @@ NVCC_FLAGS = ("-fmad=false",)
 #: launches per kernel since the last `reset_launches` (the wrappers below
 #: are the only writers: one per kernel launch, nowhere else)
 LAUNCHES = {"scan_bitmaps": 0, "heartbeat_eligible": 0, "match_wave_walk": 0}
-#: the eligibility call counts from the shard threads at once
+#: the staged calls count from many threads at once
 _COUNT_LOCK = threading.Lock()
+
+
+def _count(name: str) -> None:
+    with _COUNT_LOCK:
+        LAUNCHES[name] += 1
 
 #: wave kernel flag bits (csrc/placement_scan.cu F_*)
 F_PACKING, F_SRPT, F_OVERBOOK, F_DRF = 1, 2, 4, 8
@@ -62,6 +75,13 @@ def _bind(handle: ctypes.CDLL) -> None:
     handle.ps_scan_call.argtypes = ([vp, ll, ll, i, i, i, ctypes.c_char_p,
                                      ctypes.c_char_p, i, i, i, vp, vp, ll,
                                      ll, vp, vp])
+    handle.ps_scan_resident.argtypes = ([vp, ll, ll, i, i, i,
+                                         ctypes.c_char_p, ctypes.c_char_p,
+                                         i, i, i, vp, vp, ll, ll, vp, vp,
+                                         vp])
+    handle.ps_copy_slab.argtypes = [vp, ll, ll, i, i, i, vp, vp]
+    handle.ps_event_create.argtypes = [ctypes.POINTER(vp)]
+    handle.ps_event_sync.argtypes = [vp]
     handle.ps_host_device_ptr.argtypes = [vp, ctypes.POINTER(vp)]
     handle.ps_heartbeat_eligible.argtypes = [vp] * 6 + [i, i, i, vp, vp]
     f64, u32 = ctypes.c_double, ctypes.c_uint
@@ -72,6 +92,8 @@ def _bind(handle: ctypes.CDLL) -> None:
         [vp, vp, i, vp, vp, vp, vp, vp, vp, i, vp, vp, vp, i, vp, vp,
          i, i, i, vp, vp, vp, vp, vp, vp])
     for fn in (handle.ps_scan_bitmaps, handle.ps_scan_call,
+               handle.ps_scan_resident, handle.ps_copy_slab,
+               handle.ps_event_create, handle.ps_event_sync,
                handle.ps_host_device_ptr, handle.ps_heartbeat_eligible,
                handle.ps_eligible_launch, handle.ps_eligible_call,
                handle.ps_match_wave):
@@ -98,7 +120,7 @@ def scan_bitmaps(win: torch.Tensor, Vs: torch.Tensor, ks: torch.Tensor,
     err = lib().ps_scan_bitmaps(_p(win), _p(Vs), _p(ks), int(t_live), m, L, d,
                                 g, int(W), _p(out), _stream(win))
     _check(err, "scan_bitmaps")
-    LAUNCHES["scan_bitmaps"] += 1
+    _count("scan_bitmaps")
     return out
 
 
@@ -110,34 +132,33 @@ def _addr(a: np.ndarray) -> int:
     return a.__array_interface__["data"][0]
 
 
-class CallStage:
-    """A staged call's resources on one device: a pinned host buffer for the
-    packed inputs and its device twin, a pinned host buffer the kernel
-    writes its results into (and the card's address of it), and a stream of
-    the call's own, which it synchronizes before returning (so the call
-    neither waits on nor is ordered against other work).  The buffers grow
-    to the next power of two when a call needs more and are reused
-    otherwise, so a caller copies what it reads out before the next call.
-    ``lock`` serialises callers that share the stage."""
+class PinnedBuffers:
+    """A call's host-side buffers on one device: a pinned host buffer for the
+    packed inputs (``h_in``, as bytes in ``h_in_np``) and its device twin
+    (``d_in``), and a pinned host buffer the kernel writes its results into
+    (``h_out``, as bools in ``h_out_np``; ``h_out_dev`` is the card's
+    address of it).  They grow to the next power of two, at least
+    ``1 << MIN_BITS`` bytes, when a call needs more and are reused
+    otherwise, so a caller copies what it reads out before the next call."""
+
+    MIN_BITS = 16
 
     def __init__(self, device: torch.device):
         self.device = device
-        self.lock = threading.Lock()
-        self.stream = torch.cuda.Stream(device)
-        self.stream_ptr = self.stream.cuda_stream
         self.cap_in = self.cap_out = 0
 
     def reserve(self, n_in: int, n_out: int) -> None:
         if n_in > self.cap_in:
-            self.cap_in = 1 << max(16, (n_in - 1).bit_length())
+            self.cap_in = 1 << max(self.MIN_BITS, (n_in - 1).bit_length())
             self.h_in = torch.empty(self.cap_in, dtype=torch.uint8,
                                     pin_memory=True)
+            self.h_in_np = self.h_in.numpy()
             self.d_in = torch.empty(self.cap_in, dtype=torch.uint8,
                                     device=self.device)
             self.h_in_ptr = self.h_in.data_ptr()
             self.d_in_ptr = self.d_in.data_ptr()
         if n_out > self.cap_out:
-            self.cap_out = 1 << max(16, (n_out - 1).bit_length())
+            self.cap_out = 1 << max(self.MIN_BITS, (n_out - 1).bit_length())
             self.h_out = torch.empty(self.cap_out, dtype=torch.uint8,
                                      pin_memory=True)
             self.h_out_np = self.h_out.numpy().view(bool)
@@ -148,6 +169,18 @@ class CallStage:
             self.h_out_dev = dev.value
 
 
+class CallStage(PinnedBuffers):
+    """A staged call's resources: its `PinnedBuffers` and a stream of the
+    call's own, which it synchronizes before returning (so the call neither
+    waits on nor is ordered against other work).  A stage belongs to one
+    thread (`thread_stage`)."""
+
+    def __init__(self, device: torch.device):
+        super().__init__(device)
+        self.stream = torch.cuda.Stream(device)
+        self.stream_ptr = self.stream.cuda_stream
+
+
 def _cuda_device(device) -> torch.device:
     dev = torch.device(device)
     if dev.index is None:
@@ -155,27 +188,15 @@ def _cuda_device(device) -> torch.device:
     return dev
 
 
-_STAGES: dict[str, CallStage] = {}
-
-
-def stage_for(device) -> CallStage:
-    """The scan call's stage on ``device``, shared by every thread (the
-    builder calls from one thread; the lock keeps one call at a time)."""
-    key = str(device)
-    st = _STAGES.get(key)
-    if st is None:
-        st = _STAGES.setdefault(key, CallStage(_cuda_device(device)))
-    return st
-
-
 _THREAD_STAGES = threading.local()
 
 
 def thread_stage(device) -> CallStage:
     """This thread's own stage on ``device``: the eligibility call runs on
-    the shard threads at once, each on its own buffers and stream.  A
-    thread abandoned inside a hung attempt keeps its stage to itself, so
-    the attempts that replace it never share its buffers."""
+    the shard threads at once and the scan call on the build service's
+    worker threads, each on its own buffers and stream.  A thread abandoned
+    inside a hung attempt keeps its stage to itself, so the attempts that
+    replace it never share its buffers."""
     stages = getattr(_THREAD_STAGES, "stages", None)
     if stages is None:
         stages = _THREAD_STAGES.stages = {}
@@ -208,16 +229,134 @@ def scan_call(avail: np.ndarray, plo: int, L: int, Vs: np.ndarray,
     off_vs = _align16(m * L * d * 4)
     off_ks = _align16(off_vs + g * d * 4)
     n_out = g * W * m
-    st = stage_for(device)
-    with st.lock:
-        st.reserve(off_ks + g * 4, n_out)
-        err = lib().ps_scan_call(
-            _addr(avail), T * d, plo * d, m, L, d, vs, kb, g, W, int(reverse),
-            st.h_in_ptr, st.d_in_ptr, off_vs, off_ks, st.h_out_dev,
-            st.stream_ptr)
-        _check(err, "scan_bitmaps")
-        LAUNCHES["scan_bitmaps"] += 1
-        return st.h_out_np[:n_out].reshape(g, W * m).copy()
+    st = thread_stage(device)
+    st.reserve(off_ks + g * 4, n_out)
+    err = lib().ps_scan_call(
+        _addr(avail), T * d, plo * d, m, L, d, vs, kb, g, W, int(reverse),
+        st.h_in_ptr, st.d_in_ptr, off_vs, off_ks, st.h_out_dev,
+        st.stream_ptr)
+    _check(err, "scan_bitmaps")
+    _count("scan_bitmaps")
+    return st.h_out_np[:n_out].reshape(g, W * m).copy()
+
+
+class ResidentSlot(PinnedBuffers):
+    """One in-flight resident scan's `PinnedBuffers` (the slab to upload
+    at byte 0 of the input, demands and durations after it; the bitmaps in
+    the output) and the event recorded after its launch.  A slot goes back
+    to its stage once its bitmaps were copied out or nobody holds them any
+    more, and is handed out again only after its event has completed, so
+    no buffer is written while a copy or launch still reads it."""
+
+    MIN_BITS = 12
+
+    def __init__(self, device: torch.device):
+        super().__init__(device)
+        ev = ctypes.c_void_p()
+        _check(lib().ps_event_create(ctypes.byref(ev)), "resident scan event")
+        self.event = ev.value
+        self.pending = False
+
+    def wait(self) -> None:
+        """Block until the slot's last launch (and the copies before it on
+        the stream) completed."""
+        if self.pending:
+            _check(lib().ps_event_sync(self.event), "resident scan")
+            self.pending = False
+
+
+class ResidentStage:
+    """A thread's resources for resident scans on one device: the stream
+    that every mirror made on this thread uploads and scans on (so a scan
+    reads its mirror as it was when the scan was issued), and a pool of
+    `ResidentSlot` s, one per scan whose bitmaps are still unread.  The pool
+    grows when every slot is held and never shrinks; ``slots`` counts the
+    slots made."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.stream = torch.cuda.Stream(device)
+        self.stream_ptr = self.stream.cuda_stream
+        self._free: collections.deque = collections.deque()
+        self._lock = threading.Lock()
+        self.slots = 0
+
+    def acquire(self, n_in: int, n_out: int) -> ResidentSlot:
+        with self._lock:
+            slot = self._free.popleft() if self._free else None
+            if slot is None:
+                self.slots += 1
+        if slot is None:
+            slot = ResidentSlot(self.device)
+        slot.wait()
+        slot.reserve(n_in, n_out)
+        return slot
+
+    def release(self, slot: ResidentSlot) -> None:
+        with self._lock:
+            self._free.append(slot)
+
+
+_RESIDENT_STAGES = threading.local()
+
+
+def resident_stage(device) -> ResidentStage:
+    """This thread's `ResidentStage` on ``device``."""
+    stages = getattr(_RESIDENT_STAGES, "stages", None)
+    if stages is None:
+        stages = _RESIDENT_STAGES.stages = {}
+    key = str(device)
+    st = stages.get(key)
+    if st is None:
+        st = stages[key] = ResidentStage(_cuda_device(device))
+    return st
+
+
+def copy_slab(mirror: torch.Tensor, first: int, S: int, slot: ResidentSlot,
+              stage: ResidentStage) -> None:
+    """Upload ticks [first, first + S) of every row of ``mirror`` (m, Tb, d)
+    float32 on the card from the first m * S * d floats of ``slot``'s
+    pinned input, in one strided copy on ``stage``'s stream."""
+    m, Tb, d = mirror.shape
+    _need(mirror, "mirror", torch.float32, (m, Tb, d), stage.device)
+    if first < 0 or first + S > Tb:
+        raise ValueError(f"slab [{first}, {first + S}) outside a mirror of "
+                         f"{Tb} ticks")
+    if m * S * d * 4 > slot.cap_in:
+        raise ValueError("slab larger than the slot's input buffer")
+    err = lib().ps_copy_slab(mirror.data_ptr(), Tb, first, m, S, d,
+                             slot.h_in_ptr, stage.stream_ptr)
+    _check(err, "resident scan (slab upload)")
+
+
+def scan_resident(mirror: torch.Tensor, first: int, L: int, Vs: np.ndarray,
+                  ks: np.ndarray, W: int, reverse: bool, off_vs: int,
+                  slot: ResidentSlot, stage: ResidentStage) -> None:
+    """Launch the scan of ticks [first, first + L) of ``mirror`` (m, Tb, d)
+    float32 on the card, every tick live, for demands Vs (g, d) float32
+    (already ``ceil32``) and durations ks (g,); returns at once.  The
+    bitmaps (g, W, m), starts descending when ``reverse``, land in
+    ``slot.h_out_np``, readable after ``slot.wait()``.  Vs and ks are
+    packed into the slot's pinned input from byte ``off_vs`` (16-aligned,
+    past any slab) and uploaded on ``stage``'s stream before the launch."""
+    m, Tb, d = mirror.shape
+    g = len(ks)
+    _need(mirror, "mirror", torch.float32, (m, Tb, d), stage.device)
+    if first < 0 or first + L > Tb or W < 1:
+        raise ValueError(f"window [{first}, {first + L}) outside a mirror "
+                         f"of {Tb} ticks")
+    vs = np.ascontiguousarray(Vs, dtype=np.float32).tobytes()
+    kb = np.asarray(ks, dtype=np.int32).tobytes()
+    off_ks = _align16(off_vs + g * d * 4)
+    if off_ks + g * 4 > slot.cap_in or g * W * m > slot.cap_out:
+        raise ValueError("resident scan larger than its slot")
+    err = lib().ps_scan_resident(
+        mirror.data_ptr(), Tb, first, m, L, d, vs, kb, g, W, int(reverse),
+        slot.h_in_ptr, slot.d_in_ptr, off_vs, off_ks, slot.h_out_dev,
+        slot.event, stage.stream_ptr)
+    _check(err, "scan_bitmaps")
+    slot.pending = True
+    _count("scan_bitmaps")
 
 
 def eligible_launch(avail: torch.Tensor, dem: torch.Tensor, slack: float,
@@ -240,7 +379,7 @@ def eligible_launch(avail: torch.Tensor, dem: torch.Tensor, slack: float,
         int(rd_bits), int(gd_bits), _p(out), out[m * n:].data_ptr(),
         _stream(avail))
     _check(err, "heartbeat_eligible")
-    LAUNCHES["heartbeat_eligible"] += 1
+    _count("heartbeat_eligible")
     return out[:m * n].view(m, n), out[m * n:]
 
 
@@ -273,8 +412,7 @@ def eligible_call(avail: np.ndarray, dem: np.ndarray, slack: float,
         int(fd_bits), int(rd_bits), int(gd_bits), st.h_in_ptr, st.d_in_ptr,
         off_dem, st.h_out_dev, off_any, st.stream_ptr)
     _check(err, "heartbeat_eligible")
-    with _COUNT_LOCK:
-        LAUNCHES["heartbeat_eligible"] += 1
+    _count("heartbeat_eligible")
     return unpack_eligible(st.h_out_np, m, n, off_any)
 
 
@@ -307,7 +445,7 @@ def heartbeat_eligible(dem32: torch.Tensor, thr_fit: torch.Tensor,
                                       _p(fd_mask), _p(rd_mask), _p(gd_mask),
                                       n, m, d, _p(out), _stream(dem32))
     _check(err, "heartbeat_eligible")
-    LAUNCHES["heartbeat_eligible"] += 1
+    _count("heartbeat_eligible")
     return out
 
 
@@ -363,5 +501,5 @@ def match_wave_walk(avail, order, dem, pri, srpt, gidx, loc, taken0, ema,
         _p(masks), _p(consts), d, int(bundle_limit), flags, _p(rows),
         _p(mach), _p(over), _p(obs), _p(cnt), _stream(avail))
     _check(err, "match_wave_walk")
-    LAUNCHES["match_wave_walk"] += 1
+    _count("match_wave_walk")
     return avail_o, ema_o, deficit_o, rows, mach, over, obs, cnt[0]

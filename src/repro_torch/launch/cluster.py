@@ -99,9 +99,11 @@ def schedule_cluster(jobs: list[TPUJob], n_slices: int = 32,
     """Gang-schedule the jobs' stage DAGs onto pod slices with DAGPS.
 
     ``placement_backend`` selects the offline construction engine
-    (reference / batched) for the schemes that build preferred
-    schedules; ``build_workers`` must stay 1 until the build service is
-    ported; ``matcher_shards`` partitions the online matcher's
+    (reference / batched / jit) for the schemes that build preferred
+    schedules; ``build_workers`` overlaps per-arrival construction across
+    a core.buildsvc worker pool on ``device`` (1 = serial, None = the host's
+    CPU count; decisions are bit-identical either way); ``matcher_shards``
+    partitions the online matcher's
     machine axis (None = auto by slice count; any value is bit-identical,
     see core/shard.py); ``matcher_mode`` selects the online wave —
     "exact" (default, decision-exact for any shard count) or "routed"

@@ -44,6 +44,7 @@ from typing import Sequence
 import numpy as np
 
 from ..core import faults
+from ..core.buildsvc import BuildService
 from ..core.builder import build_schedule, rebuild_schedule
 from ..core.baselines import bfs_order, cp_order, random_order
 from ..core.dag import DAG, dag_digest
@@ -192,9 +193,12 @@ class SimConfig:
     record_placements: bool = False
     placement_backend: str | None = None  # engine backend for offline builds
     schedule_cache: bool = True    # memoize identical offline builds (exact)
-    #: dagps builds per arrival: 1 = serial in the arrival event.  A build
-    #: worker pool (>1, or None = host CPU count) needs the build service,
-    #: which a later slice of the port brings; until then it raises
+    #: dagps builds per arrival: 1 = serial in the arrival event; >1 or
+    #: None (= host CPU count) submits every arrival's construction to a
+    #: core.buildsvc.BuildService worker pool (on ``device``) at run start
+    #: and the event loop consumes completed orders — bit-identical
+    #: decisions (build_schedule is deterministic and construction is
+    #: instantaneous in sim time), wall-clock overlapped
     build_workers: int | None = 1
     #: where the kernel ops run: "cuda" (raises without a card) or "cpu"
     device: str = "cuda"
@@ -360,16 +364,20 @@ class ClusterSim:
         delta = self._predeltas.pop(idx, None)
         sched = self._by_digest.get(dig)
         if sched is None:
-            prev = (self._by_digest.get(delta.base_digest)
-                    if delta is not None else None)
-            if prev is not None and prev.build_info is not None:
-                sched = rebuild_schedule(
-                    prev, dag, backend=self.cfg.placement_backend,
-                    device=self.cfg.device)
+            handle = self._builds.pop(idx, None)
+            if handle is not None:
+                sched = handle.result()
             else:
-                sched = build_schedule(dag, self._build_m(),
-                                       backend=self.cfg.placement_backend,
-                                       device=self.cfg.device)
+                prev = (self._by_digest.get(delta.base_digest)
+                        if delta is not None else None)
+                if prev is not None and prev.build_info is not None:
+                    sched = rebuild_schedule(
+                        prev, dag, backend=self.cfg.placement_backend,
+                        device=self.cfg.device)
+                else:
+                    sched = build_schedule(dag, self._build_m(),
+                                           backend=self.cfg.placement_backend,
+                                           device=self.cfg.device)
             if idx in self._mut_jobs:
                 self._count_rebuild(sched, dag)
             self._by_digest[dig] = sched
@@ -406,9 +414,16 @@ class ClusterSim:
                 pri = _PRI_CACHE.get(key)
                 if pri is not None:
                     return pri
-            pri = build_schedule(
-                dag, self._build_m(), backend=self.cfg.placement_backend,
-                device=self.cfg.device).pri_score
+            # prefetched by the build service at run start: consuming the
+            # handle blocks only until that job's construction finishes —
+            # later arrivals' builds keep running on the pool meanwhile
+            handle = getattr(self, "_builds", {}).pop(idx, None)
+            if handle is not None:
+                pri = handle.result().pri_score
+            else:
+                pri = build_schedule(
+                    dag, self._build_m(), backend=self.cfg.placement_backend,
+                    device=self.cfg.device).pri_score
             if use_cache:
                 if len(_PRI_CACHE) >= _PRI_CACHE_CAP:
                     _PRI_CACHE.pop(next(iter(_PRI_CACHE)))
@@ -426,10 +441,6 @@ class ClusterSim:
 
     # ------------------------------------------------------------------
     def run(self, arrivals: Sequence[tuple[float, DAG, int]]) -> SimResult:
-        if self.spec.order_fn == "dagps" and self.cfg.build_workers != 1:
-            raise NotImplementedError(
-                "build_workers != 1 needs the build service "
-                "(core/buildsvc.py), which a later slice of the port brings")
         with kernels.use_device(self.cfg.device):
             plan = faults.coerce(self.cfg.fault_plan)
             if plan is None:
@@ -636,6 +647,27 @@ class ClusterSim:
                 smatcher.record_allocation(m, int(batch.grp[i]),
                                            mcfg.fairness(batch.dem[i]))
 
+        # concurrent multi-job construction (core/buildsvc.py): submit every
+        # arrival's build up front and let the event loop consume completed
+        # priority orders — per-job builds are independent (own DAG, Space,
+        # memo) and build_schedule is deterministic, so decisions stay
+        # bit-identical to the serial path; only wall-clock overlap changes.
+        svc = None
+        self._builds = {}
+        if self.spec.order_fn == "dagps" and (
+                cfg.build_workers is None or cfg.build_workers > 1):
+            svc = BuildService(workers=cfg.build_workers,
+                               recovery=cfg.recovery, device=cfg.device)
+            m_build = self._build_m()
+            for k, (_t, dag, _g) in enumerate(arrivals):
+                # dynamic runs prefetch everything (the pri cache is
+                # bypassed; the service dedups identical DAGs itself)
+                if (cfg.schedule_cache and not self._dynamic
+                        and self._pri_cache_key(dag) in _PRI_CACHE):
+                    continue
+                self._builds[k] = svc.submit(
+                    dag, m_build, backend=cfg.placement_backend)
+
         def hb_arrive(m: int, now: float) -> None:
             """One heartbeat reaches the scheduler: refresh the machine's
             silence clock, rejoin it if suspected/lost, arm the next
@@ -679,14 +711,20 @@ class ClusterSim:
             nonlocal incomplete_jobs
             job = jobs.get(k)
             if job is None:
-                # pre-arrival: swap the DAG under the pending arrival; the
-                # arrival delta-rebuilds from the old DAG's schedule
+                # pre-arrival: swap the DAG under the pending arrival; a
+                # prefetched construction is resubmitted as a delta so the
+                # worker pool replays the old build's untouched partitions;
+                # without one the arrival delta-rebuilds from the old DAG's
+                # schedule
                 t_a, old_dag, g = arrivals[k]
                 new_dag, delta = mutator(old_dag)
                 arrivals[k] = (t_a, new_dag, g)
                 self._predeltas[k] = delta
                 self._mut_jobs.add(k)
                 mut_stats["pre_arrival"] += 1
+                h = self._builds.get(k)
+                if svc is not None and h is not None:
+                    self._builds[k] = svc.resubmit(h, new_dag, delta)
                 return
             if job.complete:
                 mut_stats["noops"] += 1
@@ -894,21 +932,27 @@ class ClusterSim:
 
         finally:
             self._by_digest = {}
+            self._builds = {}
             self._scheds = {}
             self._predeltas = {}
             smatcher.close()
+            if svc is not None:
+                svc.shutdown(wait=False)
         makespan = max((j.finish for j in results), default=0.0)
         # recovery seconds: shard-launch retries/backoff accrue inside the
-        # match phase — pull them out into their own key so degraded runs
-        # don't silently inflate the phase they happen to block
+        # match phase, build-retry backoff inside the build phase — pull
+        # both out into their own key so degraded runs don't silently
+        # inflate the phases they happen to block
         rec_shard = smatcher.recovery_secs
+        rec_build = float(svc.stats["recovery_secs"]) if svc is not None \
+            else 0.0
         phase_times = None
         if prof is not None:
             total = time.perf_counter() - t_run0
-            build_t = prof["build"]
+            build_t = max(prof["build"] - rec_build, 0.0)
             match_t = max(prof["match"] - rec_shard, 0.0)
             phase_times = {"build": build_t, "match": match_t,
-                           "recovery": rec_shard,
+                           "recovery": rec_shard + rec_build,
                            "event": max(total - prof["build"] - prof["match"], 0.0),
                            "total": total}
             kprof1 = kernels.profile_snapshot()
@@ -929,12 +973,15 @@ class ClusterSim:
                       ("launch_retries", "launch_failures", "quarantines",
                        "quarantined_shards", "quarantined_launches",
                        "probe_recoveries")},
-            "build": {},
+            "build": {k: svc.stats[k] for k in
+                      ("retries", "worker_crashes", "quarantined_digests",
+                       "inline_fallbacks", "resubmits", "resubmit_deduped")}
+            if svc is not None else {},
             "kernel_demotions": {k: v - dem0.get(k, 0)
                                  for k, v in dem1.items()
                                  if v - dem0.get(k, 0)},
             "heartbeat": hb_stats,
-            "recovery_secs": round(rec_shard, 6),
+            "recovery_secs": round(rec_shard + rec_build, 6),
         }
         return SimResult(results, makespan, usage_samples, allocations,
                          spec_launches, requeued, phase_times,

@@ -11,7 +11,10 @@ Inputs are made from numpy seeds.  The scheduler's kernels and the rg_lru
 scan are compared bitwise (the scan also as the builder's whole staged
 call, at the main path's launch shapes and at edge shapes; the eligibility
 call, staged with its rounding on the card, against the host-rounded plain
-version, on an edge corpus and from four threads at once); the flash kernel's two wgmma layouts alone
+version, on an edge corpus and from four threads at once; the scan call
+from four threads; the jit backend's resident scan under mutation, read
+after later commits; the build service's workers on the card; the
+explicit-only ops' cuda impls); the flash kernel's two wgmma layouts alone
 against torch in float32 (``wgmma_probe``); flash attention within 2e-5 (f32) and 2e-2
 (bf16), the tolerances of ``tests/test_kernels.py`` (it sums in another
 order, and its bf16 variant rounds the softmax weights to bf16 for the
@@ -493,6 +496,200 @@ def test_sim_numpy_wave_fans_eligibility_out_on_the_card(kernel,
     """The numpy wave asks the card for each shard's eligibility from the
     shard threads at once (4 shards, a stage per thread)."""
     _sim_against_numpy("exact", "match_wave=numpy", monkeypatch, n_shards=4)
+
+
+def test_scan_call_from_four_threads(kernel):
+    """The build service's worker threads scan at once, each on its own
+    stage (buffers and stream): every call's bitmaps equal ``scan_starts``
+    bit for bit, and the launch count is exact."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    cases = [_grid(900 + i) for i in range(16)]
+
+    def work(t):
+        outs = []
+        for i in range(t, len(cases), 4):
+            avail, Vs, ks, rng = cases[i]
+            T = avail.shape[1]
+            for j in range(6):
+                plo = 2 * j
+                phi = T - 3 * j - 1
+                rev = bool(j % 2)
+                got = tk._scan_on(avail, Vs, ks, plo, phi, rev, device="cuda")
+                outs.append((i, plo, phi, rev, got))
+        return outs
+
+    before = kernel.LAUNCHES["scan_bitmaps"]
+    with ThreadPoolExecutor(4) as pool:
+        results = [r for part in pool.map(work, range(4)) for r in part]
+    assert kernel.LAUNCHES["scan_bitmaps"] == before + len(results) == \
+        before + 6 * len(cases)
+    for i, plo, phi, rev, got in results:
+        avail, Vs, ks, _ = cases[i]
+        want = tk.scan_starts(avail, Vs, ks, plo, phi, rev)
+        assert got.tobytes() == want.tobytes(), (i, plo, phi, rev)
+
+
+@pytest.mark.parametrize("d", [4, 3])
+def test_resident_scan_reads_its_window_in_place(kernel, d):
+    """``scan_resident`` on windows at every first tick of a resident
+    (m, Tb, d) mirror (float4 loads at d = 4, scalar at d = 3) equals the
+    plain version on the same window copied out, bit for bit."""
+    rng = np.random.default_rng(40 + d)
+    m, Tb = 4, 512
+    mirror = torch.from_numpy(rng.uniform(0.0, 1.0, (m, Tb, d))
+                              .astype(np.float32)).cuda()
+    stage = kernel.resident_stage("cuda")
+    for first in (0, 1, 3, 17, 100):
+        g, W = int(rng.integers(1, 33)), int(rng.integers(1, 200))
+        Vs = ceil32(rng.uniform(0.05, 0.7, (g, d))).astype(np.float32)
+        ks = rng.integers(1, 129, g).astype(np.int32)
+        L = min(W + int(ks.max()) - 1, Tb - first)
+        for rev in (False, True):
+            slot = stage.acquire(256 + g * d * 4 + g * 4, g * W * m)
+            kernel.scan_resident(mirror, first, L, Vs, ks, W, rev, 0, slot,
+                                 stage)
+            slot.wait()
+            got = slot.h_out_np[:g * W * m].reshape(g, W, m).copy()
+            stage.release(slot)
+            win = torch.zeros((m, W + int(ks.max()), d), device="cuda")
+            win[:, :L] = mirror[:, first:first + L]
+            want = tref.scan_bitmaps(win, torch.from_numpy(Vs).cuda(),
+                                     torch.from_numpy(ks).cuda(), L, W)
+            want = want.cpu().numpy() != 0
+            if rev:
+                want = want[:, ::-1, :]
+            assert got.tobytes() == np.ascontiguousarray(want).tobytes(), \
+                (first, rev)
+
+
+def test_resident_scan_bitwise_under_mutation(kernel, monkeypatch):
+    """The jit backend on the card: 60 rounds of commits, growth and
+    restores, each launch's rows read only after the next round's
+    mutation, equal ``scan_starts`` on the grid at launch."""
+    from repro_torch.core import Space
+    from repro_torch.core.engine import JitBackend
+    from repro_torch.core.engine import jit as J
+
+    monkeypatch.setattr(J, "MIN_DEVICE_G", 1)
+    J.reset_profile()
+    be = JitBackend()
+    rng = np.random.default_rng(9)
+    s = Space(m=4, d=4, horizon=64)
+    snaps, pending = [], None
+    with tk.use_device("cuda"):
+        for round_ in range(60):
+            op = rng.random()
+            if op < 0.5:
+                v = rng.uniform(0.1, 0.5, 4)
+                k = int(rng.integers(1, 10))
+                mm, t0 = s.earliest_fit(v, k, int(rng.integers(0, 40)))
+                s.commit(round_, mm, t0, k, v)
+            elif op < 0.6:
+                (s._grow_front if rng.random() < 0.5 else s._grow_back)()
+            elif op < 0.75 or not snaps:
+                snaps.append(s.snapshot())
+            else:
+                s.restore(snaps.pop())
+            if pending is not None:          # read after this mutation
+                goods, g, want = pending
+                got = np.stack([goods[i]() for i in range(g)])
+                assert np.array_equal(got, want), round_
+            g = int(rng.integers(2, 12))
+            Vs = ceil32(rng.uniform(0.2, 0.7, (g, 4)))
+            ks = rng.integers(1, 12, g)
+            plo = int(rng.integers(0, max(s.T - 10, 1)))
+            phi = int(rng.integers(plo + 2, s.T))
+            rev = bool(rng.integers(0, 2))
+            pending = (be.scan_kernel(s, Vs, ks, plo, phi, rev), g,
+                       tk.scan_starts(s.avail, Vs, ks, plo, phi, rev))
+    assert J.PROFILE["device_calls"] == 60
+
+
+def test_jit_build_on_the_card_equals_batched(kernel):
+    from repro_torch.core import build_schedule
+    from repro_torch.core.engine import jit as J
+    from repro_torch.sim.workload import production_dag
+
+    J.reset_profile()
+    for seed in range(3):
+        dag = production_dag(np.random.default_rng(seed), scale=0.35,
+                             share=3)
+        bat = build_schedule(dag, 3, ticks=96, backend="batched",
+                             device="cuda")
+        jit = build_schedule(dag, 3, ticks=96, backend="jit", device="cuda")
+        assert bat.makespan == jit.makespan
+        assert np.array_equal(bat.start, jit.start)
+        assert np.array_equal(bat.machine, jit.machine)
+    assert J.PROFILE["device_calls"] > 0
+
+
+@pytest.mark.parametrize("mode", ["process", "thread"])
+def test_build_service_on_the_card_equals_serial(kernel, mode):
+    """Build workers on the card (process mode: a CUDA context per worker)
+    give the serial builds' schedules; no retry, crash or fallback."""
+    from repro_torch.core import build_schedule
+    from repro_torch.core.buildsvc import BuildService
+    from repro_torch.sim.workload import production_dag
+
+    dags = [production_dag(np.random.default_rng(s), scale=0.35, share=3)
+            for s in range(4)]
+    want = [build_schedule(d, 3, ticks=96, device="cuda") for d in dags]
+    with BuildService(workers=2, mode=mode, device="cuda") as svc:
+        got = [h.result(120) for h in
+               [svc.submit(d, 3, ticks=96) for d in dags]]
+    for w, g in zip(want, got):
+        assert g.makespan == w.makespan
+        assert np.array_equal(g.start, w.start)
+        assert np.array_equal(g.machine, w.machine)
+    assert svc.stats["retries"] == svc.stats["worker_crashes"] == 0
+    assert svc.stats["inline_fallbacks"] == 0
+    if mode == "process":
+        assert svc.start_method in ("forkserver", "spawn")
+
+
+def test_build_worker_without_the_card_fails_its_build(kernel, monkeypatch):
+    """A worker that cannot reach the card fails the build with that error:
+    no retry, and no inline build that would hide it."""
+    from repro_torch.core.buildsvc import MP_ENV, BuildService
+    from repro_torch.sim.workload import production_dag
+
+    monkeypatch.setenv(MP_ENV, "spawn")          # the worker's env is ours
+    monkeypatch.setenv("CUDA_VISIBLE_DEVICES", "")
+    dag = production_dag(np.random.default_rng(0), scale=0.35, share=3)
+    with BuildService(workers=1, mode="process", device="cuda") as svc:
+        with pytest.raises(RuntimeError, match="cuda"):
+            svc.submit(dag, 3, ticks=96).result(120)
+    assert svc.stats["retries"] == svc.stats["inline_fallbacks"] == 0
+
+
+def test_explicit_only_ops_on_the_card(kernel):
+    """heartbeat_masks, fits_mask and pack_score's cuda impls: the same
+    bits as their torch impls on the CPU (the same rounding), pack_score
+    within float32 of it; heartbeat_masks launches the eligibility
+    kernel."""
+    fd, rd, gd = np.arange(4), np.array([0, 1]), np.array([2, 3])
+    rng = np.random.default_rng(11)
+    for n, m in ((1, 24), (32, 2048), (512, 2048)):
+        avail = rng.uniform(-0.05, 1.0, (m, 4))
+        dem = rng.uniform(0.0, 0.9, (n, 4))
+        for slack, ob in ((0.25, True), (0.0, False)):
+            args = (avail, dem, fd, rd, gd, slack, ob)
+            before = kernel.LAUNCHES["heartbeat_eligible"]
+            got = tk._heartbeat_masks_on(*args, device="cuda")
+            assert kernel.LAUNCHES["heartbeat_eligible"] == before + 1
+            want = tk._heartbeat_masks_on(*args, device="cpu")
+            assert got[0].tobytes() == want[0].tobytes()
+            assert got[1].tobytes() == want[1].tobytes()
+            fe, oe = packing.heartbeat_masks(*args)
+            assert ((fe | oe) <= (got[0] | got[1])).all()
+        for dims in (None, [0, 2], []):
+            a = tk._fits_mask_on(avail, dem, dims, 0.1, device="cuda")
+            b = tk._fits_mask_on(avail, dem, dims, 0.1, device="cpu")
+            assert a.tobytes() == b.tobytes()
+        np.testing.assert_allclose(
+            tk._pack_score_on(avail, dem, True, device="cuda"),
+            packing.pack_score(avail, dem, clip=True), rtol=1e-5, atol=1e-6)
 
 
 # ----------------------------------------------------------------------

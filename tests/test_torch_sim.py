@@ -31,7 +31,7 @@ from repro_torch.core import build_schedule, faults
 from repro_torch.core.dag import dag_digest, dag_from_arrays
 from repro_torch.core.engine import kernels as tk
 from repro_torch.launch import TPUJob, schedule_cluster
-from repro_torch.sim import make_workload, run_workload
+from repro_torch.sim import clear_schedule_cache, make_workload, run_workload
 from repro_torch.sim.workload import (periodic_dag, production_dag,
                                       query_dag, s12_dynamic)
 
@@ -188,11 +188,17 @@ def test_injected_kernel_fault_demotes_decision_exactly():
     assert all(k.endswith(".torch.demoted") for k in demoted)
 
 
-def test_unported_options_raise():
+def test_unported_options_raise(monkeypatch):
     dags = make_workload("production", 1, seed=0)
-    with pytest.raises(NotImplementedError, match="build service"):
-        run_workload(dags, "dagps", n_machines=4, build_workers=2,
-                     device="cpu")
+    # build workers are ported (core/buildsvc.py, held against the
+    # reference in test_torch_buildsvc.py): they no longer raise
+    monkeypatch.setenv("REPRO_BUILD_MODE", "thread")
+    clear_schedule_cache()
+    serial = run_workload(dags, "dagps", n_machines=4, device="cpu")
+    clear_schedule_cache()
+    par = run_workload(dags, "dagps", n_machines=4, build_workers=2,
+                       device="cpu")
+    assert _decisions(par) == _decisions(serial)
     job = TPUJob("j", "arch", [dict(seconds=10.0)])
     with pytest.raises(NotImplementedError, match="svc"):
         schedule_cluster([job], n_slices=4, serve=True, device="cpu")
