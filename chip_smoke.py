@@ -39,7 +39,18 @@ per source, all started together.  Phases, each printing its own lines:
      with the batched one, each run making the serial run's decisions, no
      build retried, crashed, quarantined or built inline; the workers'
      CUDA contexts (start-up, memory) and their scan calls
-     (``scripts/buildsvc_workers.py``);
+     (``scripts/buildsvc_workers.py``); then the scheduler service:
+     ``run_service_workload`` of 12 online-mix jobs on 256 machines
+     against ``ClusterSim(speculate=False)`` on the card and against its
+     all-numpy twin (``REPRO_KERNELS=all=numpy``; the same grants, JCTs
+     and makespan by ``repr``; its pumps, agent polls, launches and the
+     card ops' share of its wall), the tcp deployment shape (a serving
+     thread, 16 wall-clock agents; every scan and wave launch on the
+     serving thread) and the reference's chaos plan against its all-numpy
+     twin (every task placed exactly once, leases reclaimed, messages
+     retransmitted; placements and fault_stats equal); in each service
+     path a sample of the scan and wave launches, inputs and outputs as
+     the path gave them, held bitwise against the plain versions;
   4. the same population in routed mode against its numpy-pinned twin, in
      one shard and in four of 512 machines (``REPRO_SHARD_MACHINES=512``),
      and in exact mode in four shards with the numpy wave
@@ -1291,6 +1302,412 @@ def jit_path(dags, summary: dict) -> None:
 
 
 # ----------------------------------------------------------------------
+# phase 3, continued: the scheduler service (svc/)
+# ----------------------------------------------------------------------
+
+#: path:service: the service's cost is its Python control plane (every
+#: pump polls every agent; heartbeats bring about M x makespan / period
+#: pumps), about M^2 in all, so it runs at 256 machines, not 2048
+SVC_JOBS, SVC_MACHINES = 12, 256
+#: path:service-tcp: wall-clock agents on real sockets, and the bound on
+#: the wait for their jobs
+SVC_TCP_AGENTS, SVC_TCP_JOBS, SVC_TCP_DEADLINE_S = 16, 4, 180.0
+#: path:service-chaos: tests/test_service.py's chaos plan and workload
+SVC_CHAOS_MACHINES = 10
+SVC_CHAOS_PLAN = ("seed=5;comm_send:drop@0.08;comm_send:dup@0.08;"
+                  "comm_send:delay@0.05,delay=0.5;"
+                  "agent:crash@1.0,machine=3,count=1;"
+                  "agent:partition@0.03,delay=4.0;heartbeat:drop@0.08")
+
+
+class LaunchThreads:
+    """The placement-scan library's launch counts, also by the name of the
+    launching thread, for the duration of the block (``kernel._count``
+    still adds one to ``LAUNCHES`` per launch)."""
+
+    def __init__(self, kernel):
+        self.kernel, self.by_thread = kernel, {}
+
+    def __enter__(self):
+        import threading
+
+        count = self._count = self.kernel._count
+
+        def counted(name):
+            key = (threading.current_thread().name, name)
+            self.by_thread[key] = self.by_thread.get(key, 0) + 1
+            count(name)
+        self.kernel._count = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.kernel._count = self._count
+
+    def of(self, thread: str) -> dict:
+        return {k: n for (t, k), n in self.by_thread.items() if t == thread}
+
+
+#: which of a path's launches `HeldLaunches` keeps, per op: the first
+#: ``first``, then every ``every``-th, at most ``cap`` in all
+HELD = {"scan": dict(first=8, every=64, cap=48),
+        "wave": dict(first=8, every=16, cap=32)}
+
+
+class HeldLaunches:
+    """A sample of the scan and wave launches made in the block, each with
+    the inputs the path gave it and the outputs it returned (copies), for
+    `hold` to check against the plain versions afterwards: the kernels at
+    the shapes and on the data of the service paths, whichever thread
+    launched them."""
+
+    def __init__(self, kernel):
+        import threading
+
+        self.kernel, self.lock = kernel, threading.Lock()
+        self.seen = {"scan": 0, "wave": 0}
+        self.taken = {"scan": 0, "wave": 0}
+        self.kept: dict = {"scan": [], "wave": []}
+
+    def _keep(self, op: str) -> bool:
+        rule = HELD[op]
+        with self.lock:
+            i = self.seen[op]
+            self.seen[op] += 1
+            if (i < rule["first"] or i % rule["every"] == 0) \
+                    and self.taken[op] < rule["cap"]:
+                self.taken[op] += 1
+                return True
+        return False
+
+    def _add(self, op: str, rec) -> None:
+        with self.lock:
+            self.kept[op].append(rec)
+
+    def __enter__(self):
+        import numpy as np
+
+        scan, wave = self.scan, self.wave = (self.kernel.scan_call,
+                                             self.kernel.match_wave_walk)
+
+        def scan_call(avail, plo, L, Vs, ks, W, reverse=False, **kw):
+            out = scan(avail, plo, L, Vs, ks, W, reverse, **kw)
+            if self._keep("scan"):
+                self._add("scan", (
+                    np.array(avail[:, plo:plo + L], np.float32),
+                    np.array(Vs, np.float32), np.array(ks, np.int32),
+                    int(W), bool(reverse), out.copy()))
+            return out
+
+        def match_wave_walk(*args, **kw):
+            out = wave(*args, **kw)
+            if self._keep("wave"):
+                self._add("wave", ([a.clone() for a in args], dict(kw),
+                                   [o.clone() for o in out]))
+            return out
+        self.kernel.scan_call = scan_call
+        self.kernel.match_wave_walk = match_wave_walk
+        return self
+
+    def __exit__(self, *exc):
+        self.kernel.scan_call = self.scan
+        self.kernel.match_wave_walk = self.wave
+
+    def hold(self, label: str) -> dict:
+        """Every kept launch against the plain version on the card,
+        bitwise: the scan's over its live window padded as the plain
+        route pads it (``kernels._scan_on``), the wave's on the very
+        tensors it was given."""
+        import numpy as np
+        import torch
+
+        from repro_torch.kernels.placement_scan import ref
+
+        dev = torch.device("cuda")
+        check(self.taken == {op: len(v) for op, v in self.kept.items()},
+              f"{label}: a kept launch was not recorded")
+        for win, Vs, ks, W, reverse, got in self.kept["scan"]:
+            m, L, d = win.shape
+            pad = torch.full((m, max(L, W + int(ks.max())), d), -1.0,
+                             dtype=torch.float32, device=dev)
+            pad[:, :L] = torch.from_numpy(win).to(dev)
+            want = ref.scan_bitmaps(pad, torch.from_numpy(Vs).to(dev),
+                                    torch.from_numpy(ks).to(dev), L, W)
+            good = want.cpu().numpy() != 0
+            if reverse:
+                good = good[:, ::-1, :]
+            check(np.ascontiguousarray(good).reshape(len(ks), W * m)
+                  .tobytes() == got.tobytes(),
+                  f"{label}: scan launch (m={m}, W={W}, L={L}, g={len(ks)})"
+                  " != plain version")
+        shapes = set()
+        for args, kw, got in self.kept["wave"]:
+            want = ref.match_wave_walk(*args, **kw)
+            m, n = args[0].shape[0], args[2].shape[0]
+            shapes.add((m, n))
+            for a, b in zip(got, want):
+                check(a.cpu().numpy().tobytes() == b.cpu().numpy().tobytes(),
+                      f"{label}: wave launch (m={m}, n={n}) != plain "
+                      "version")
+        return dict(held_scans=len(self.kept["scan"]),
+                    held_waves=len(self.kept["wave"]),
+                    held_wave_machines=sorted({m for m, _ in shapes}),
+                    held_wave_max_n=max((n for _, n in shapes), default=0))
+
+
+def pinned_numpy(run):
+    """``run()`` with every op pinned to numpy (``REPRO_KERNELS=all=numpy``)
+    and the schedule cache cleared, so that its builds scan with numpy too;
+    checks that no op dispatched to the card or to torch."""
+    from repro_torch.core.engine import kernels as K
+    from repro_torch.sim import clear_schedule_cache
+
+    clear_schedule_cache()
+    K.reset_profile()
+    os.environ[K.KERNELS_ENV] = "all=numpy"
+    t0 = time.perf_counter()
+    try:
+        res = run()
+    finally:
+        os.environ.pop(K.KERNELS_ENV, None)
+    wall = time.perf_counter() - t0
+    prof = K.profile_snapshot()
+    check(not any(k.split(".")[1] in ("cuda", "torch") for k in prof
+                  if k.count(".") >= 1),
+          "the numpy-pinned twin dispatched a kernel")
+    check(prof.get("scan.numpy", (0, 0.0))[0] > 0
+          and prof.get("match_wave.numpy", (0, 0.0))[0] > 0,
+          "the numpy-pinned twin built or waved nothing")
+    return res, wall
+
+
+def same_decisions(label: str, a, b, what: str) -> None:
+    """Two runs' grants, JCTs and makespan equal by ``repr``."""
+    check(a.placements == b.placements,
+          f"{label}: placements differ from the {what}'s")
+    check(sorted((j.job_id, repr(j.jct)) for j in a.jobs)
+          == sorted((j.job_id, repr(j.jct)) for j in b.jobs),
+          f"{label}: JCTs differ from the {what}'s")
+    check(repr(a.makespan) == repr(b.makespan),
+          f"{label}: makespan differs from the {what}'s")
+
+
+def service_path(summary: dict) -> dict:
+    """``path:service``: `run_service_workload` (an inproc service, one
+    virtual agent per machine, virtual time) of 12 online-mix jobs on 256
+    machines on the card, against ``ClusterSim(speculate=False)`` of the
+    same arrivals on the card and against its all-numpy twin: the same
+    grants, JCTs and makespan by ``repr``, every task placed once, no
+    lease reclaimed; a sample of the service's scan and wave launches held
+    against the plain versions.  Its pumps and agent polls, the scan's and
+    the wave's launches and dispatch seconds inside the service run, and
+    the walls (``scripts/service_profile.py``'s `measure`)."""
+    from repro_torch.kernels.placement_scan import kernel
+    from scripts import service_profile
+
+    held = HeldLaunches(kernel)
+    m = service_profile.measure("cuda", SVC_MACHINES, SVC_JOBS,
+                                around=lambda: held)
+    svc, sim, wall, sim_wall = m["svc"], m["sim"], m["wall_s"], m["sim_wall_s"]
+    arrivals, launches, prof = m["arrivals"], m["launches"], m["ops"]
+    for name in ("scan_bitmaps", "match_wave_walk"):
+        check(launches[name] > 0, f"service: {name} never launched")
+    check(len(svc.jobs) == SVC_JOBS,
+          f"service: {len(svc.jobs)} of {SVC_JOBS} jobs completed")
+    same_decisions("service", svc, sim, "simulator")
+    twin, twin_wall = pinned_numpy(lambda: service_profile.simulate(
+        arrivals, "cuda", SVC_MACHINES))
+    same_decisions("service", svc, twin, "all-numpy simulator")
+    kept = held.hold("service")
+    check(all(v == 1 for v in svc.effective.values())
+          and len(svc.effective) == sum(a[1].n for a in arrivals),
+          "service: a task was not placed exactly once")
+    fs = svc.fault_stats
+    check(fs["service"]["lease_reclaims"] == 0,
+          "service: a lease was reclaimed on a healthy run")
+    scan = prof.get("scan.cuda", (0, 0.0))
+    wave = prof.get("match_wave.cuda", (0, 0.0))
+    check(not any(k.endswith(".demoted") for k in prof), "service: demotion")
+    check(not any(k.split(".")[1] in ("numpy", "torch") for k in prof
+                  if k.startswith(("scan.", "match_wave."))),
+          "service: a scan or wave ran off the card")
+    card_s = scan[1] + wave[1]
+    say("path:service", machines=SVC_MACHINES, jobs=SVC_JOBS,
+        identical_to_sim=True, identical_to_numpy_sim=True,
+        wall_s=round(wall, 3), sim_wall_s=round(sim_wall, 3),
+        numpy_sim_wall_s=round(twin_wall, 3),
+        wall_over_sim=round(wall / sim_wall, 3), pumps=m["pumps"],
+        agent_polls=m["agent_polls"],
+        scan_launches=launches["scan_bitmaps"],
+        wave_launches=launches["match_wave_walk"],
+        scan_calls=scan[0], scan_cuda_s=round(scan[1], 4),
+        wave_calls=wave[0], match_wave_cuda_s=round(wave[1], 4),
+        card_ops_share=round(card_s / wall, 4),
+        host_s=round(wall - card_s, 3),
+        placements=len(svc.placements),
+        beats=fs["heartbeat"]["beats"], comm_sent=fs["comm"]["sent"],
+        makespan=repr(svc.makespan), **kept)
+    summary["service"] = dict(
+        machines=SVC_MACHINES, jobs=SVC_JOBS, wall_s=wall,
+        sim_wall_s=sim_wall, numpy_sim_wall_s=twin_wall, held=kept,
+        pumps=m["pumps"], agent_polls=m["agent_polls"],
+        launches=launches, profile={k: list(v) for k, v in prof.items()},
+        fault_stats=fs, makespan=repr(svc.makespan),
+        jcts={str(j.job_id): repr(j.jct) for j in svc.jobs})
+    return launches
+
+
+def service_tcp_path(summary: dict) -> dict:
+    """``path:service-tcp``: the deployment shape on the card.  The
+    scheduler served from its own thread on a tcp listener, 16 wall-clock
+    `Agent` threads (period 0.2 s, leases compressed by 0.0005), a `Client`
+    submitting 4 production jobs: every job done within the deadline, every
+    task placed once, the stats fetched over the wire, the scan's and the
+    wave's launches made by the serving thread, and a sample of them held
+    against the plain versions."""
+    from repro_torch.core import FaultPlan, faults
+    from repro_torch.kernels.placement_scan import kernel
+    from repro_torch.sim import make_workload
+    from repro_torch.sim.cluster import scheme
+    from repro_torch.svc import Client, ServiceConfig, connect
+    from repro_torch.svc.agent import Agent
+    from repro_torch.svc.scheduler import SchedulerCore, SchedulerService
+
+    dags = make_workload("production", SVC_TCP_JOBS, seed=21)
+    n_tasks = sum(d.n for d in dags)
+    kernel.reset_launches()
+    with faults.scope(FaultPlan()), LaunchThreads(kernel) as threads, \
+            HeldLaunches(kernel) as held:
+        core = SchedulerCore(ServiceConfig(
+            n_machines=SVC_TCP_AGENTS, seed=0, heartbeat_period=0.2,
+            groups=(0,), device="cuda"), scheme("dagps"))
+        svc = SchedulerService(core, "tcp://127.0.0.1:0")
+        agents, client = [], None
+        t0 = time.perf_counter()
+        try:
+            svc.serve_in_thread(poll_interval=0.005)
+            for m in range(SVC_TCP_AGENTS):
+                agents.append(Agent(svc.addr, m, period=0.2,
+                                    time_scale=0.0005))
+                agents[-1].start()
+            client = Client(connect(svc.addr))
+            handles = [client.submit(dag, t=0.0) for dag in dags]
+            deadline = time.monotonic() + SVC_TCP_DEADLINE_S
+            while client.pending and time.monotonic() < deadline:
+                client.poll()
+                time.sleep(0.01)
+            wall = time.perf_counter() - t0
+            check(client.pending == 0,
+                  f"service-tcp: {client.pending} of {len(dags)} jobs not "
+                  f"done within {SVC_TCP_DEADLINE_S} s")
+            fs = client.stats(timeout=30.0)["fault_stats"]
+        finally:
+            for ag in agents:
+                ag.stop()
+            if client is not None:
+                client.ch.close()
+            svc.close()
+    launches = kernel.launch_counts()
+    serving = threads.of("repro-sched")
+    check(all(h.result is not None for h in handles),
+          "service-tcp: a job has no result")
+    check(fs["service"]["completions"] == n_tasks,
+          f"service-tcp: {fs['service']['completions']} of {n_tasks} tasks "
+          "completed (stats over the wire)")
+    check(all(v == 1 for v in core.effective.values())
+          and len(core.effective) == n_tasks,
+          "service-tcp: a task was not placed exactly once")
+    for name in ("scan_bitmaps", "match_wave_walk"):
+        check(serving.get(name, 0) > 0,
+              f"service-tcp: the serving thread launched no {name}")
+    check(serving == {k: v for k, v in launches.items() if v},
+          f"service-tcp: launches off the serving thread: "
+          f"{threads.by_thread}")
+    kept = held.hold("service-tcp")
+    say("path:service-tcp", agents=SVC_TCP_AGENTS, jobs=len(dags),
+        tasks=n_tasks, deadline_s=SVC_TCP_DEADLINE_S, wall_s=round(wall, 3),
+        scan_launches_serving_thread=serving.get("scan_bitmaps", 0),
+        wave_launches_serving_thread=serving.get("match_wave_walk", 0),
+        beats=fs["heartbeat"]["beats"], suspects=fs["heartbeat"]["suspects"],
+        lease_reclaims=fs["service"]["lease_reclaims"],
+        comm_sent=fs["comm"]["sent"], retransmits=fs["comm"]["retransmits"],
+        **kept)
+    summary["service_tcp"] = dict(wall_s=wall, launches=launches, held=kept,
+                                  by_thread={f"{t}:{k}": n for (t, k), n in
+                                             threads.by_thread.items()},
+                                  fault_stats=fs)
+    return launches
+
+
+def service_chaos_path(summary: dict) -> dict:
+    """``path:service-chaos``: tests/test_service.py's chaos plan (drops,
+    dups, delays, an agent crash, partitions, lost beats) over its
+    workload, 10 machines, on the card: every job done, every task placed
+    exactly once, leases reclaimed and messages retransmitted; the same
+    plan's all-numpy twin (virtual time makes the run deterministic) makes
+    the same placements and fault_stats; a sample of the launches held
+    against the plain versions."""
+    from repro_torch.kernels.placement_scan import kernel
+    from repro_torch.sim import make_workload
+    from repro_torch.sim.cluster import scheme
+    from repro_torch.svc import ServiceConfig, run_service_workload
+    from scripts.service_profile import arrivals as make_arrivals
+
+    arrivals = make_arrivals(make_workload("production", 5, seed=5),
+                             20.0, 1, 1)
+    n_tasks = sum(a[1].n for a in arrivals)
+
+    def run():
+        return run_service_workload(
+            arrivals, ServiceConfig(n_machines=SVC_CHAOS_MACHINES, seed=0,
+                                    device="cuda"),
+            scheme("dagps"), fault_plan=SVC_CHAOS_PLAN)
+
+    kernel.reset_launches()
+    with HeldLaunches(kernel) as held:
+        t0 = time.perf_counter()
+        res = run()
+        wall = time.perf_counter() - t0
+    launches = kernel.launch_counts()
+    twin, twin_wall = pinned_numpy(run)
+    same_decisions("service-chaos", res, twin, "all-numpy twin")
+    check(res.effective == twin.effective
+          and res.fault_stats == twin.fault_stats,
+          "service-chaos: effective placements or fault_stats differ from "
+          "the all-numpy twin's")
+    kept = held.hold("service-chaos")
+    fs = res.fault_stats
+    check(len(res.jobs) == len(arrivals),
+          f"service-chaos: {len(res.jobs)} of {len(arrivals)} jobs done")
+    check(len(res.effective) == n_tasks
+          and all(v == 1 for v in res.effective.values()),
+          "service-chaos: a task was not placed exactly once")
+    check(fs["service"]["completions"] == n_tasks,
+          "service-chaos: completions differ from the task count")
+    check(fs["service"]["lease_reclaims"] > 0,
+          "service-chaos: no lease was reclaimed")
+    check(fs["comm"]["retransmits"] > 0,
+          "service-chaos: nothing was retransmitted")
+    for name in ("scan_bitmaps", "match_wave_walk"):
+        check(launches[name] > 0, f"service-chaos: {name} never launched")
+    say("path:service-chaos", machines=SVC_CHAOS_MACHINES,
+        jobs=len(res.jobs), tasks=n_tasks, wall_s=round(wall, 3),
+        exactly_once=True, lease_reclaims=fs["service"]["lease_reclaims"],
+        stale_done=fs["service"]["stale_done"],
+        losses=fs["heartbeat"]["losses"], rejoins=fs["heartbeat"]["rejoins"],
+        retransmits=fs["comm"]["retransmits"], dropped=fs["comm"]["dropped"],
+        duped=fs["comm"]["duped"], delayed=fs["comm"]["delayed"],
+        scan_launches=launches["scan_bitmaps"],
+        wave_launches=launches["match_wave_walk"],
+        makespan=repr(res.makespan), identical_to_numpy=True,
+        numpy_wall_s=round(twin_wall, 3), **kept)
+    summary["service_chaos"] = dict(wall_s=wall, launches=launches,
+                                    numpy_wall_s=twin_wall, held=kept,
+                                    fault_stats=fs,
+                                    makespan=repr(res.makespan))
+    return launches
+
+
+# ----------------------------------------------------------------------
 # phase 5: the LM kernels against their plain versions
 # ----------------------------------------------------------------------
 
@@ -1949,6 +2366,10 @@ def main() -> int:
     # run in worker processes or on the resident route: not counted below)
     build_workers_path(dags, summary)
     jit_path(dags, summary)
+    # phase 3, continued: the scheduler service, each path with the launch
+    # counts set to 0 just before it and read just after
+    path_launches += [service_path(summary), service_tcp_path(summary),
+                      service_chaos_path(summary)]
     launches = {k: sum(p[k] for p in path_launches)
                 for k in path_launches[0]}
     # the scan's line reports the case the path launched most often

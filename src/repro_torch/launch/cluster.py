@@ -123,9 +123,17 @@ def schedule_cluster(jobs: list[TPUJob], n_slices: int = 32,
     ``fault_stats`` and ``mutation_stats`` report what fired and how much
     of the previous placements each repair replayed.
 
-    ``serve=True`` (the scheduler service) raises NotImplementedError
-    until ``svc/`` is ported.  ``device`` is where the kernel ops run:
-    "cuda" (the default; raises without a card) or "cpu".
+    ``serve=True`` routes the same workload through the scheduler
+    *service* instead of the simulator: a `svc.SchedulerService` plus one
+    agent per slice over inproc comms, driven in virtual time
+    (`svc.run_service_workload`).  Healthy runs produce placements and
+    JCTs bit-identical to the simulator path with ``speculate=False``
+    (the service places by lease, never speculatively); with a
+    ``fault_plan`` touching the ``comm_send``/``agent`` seams the run
+    exercises the lease-reclaim/exactly-once machinery instead.
+
+    ``device`` is where the kernel ops run, on either path: "cuda" (the
+    default; raises without a card) or "cpu".
     """
     rng = np.random.default_rng(seed)
     arrivals = []
@@ -134,9 +142,24 @@ def schedule_cluster(jobs: list[TPUJob], n_slices: int = 32,
         arrivals.append((t, j.to_dag(), j.group))
         t += float(rng.exponential(interarrival))
     if serve:
-        raise NotImplementedError(
-            "serve=True needs the scheduler service (svc/), which a later "
-            "slice of the port brings")
+        if mutations:
+            raise ValueError("serve=True does not support scripted "
+                             "mutations (simulator-only for now)")
+        if matcher_mode != "exact":
+            raise ValueError("serve=True supports matcher_mode='exact' only")
+        from ..svc import ServiceConfig, run_service_workload
+        scfg = ServiceConfig(n_machines=n_slices, seed=seed,
+                             build_machines=max(n_slices // 8, 2),
+                             placement_backend=placement_backend,
+                             build_workers=build_workers,
+                             matcher_shards=matcher_shards,
+                             heartbeat_period=heartbeat_period or 1.0,
+                             hb_suspect_after=hb_suspect_after,
+                             hb_lost_after=hb_lost_after,
+                             recovery=recovery,
+                             device=device)
+        return run_service_workload(arrivals, scfg, scheme(policy),
+                                    fault_plan=fault_plan)
     cfg = SimConfig(n_machines=n_slices, seed=seed,
                     build_machines=max(n_slices // 8, 2),
                     placement_backend=placement_backend,

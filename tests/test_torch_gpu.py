@@ -14,7 +14,8 @@ call, staged with its rounding on the card, against the host-rounded plain
 version, on an edge corpus and from four threads at once; the scan call
 from four threads; the jit backend's resident scan under mutation, read
 after later commits; the build service's workers on the card; the
-explicit-only ops' cuda impls); the flash kernel's two wgmma layouts alone
+explicit-only ops' cuda impls; the scheduler service against the
+simulator and from its serving thread); the flash kernel's two wgmma layouts alone
 against torch in float32 (``wgmma_probe``); flash attention within 2e-5 (f32) and 2e-2
 (bf16), the tolerances of ``tests/test_kernels.py`` (it sums in another
 order, and its bf16 variant rounds the softmax weights to bf16 for the
@@ -661,6 +662,110 @@ def test_build_worker_without_the_card_fails_its_build(kernel, monkeypatch):
         with pytest.raises(RuntimeError, match="cuda"):
             svc.submit(dag, 3, ticks=96).result(120)
     assert svc.stats["retries"] == svc.stats["inline_fallbacks"] == 0
+
+
+def _parity_arrivals():
+    """tests/test_service.py's parity workload: 6 production jobs, seed 3,
+    interarrival 25, groups i % 2."""
+    from repro_torch.sim import make_workload
+
+    rng = np.random.default_rng(0)
+    arrivals, t = [], 0.0
+    for i, dag in enumerate(make_workload("production", 6, seed=3)):
+        arrivals.append((t, dag, i % 2))
+        t += float(rng.exponential(25.0))
+    return arrivals
+
+
+def test_service_on_cuda_matches_simulator(kernel):
+    """The scheduler service on the card equals ``ClusterSim(speculate=
+    False)`` on the card grant for grant, and the committed golden by
+    ``repr``; its builds and waves launched the scan and wave kernels."""
+    import json
+    import os
+
+    from repro_torch.core import FaultPlan
+    from repro_torch.sim.cluster import ClusterSim, SimConfig, scheme
+    from repro_torch.svc import ServiceConfig, run_service_workload
+
+    arrivals = _parity_arrivals()
+    kernel.reset_launches()
+    svc = run_service_workload(arrivals, ServiceConfig(n_machines=12, seed=0),
+                               scheme("dagps"), fault_plan=FaultPlan())
+    launches = kernel.launch_counts()
+    assert launches["scan_bitmaps"] > 0 and launches["match_wave_walk"] > 0
+    sim = ClusterSim(SimConfig(n_machines=12, seed=0, speculate=False,
+                               record_placements=True, fault_plan=FaultPlan(),
+                               device="cuda"),
+                     scheme("dagps")).run(arrivals)
+    assert svc.placements == sim.placements
+    assert sorted((j.job_id, repr(j.jct)) for j in svc.jobs) == \
+        sorted((j.job_id, repr(j.jct)) for j in sim.jobs)
+    assert repr(svc.makespan) == repr(sim.makespan)
+    assert all(v == 1 for v in svc.effective.values())
+    with open(os.path.join(os.path.dirname(__file__), "data",
+                           "golden_service.json")) as f:
+        golden = json.load(f)
+    assert repr(svc.makespan) == golden["makespan"]
+    assert [[repr(t), j, tk_, m] for t, j, tk_, m in svc.placements] == \
+        golden["placements"]
+
+
+def test_tcp_service_launches_from_its_serving_thread(kernel, monkeypatch):
+    """The wall-clock service over tcp (4 agent threads, a client): every
+    scan and wave launch of the run comes from the serving thread, whose
+    pumps reach the card through the core's own device."""
+    import threading
+    import time
+
+    from repro_torch.core import FaultPlan, faults
+    from repro_torch.sim import make_workload
+    from repro_torch.sim.cluster import scheme
+    from repro_torch.svc import Client, ServiceConfig, connect
+    from repro_torch.svc.agent import Agent
+    from repro_torch.svc.scheduler import SchedulerCore, SchedulerService
+
+    by_thread: dict = {}
+    count = kernel._count
+
+    def counted(name):
+        key = (threading.current_thread().name, name)
+        by_thread[key] = by_thread.get(key, 0) + 1
+        count(name)
+
+    monkeypatch.setattr(kernel, "_count", counted)
+    with faults.scope(FaultPlan()):
+        core = SchedulerCore(ServiceConfig(n_machines=4, seed=0,
+                                           heartbeat_period=0.2),
+                             scheme("dagps"))
+        svc = SchedulerService(core, "tcp://127.0.0.1:0")
+        agents, client = [], None
+        try:
+            svc.serve_in_thread(poll_interval=0.005)
+            for m in range(4):
+                agents.append(Agent(svc.addr, m, period=0.2,
+                                    time_scale=0.0005))
+                agents[-1].start()
+            client = Client(connect(svc.addr))
+            dags = make_workload("production", 2, seed=21)
+            for dag in dags:
+                client.submit(dag, t=0.0)
+            deadline = time.monotonic() + 120.0
+            while client.pending and time.monotonic() < deadline:
+                client.poll()
+                time.sleep(0.01)
+            assert client.pending == 0, "jobs did not complete over tcp"
+            fs = client.stats(timeout=10.0)["fault_stats"]
+            assert fs["service"]["completions"] == sum(d.n for d in dags)
+        finally:
+            for ag in agents:
+                ag.stop()
+            if client is not None:
+                client.ch.close()
+            svc.close()
+    assert by_thread.get(("repro-sched", "scan_bitmaps"), 0) > 0
+    assert by_thread.get(("repro-sched", "match_wave_walk"), 0) > 0
+    assert {t for t, _ in by_thread} == {"repro-sched"}
 
 
 def test_explicit_only_ops_on_the_card(kernel):

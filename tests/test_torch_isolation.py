@@ -1,9 +1,9 @@
 """The port stands alone and never runs on the CPU unasked.
 
-  * No module under ``src/repro_torch/``, not ``chip_smoke.py`` and no
-    script under ``scripts/`` (they run on the card's machine, which has no
-    JAX) imports jax or anything of the reference package ``repro`` (an
-    AST scan).
+  * No module under ``src/repro_torch/``, not ``chip_smoke.py``, no
+    script under ``scripts/`` and no ``examples/torch_*.py`` (they run on
+    the card's machine, which has no JAX) imports jax or anything of the
+    reference package ``repro`` (an AST scan).
   * ``device="cuda"`` without a CUDA device raises at every entry point,
     and ``chip_smoke.py`` exits non-zero without printing a result, both
     here and from a directory that holds nothing else of the repository.
@@ -29,6 +29,11 @@ def _sources():
     scripts = os.path.join(ROOT, "scripts")
     out += [os.path.join(scripts, f) for f in os.listdir(scripts)
             if f.endswith(".py")]
+    examples = os.path.join(ROOT, "examples")
+    twins = [os.path.join(examples, f) for f in os.listdir(examples)
+             if f.startswith("torch_") and f.endswith(".py")]
+    assert len(twins) >= 2, "the scan found no example twins"
+    out += twins
     for base, _dirs, files in os.walk(PORT):
         out += [os.path.join(base, f) for f in files if f.endswith(".py")]
     return sorted(out)
@@ -64,6 +69,8 @@ def test_cuda_without_a_card_raises_at_every_entry_point():
     from repro_torch.launch import TPUJob, schedule_cluster
     from repro_torch.sim import ClusterSim, SimConfig, make_workload, \
         run_workload, scheme
+    from repro_torch.svc import SchedulerCore, ServiceConfig, \
+        run_service_workload
 
     dag = make_workload("tpch", 1, seed=0)[0]
     with pytest.raises(RuntimeError, match="cuda"):
@@ -74,6 +81,16 @@ def test_cuda_without_a_card_raises_at_every_entry_point():
         ClusterSim(SimConfig(n_machines=4), scheme("tez")).run([(0.0, dag, 0)])
     with pytest.raises(RuntimeError, match="cuda"):
         schedule_cluster([TPUJob("j", "a", [dict(seconds=5.0)])], n_slices=4)
+    # the scheduler service: its config defaults to the card too
+    assert ServiceConfig().device == "cuda"
+    with pytest.raises(RuntimeError, match="cuda"):
+        run_service_workload([(0.0, dag, 0)], ServiceConfig(n_machines=4),
+                             scheme("dagps"))
+    with pytest.raises(RuntimeError, match="cuda"):
+        SchedulerCore(ServiceConfig(n_machines=4), scheme("dagps"))
+    with pytest.raises(RuntimeError, match="cuda"):
+        schedule_cluster([TPUJob("j", "a", [dict(seconds=5.0)])], n_slices=4,
+                         serve=True)
 
 
 def test_cuda_without_a_card_raises_at_the_lm_entry_points():

@@ -200,7 +200,13 @@ def test_unported_options_raise(monkeypatch):
                        device="cpu")
     assert _decisions(par) == _decisions(serial)
     job = TPUJob("j", "arch", [dict(seconds=10.0)])
-    with pytest.raises(NotImplementedError, match="svc"):
-        schedule_cluster([job], n_slices=4, serve=True, device="cpu")
+    # the service is ported too (svc/, held against the reference in
+    # test_torch_svc.py): serve=True no longer raises; it makes the
+    # non-speculative simulator's decisions
+    served = schedule_cluster([job], n_slices=4, serve=True, device="cpu")
+    plain = schedule_cluster([job], n_slices=4, speculate=False,
+                             device="cpu")
+    assert [repr(j.jct) for j in served.jobs] == \
+        [repr(j.jct) for j in plain.jobs]
     res = schedule_cluster([job], n_slices=4, device="cpu")
     assert len(res.jobs) == 1
