@@ -2,35 +2,39 @@
 
 Each module defines ``full()`` (the published hyperparameters) and
 ``smoke()`` (a tiny same-family config), with the reference's values.
-Only the architectures whose mixers and ffns the port runs are listed;
-asking for another raises.
+``SHAPES`` names the reference's input-shape cells and `cells()`
+enumerates its dry-run grid with the long_500k skip rule applied.
 """
 
 from __future__ import annotations
 
 import importlib
 
-ARCH_IDS = ["recurrentgemma_2b", "rwkv6_7b"]
+ARCH_IDS = [
+    "deepseek_moe_16b",
+    "mixtral_8x7b",
+    "qwen2_vl_7b",
+    "rwkv6_7b",
+    "gemma2_2b",
+    "codeqwen15_7b",
+    "granite3_8b",
+    "phi4_mini_3_8b",
+    "recurrentgemma_2b",
+    "musicgen_large",
+]
 
-#: reference architectures still to come, and the slice that brings each
-LATER = {
-    "deepseek_moe_16b": "the MoE slice",
-    "mixtral_8x7b": "the MoE slice",
-    "qwen2_vl_7b": "the M-RoPE / vision slice",
-    "musicgen_large": "the audio slice (sinusoidal positions, codebooks)",
-    "gemma2_2b": "a dense-model slice",
-    "codeqwen15_7b": "a dense-model slice",
-    "granite3_8b": "a dense-model slice",
-    "phi4_mini_3_8b": "a dense-model slice",
+# the reference's shape cells: (name, seq_len, global_batch, kind)
+SHAPES = {
+    "train_4k":    dict(seq=4096,    batch=256, kind="train"),
+    "prefill_32k": dict(seq=32768,   batch=32,  kind="prefill"),
+    "decode_32k":  dict(seq=32768,   batch=128, kind="decode"),
+    "long_500k":   dict(seq=524288,  batch=1,   kind="decode"),
 }
 
 
 def _mod(arch_id: str):
     key = arch_id.replace("-", "_")
     if key not in ARCH_IDS:
-        if key in LATER:
-            raise NotImplementedError(f"{arch_id} is not ported yet: it "
-                                      f"comes with {LATER[key]}")
         raise KeyError(f"unknown architecture {arch_id!r}; have {ARCH_IDS}")
     return importlib.import_module(f".{key}", __package__)
 
@@ -41,3 +45,16 @@ def get(arch_id: str):
 
 def get_smoke(arch_id: str):
     return _mod(arch_id).smoke()
+
+
+def cells() -> list[tuple[str, str]]:
+    """All (arch, shape) dry-run cells, honoring the long_500k skip rule:
+    only a sub-quadratic architecture decodes at 500k."""
+    out = []
+    for a in ARCH_IDS:
+        cfg = get(a)
+        for s in SHAPES:
+            if s == "long_500k" and not cfg.subquadratic:
+                continue  # pure full-attention arch
+            out.append((a, s))
+    return out

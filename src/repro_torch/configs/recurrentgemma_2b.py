@@ -16,7 +16,7 @@ def full() -> ArchConfig:
         rglru_width=2560, conv_width=4,
         norm_plus_one=True, mlp_kind="geglu", embed_scale=True,
         logit_cap=30.0,
-        tie_embeddings=True,
+        tie_embeddings=True, subquadratic=True,
     )
 
 
@@ -29,5 +29,5 @@ def smoke() -> ArchConfig:
         rglru_width=64, conv_width=4,
         norm_plus_one=True, mlp_kind="geglu", embed_scale=True,
         logit_cap=30.0,
-        tie_embeddings=True,
+        tie_embeddings=True, subquadratic=True,
     )

@@ -12,7 +12,7 @@ def full() -> ArchConfig:
         n_layers=32, d_model=4096, n_heads=64, n_kv_heads=64, head_dim=64,
         d_ff=14336, vocab=65536,
         block_pattern=("rwkv",), rwkv_head_size=64,
-        pos_embedding="none", tie_embeddings=False,
+        pos_embedding="none", tie_embeddings=False, subquadratic=True,
     )
 
 
@@ -22,5 +22,5 @@ def smoke() -> ArchConfig:
         n_layers=2, d_model=64, n_heads=4, n_kv_heads=4, head_dim=16,
         d_ff=128, vocab=256,
         block_pattern=("rwkv",), rwkv_head_size=16,
-        pos_embedding="none", tie_embeddings=False,
+        pos_embedding="none", tie_embeddings=False, subquadratic=True,
     )

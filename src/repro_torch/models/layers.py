@@ -1,24 +1,27 @@
-"""Model building blocks of the recurrentgemma and rwkv6 serving paths, in
-PyTorch.
+"""Model building blocks, in PyTorch: a port of ``repro.models.layers``.
 
-Ports the parts of ``repro.models.layers`` that recurrentgemma-2b and
-rwkv6-7b run: RMSNorm (gemma-style ``(1 + w)`` scaling), tanh soft-cap,
-RoPE (half-split rotation), GQA/MQA attention with a sliding window, the
-geglu/swiglu MLPs, the Griffin RG-LRU recurrent block, and the RWKV6
-time-mix (data-dependent decay) and channel-mix.  Every function is
-functional: params in, activations out, with the reference's parameter
-layouts (``wq (d, H, hd)``, ``wo (H, hd, d)``, ...).  Decode variants take
-and return explicit state.  The initializers take a ``torch.Generator`` and
-``device="cuda"`` by default, which raises without a card.
+Covers every sub-block of the reference's architecture pool: RMSNorm
+(gemma-style ``(1 + w)`` scaling), tanh soft-cap, RoPE (half-split
+rotation), M-RoPE (qwen2-vl) and sinusoidal positions (musicgen), GQA/MQA
+attention with a sliding window, a soft-cap and optional qkv biases, the
+swiglu/geglu/plain-GELU MLPs, the token-dropping Mixture-of-Experts with
+sort-based capacity dispatch (deepseek-moe, mixtral), the Griffin RG-LRU
+recurrent block, and the RWKV6 time-mix (data-dependent decay) and
+channel-mix.  Every function is functional: params in, activations out,
+with the reference's parameter layouts (``wq (d, H, hd)``, ``wo (H, hd,
+d)``, ``wg (E, d, f)``, ...).  Decode variants take and return explicit
+state.  The initializers take a ``torch.Generator`` and ``device="cuda"``
+by default, which raises without a card.
 
 Prefill attention goes through the flash-attention op, the RG-LRU scan
 through the rg_lru op and the WKV recurrence through the wkv6 op
 (``repro_torch.kernels``): the hand-written kernel on a CUDA tensor, the
 plain version on a CPU tensor.  Decode attention is a one-query softmax
-over the cache in plain PyTorch, as the reference keeps it outside any
-kernel.  The reference's ``logical(...)`` sharding annotations are the
-identity outside a mesh and are left out.  MoE, M-RoPE and sinusoidal
-positions come with the slices that need them.
+over the cache in plain PyTorch, and the MoE's routing, dispatch, expert
+products and combine are plain PyTorch too, as the reference keeps both
+outside any kernel.  The reference's ``logical(...)`` sharding annotations
+are the identity outside a mesh and are left out; so are its MoE
+``shard_map`` branches, which run only under a mesh (`_moe_groups`).
 """
 
 from __future__ import annotations
@@ -71,16 +74,49 @@ def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
-               theta: float = 1e4) -> torch.Tensor:
-    """x: (B, S, H, hd); positions: (B, S).  Plain RoPE, half-split."""
+               theta: float = 1e4,
+               mrope_sections: tuple[int, ...] | None = None) -> torch.Tensor:
+    """x: (B, S, H, hd); positions: (B, S), or (3, B, S) for M-RoPE.
+    Half-split rotation."""
     hd = x.shape[-1]
     freqs = rope_freqs(hd, theta, x.device)
-    angles = positions[..., None].float() * freqs          # (B, S, hd/2)
+    if mrope_sections is None:
+        angles = positions[..., None].float() * freqs      # (B, S, hd/2)
+    else:
+        # M-RoPE: the hd/2 frequency slots split into (t, h, w) sections,
+        # each driven by its own position stream (qwen2-vl)
+        if positions.dim() != 3 or positions.shape[0] != len(mrope_sections):
+            raise ValueError(f"M-RoPE takes positions ({len(mrope_sections)}"
+                             f", B, S), got {tuple(positions.shape)}")
+        parts, off = [], 0
+        for sec, pos in zip(mrope_sections, positions):
+            parts.append(pos[..., None].float() * freqs[off:off + sec])
+            off += sec
+        angles = torch.cat(parts, dim=-1)                  # (B, S, hd/2)
     cos = torch.cos(angles)[:, :, None, :]
     sin = torch.sin(angles)[:, :, None, :]
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def sinusoidal_positions(S: int, d: int, offset: int = 0,
+                         device=None) -> torch.Tensor:
+    """(S, d) float32: sin at the even columns, cos at the odd ones."""
+    pos = torch.arange(offset, offset + S, dtype=torch.float32,
+                       device=device)
+    return _sinusoid(pos, d)
+
+
+def _sinusoid(pos: torch.Tensor, d: int) -> torch.Tensor:
+    """(N, d) float32 position embedding of the float32 positions ``pos``."""
+    dim = torch.arange(0, d, 2, dtype=torch.float32, device=pos.device)
+    angle = pos[:, None] / torch.pow(10000.0, dim / d)[None, :]
+    pe = torch.zeros((pos.shape[0], d), dtype=torch.float32,
+                     device=pos.device)
+    pe[:, 0::2] = torch.sin(angle)
+    pe[:, 1::2] = torch.cos(angle)
+    return pe
 
 
 # ----------------------------------------------------------------------
@@ -108,15 +144,16 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 @dataclasses.dataclass
 class AttnConfig:
-    """The reference's AttnConfig for plain-RoPE attention without biases
-    (M-RoPE, qkv biases and unrotated positions come with their slices)."""
     d_model: int
     n_heads: int
     n_kv_heads: int
     head_dim: int
     rope_theta: float = 1e4
+    mrope_sections: tuple[int, ...] | None = None
     window: int | None = None
     cap: float | None = None
+    qkv_bias: bool = False
+    use_rope: bool = True
 
 
 def _normal(gen: torch.Generator, shape, std: float, dtype, device):
@@ -129,21 +166,28 @@ def attn_init(gen: torch.Generator, cfg: AttnConfig, dtype=torch.bfloat16,
     check_device(device)
     d, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     s = 1.0 / math.sqrt(d)
-    return {
+    p = {
         "wq": _normal(gen, (d, H, hd), s, dtype, device),
         "wk": _normal(gen, (d, KV, hd), s, dtype, device),
         "wv": _normal(gen, (d, KV, hd), s, dtype, device),
         "wo": _normal(gen, (H, hd, d), s / math.sqrt(H * hd / d), dtype,
                       device),
     }
+    if cfg.qkv_bias:
+        for name, heads in (("bq", H), ("bk", KV), ("bv", KV)):
+            p[name] = torch.zeros((heads, hd), dtype=dtype, device=device)
+    return p
 
 
 def _qkv(p: Params, x: torch.Tensor, cfg: AttnConfig, positions):
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
     k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
     v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    if cfg.qkv_bias:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    if cfg.use_rope:
+        q = apply_rope(q, positions, cfg.rope_theta, cfg.mrope_sections)
+        k = apply_rope(k, positions, cfg.rope_theta, cfg.mrope_sections)
     return q, k, v
 
 
@@ -161,6 +205,23 @@ def attn_prefill(p: Params, x: torch.Tensor, cfg: AttnConfig,
     return torch.einsum("bshk,hkd->bsd", o, p["wo"]), {"k": k, "v": v}
 
 
+def _write_slot(c: torch.Tensor, rows: torch.Tensor, slot: torch.Tensor,
+                new: torch.Tensor) -> None:
+    """c[rows, slot] = new: one (KV, hd) slot per row of a cache."""
+    c[rows, slot] = new.to(c.dtype)
+
+
+def _write_slot_or_drop(c: torch.Tensor, rows: torch.Tensor,
+                        slot: torch.Tensor, new: torch.Tensor) -> None:
+    """Like `_write_slot`, but a write past the end of the cache is dropped,
+    as the reference's scatter drops out-of-range updates (the row then
+    attends to the cache as it stands).  Only a plain cache needs it: a
+    ring's slots are taken mod its length."""
+    fits = (slot < c.shape[1])[:, None, None]
+    slot = torch.clamp(slot, max=c.shape[1] - 1)
+    c[rows, slot] = torch.where(fits, new.to(c.dtype), c[rows, slot])
+
+
 def attn_decode(p: Params, x: torch.Tensor, cfg: AttnConfig, cache: Params,
                 pos: torch.Tensor):
     """One-token decode: x (B, 1, d), cache {k, v}: (B, S, KV, hd), pos (B,).
@@ -168,16 +229,21 @@ def attn_decode(p: Params, x: torch.Tensor, cfg: AttnConfig, cache: Params,
     If the cache is no larger than the window it is a ring buffer: slots
     are recycled mod S and every slot is valid once the ring has wrapped.
     RoPE is applied at absolute positions before writing, so recycled slots
-    stay correct.  The cache is updated in place (one slot per row) and
-    returned.
+    stay correct; M-RoPE rotates all three sections at ``pos`` (the cache
+    slot, which for qwen2-vl counts the prepended patches).  The cache is
+    updated in place (one slot per row) and returned.
     """
-    q, k, v = _qkv(p, x, cfg, pos[:, None])
+    pp = pos[:, None]
+    if cfg.mrope_sections is not None:
+        pp = pp[None].expand(len(cfg.mrope_sections), *pp.shape)
+    q, k, v = _qkv(p, x, cfg, pp)
     S = cache["k"].shape[1]
     ring = cfg.window is not None and S <= cfg.window
     wpos = pos % S if ring else pos
     rows = torch.arange(cache["k"].shape[0], device=x.device)
-    cache["k"][rows, wpos] = k[:, 0].to(cache["k"].dtype)
-    cache["v"][rows, wpos] = v[:, 0].to(cache["v"].dtype)
+    write = _write_slot if ring else _write_slot_or_drop
+    for name, new in (("k", k), ("v", v)):
+        write(cache[name], rows, wpos, new[:, 0])
     kpos = torch.arange(S, device=x.device)
     H, KV = cfg.n_heads, cfg.n_kv_heads
     kf = _repeat_kv(cache["k"], H // KV)
@@ -207,14 +273,16 @@ def attn_decode(p: Params, x: torch.Tensor, cfg: AttnConfig, cache: Params,
 def mlp_init(gen: torch.Generator, d: int, f: int, kind: str = "swiglu",
              dtype=torch.bfloat16, device="cuda") -> Params:
     check_device(device)
-    if kind not in ("swiglu", "geglu"):
-        raise NotImplementedError(
-            f"mlp kind {kind!r}: the plain 2-layer MLP comes with the "
-            "musicgen slice")
     s_in, s_out = 1.0 / math.sqrt(d), 1.0 / math.sqrt(f)
-    return {"wg": _normal(gen, (d, f), s_in, dtype, device),
-            "wu": _normal(gen, (d, f), s_in, dtype, device),
-            "wd": _normal(gen, (f, d), s_out, dtype, device)}
+    if kind in ("swiglu", "geglu"):
+        return {"wg": _normal(gen, (d, f), s_in, dtype, device),
+                "wu": _normal(gen, (d, f), s_in, dtype, device),
+                "wd": _normal(gen, (f, d), s_out, dtype, device)}
+    return {  # plain 2-layer MLP (musicgen)
+        "w1": _normal(gen, (d, f), s_in, dtype, device),
+        "b1": torch.zeros((f,), dtype=dtype, device=device),
+        "w2": _normal(gen, (f, d), s_out, dtype, device),
+        "b2": torch.zeros((d,), dtype=dtype, device=device)}
 
 
 def mlp_forward(p: Params, x: torch.Tensor, kind: str = "swiglu") -> torch.Tensor:
@@ -222,9 +290,141 @@ def mlp_forward(p: Params, x: torch.Tensor, kind: str = "swiglu") -> torch.Tenso
         return (F.silu(x @ p["wg"]) * (x @ p["wu"])) @ p["wd"]
     if kind == "geglu":
         return (gelu_tanh(x @ p["wg"]) * (x @ p["wu"])) @ p["wd"]
-    raise NotImplementedError(
-        f"mlp kind {kind!r}: the plain 2-layer MLP comes with the musicgen "
-        "slice")
+    h = gelu_tanh(x @ p["w1"] + p["b1"])
+    return h @ p["w2"] + p["b2"]
+
+
+# ----------------------------------------------------------------------
+# Mixture-of-Experts with sort-based capacity dispatch
+# ----------------------------------------------------------------------
+
+@dataclasses.dataclass
+class MoEConfig:
+    n_experts: int
+    top_k: int
+    d_expert: int
+    n_shared: int = 0
+    capacity_factor: float = 1.25
+    router_mode: str = "softmax_topk"   # deepseek: softmax then topk
+                                        # mixtral: "topk_softmax"
+
+
+def moe_init(gen: torch.Generator, d: int, cfg: MoEConfig,
+             dtype=torch.bfloat16, device="cuda") -> Params:
+    """Router (float32), routed experts ``wg``/``wu`` (E, d, f) and ``wd``
+    (E, f, d), and the shared experts as one swiglu MLP of width
+    ``n_shared * d_expert``."""
+    check_device(device)
+    E, f = cfg.n_experts, cfg.d_expert
+    s_in, s_out = 1.0 / math.sqrt(d), 1.0 / math.sqrt(f)
+    p = {"router": _normal(gen, (d, E), s_in, torch.float32, device),
+         "wg": _normal(gen, (E, d, f), s_in, dtype, device),
+         "wu": _normal(gen, (E, d, f), s_in, dtype, device),
+         "wd": _normal(gen, (E, f, d), s_out, dtype, device)}
+    if cfg.n_shared:
+        p["shared"] = mlp_init(gen, d, f * cfg.n_shared, "swiglu", dtype,
+                               device)
+    return p
+
+
+def _moe_groups(B: int, S: int) -> tuple[int, int]:
+    """(batch-groups, seq-groups) of the dispatch.  The reference tiles a
+    mesh's device grid with them; outside a mesh, which is everywhere in
+    this port until it shards, both are 1."""
+    return 1, 1
+
+
+def moe_capacity(Tg: int, cfg: MoEConfig) -> int:
+    """Slots per expert for a group of Tg tokens: ceil(Tg K / E * cf)."""
+    return int(math.ceil(Tg * cfg.top_k / cfg.n_experts
+                         * cfg.capacity_factor))
+
+
+def moe_route(xg: torch.Tensor, router: torch.Tensor, cfg: MoEConfig):
+    """(g, Tg, d) tokens -> (w (g, Tg, K) float32, idx (g, Tg, K)): each
+    token's K experts and their weights.  The router's product runs in
+    float32 (TF32 on the card would move near-ties), then ``softmax_topk``
+    (softmax, top K, renormalized) or ``topk_softmax`` (top K logits,
+    softmax over them)."""
+    if xg.is_cuda and torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError("moe_route needs float32 matmuls in full "
+                           "precision: torch.backends.cuda.matmul."
+                           "allow_tf32 is True")
+    logits = torch.einsum("gtd,de->gte", xg.float(), router.float())
+    K = cfg.top_k
+    if cfg.router_mode == "softmax_topk":
+        w, idx = torch.topk(torch.softmax(logits, dim=-1), K, dim=-1)
+        w = w / torch.clamp(w.sum(-1, keepdim=True), min=1e-9)
+    elif cfg.router_mode == "topk_softmax":
+        lw, idx = torch.topk(logits, K, dim=-1)
+        w = torch.softmax(lw, dim=-1)
+    else:
+        raise ValueError(f"router_mode {cfg.router_mode!r}")
+    return w, idx
+
+
+def moe_plan(idx: torch.Tensor, w: torch.Tensor, C: int, E: int):
+    """Capacity dispatch of the routing choices ``idx``/``w`` (g, Tg, K):
+    the (token, choice) pairs sorted stably by expert, each pair's place
+    among its expert's, and ``keep = place < C``.  Returns (st, sw, keep,
+    buf_idx), each (g, Tg K) in expert order: token index, weight, kept,
+    and the slot ``expert C + place`` (``E C``, a spare slot, when
+    dropped)."""
+    g, Tg, K = idx.shape
+    flat_e = idx.reshape(g, Tg * K)
+    flat_t = torch.arange(Tg, device=idx.device).repeat_interleave(K)
+    order = torch.argsort(flat_e, dim=1, stable=True)
+    se = torch.gather(flat_e, 1, order)
+    st = flat_t[order]
+    sw = torch.gather(w.reshape(g, Tg * K), 1, order)
+    counts = torch.zeros((g, E), dtype=torch.long, device=idx.device)
+    counts.scatter_add_(1, se, torch.ones_like(se))
+    starts = torch.cumsum(counts, dim=1) - counts
+    pos = (torch.arange(Tg * K, device=idx.device)[None]
+           - torch.gather(starts, 1, se))
+    keep = pos < C
+    buf_idx = torch.where(keep, se * C + pos, torch.full_like(se, E * C))
+    return st, sw, keep, buf_idx
+
+
+def moe_forward(p: Params, x: torch.Tensor, cfg: MoEConfig) -> torch.Tensor:
+    """Token-dropping MoE, the reference's semantics: route in float32,
+    dispatch each kept (token, choice) pair to its expert's slot of a
+    (g, E, C, d) buffer, run the experts as batched products, scale each
+    slot's output by its weight in the activation dtype, scatter-add the
+    contributions in float32 and cast back, then add the shared experts."""
+    B, S, d = x.shape
+    E = cfg.n_experts
+    G1, G2 = _moe_groups(B, S)
+    G = G1 * G2
+    Tg = B * S // G
+    C = moe_capacity(Tg, cfg)
+    xg = x.reshape(G, Tg, d)
+    w, idx = moe_route(xg, p["router"], cfg)
+    st, sw, keep, buf_idx = moe_plan(idx, w, C, E)
+    # dispatch: tokens gathered in expert order into their slots (the
+    # dropped ones all land in the spare slot E*C, cut off below)
+    rows = torch.arange(G, device=x.device)[:, None]
+    xb = torch.zeros((G, E * C + 1, d), dtype=x.dtype, device=x.device)
+    xb[rows, buf_idx] = xg[rows, st]
+    sw_eff = torch.where(keep, sw, torch.zeros((), device=x.device)).to(
+        x.dtype)
+    xb = xb[:, :E * C].reshape(G, E, C, d)
+    h = F.silu(torch.einsum("gecd,edf->gecf", xb, p["wg"])) * torch.einsum(
+        "gecd,edf->gecf", xb, p["wu"])
+    yb = torch.einsum("gecf,efd->gecd", h, p["wd"])
+    # combine: each pair reads its slot (the spare slot reads zeros)
+    ybf = torch.cat([yb.reshape(G, E * C, d),
+                     torch.zeros((G, 1, d), dtype=yb.dtype,
+                                 device=x.device)], dim=1)
+    contrib = ybf[rows, buf_idx] * sw_eff[..., None]
+    out = torch.zeros((G * Tg, d), dtype=torch.float32, device=x.device)
+    out.index_add_(0, (st + rows * Tg).reshape(-1),
+                   contrib.reshape(-1, d).float())
+    out = out.reshape(G, Tg, d).to(yb.dtype)
+    if "shared" in p:
+        out = out + mlp_forward(p["shared"], xg, "swiglu")
+    return out.reshape(B, S, d)
 
 
 # ----------------------------------------------------------------------

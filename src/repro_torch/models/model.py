@@ -1,20 +1,28 @@
 """Decoder assembly: config -> params -> forward / prefill / decode.
 
-Ports ``repro.models.model`` for the mixers and ffns of the recurrentgemma
-and rwkv6 serving paths: ``attn`` (global), ``local`` (sliding window),
-``rglru`` and ``rwkv`` mixers with the dense ``geglu``/``swiglu`` ffns and
-the RWKV channel-mix (``rwkv_cm``).  Any other mixer, ffn or position
-embedding raises ``NotImplementedError`` naming the slice that brings it.
+Ports ``repro.models.model``: one generic decoder covers the reference's
+whole architecture pool through a per-layer plan, each layer a (mixer
+kind, ffn kind) from ``ArchConfig.layer_plan``:
 
-Each layer is (mixer kind, ffn kind) from ``ArchConfig.layer_plan``.  The
-reference stacks the repeating body of layers and runs it under
-``lax.scan``; PyTorch runs eagerly, so here the layers are a plain list
-walked by a Python loop: ``params["layers"][i]`` and
-``state["layers"][i]`` belong to layer i.  `params_from_jax` and
-`state_from_jax` carry the reference's trees across (unstacking its body).
-Parameter layouts are the reference's (``wq (d, H, hd)``, ...).  Every
-entry point takes ``device=``: "cuda" by default, which raises without a
-card, or "cpu" for the plain PyTorch versions of the kernels.
+  mixer: "attn" (global), "local" (sliding window), "rwkv", "rglru"
+  ffn:   "swiglu" | "geglu" | "mlp" | "moe" | "rwkv_cm" (channel mix)
+
+with the embeddings and heads of every family: tied or untied heads,
+``sqrt(d)`` embedding scale, gemma2's post-norms, musicgen's summed
+codebook embeddings with per-codebook heads and sinusoidal positions,
+and qwen2-vl's projected patches prepended to the text under M-RoPE
+positions.  A mixer or ffn the reference does not define raises
+``NotImplementedError``.
+
+The reference groups the layers as a head (the dense layers before the
+MoE ones), a repeating body stacked under ``lax.scan`` and a tail;
+PyTorch runs eagerly, so here the layers are a plain list walked by a
+Python loop: ``params["layers"][i]`` and ``state["layers"][i]`` belong to
+layer i.  `params_from_jax` and `state_from_jax` carry the reference's
+trees across (unstacking its body).  Parameter layouts are the
+reference's (``wq (d, H, hd)``, ...).  Every entry point takes
+``device=``: "cuda" by default, which raises without a card, or "cpu" for
+the plain PyTorch versions of the kernels.
 """
 
 from __future__ import annotations
@@ -30,27 +38,18 @@ from . import layers as L
 
 Params = dict
 
-#: the slice that brings each mixer / ffn this port does not run yet
-_LATER = {
-    "moe": "the MoE slice (mixtral / deepseek-moe)",
-    "mlp": "the musicgen slice",
-    "sinusoidal": "the musicgen slice",
-}
-
-
-def _not_yet(kind: str) -> NotImplementedError:
-    where = _LATER.get(kind, "no planned slice")
-    return NotImplementedError(f"{kind!r} is not ported yet: it comes with "
-                               f"{where}")
+def _unknown(kind: str) -> NotImplementedError:
+    return NotImplementedError(f"{kind!r} is not a layer kind of the "
+                               "reference: no planned slice ports it")
 
 
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
-    """The reference's ArchConfig fields that the recurrentgemma and rwkv6
-    paths read; the fields of the MoE, M-RoPE, audio, vision and post-norm
-    families come with their slices."""
+    """The reference's ArchConfig, field for field, without its training
+    knobs (``remat``, ``scan_unroll``) and its XLA attention's
+    ``query_chunk`` (the flash op tiles the whole sequence itself)."""
     name: str
-    family: str
+    family: str                  # dense | moe | ssm | hybrid | vlm | audio
     n_layers: int
     d_model: int
     n_heads: int
@@ -63,14 +62,23 @@ class ArchConfig:
     attn_cap: float | None = None
     logit_cap: float | None = None
     rope_theta: float = 1e4
-    norm_plus_one: bool = False
+    mrope_sections: tuple[int, int, int] | None = None
+    qkv_bias: bool = False
+    norm_plus_one: bool = False        # gemma-style (1+w) RMSNorm
+    post_norm: bool = False            # gemma2 post-block norms
     mlp_kind: str = "swiglu"
+    moe: L.MoEConfig | None = None
+    first_k_dense: int = 0
+    dense_ff: int | None = None
+    n_codebooks: int = 1               # musicgen: EnCodec codebooks
+    pos_embedding: str = "rope"        # rope | sinusoidal | none
     embed_scale: bool = False
     tie_embeddings: bool = True
+    rwkv_head_size: int = 64
     rglru_width: int | None = None
     conv_width: int = 4
-    pos_embedding: str = "rope"        # rope | none (sinusoidal: later)
-    rwkv_head_size: int = 64
+    vlm_patches: int = 0               # stub frontend: patches prepended
+    subquadratic: bool = False         # supports long_500k decode
 
     @property
     def vocab_padded(self) -> int:
@@ -81,34 +89,36 @@ class ArchConfig:
         plan = []
         for i in range(self.n_layers):
             mixer = self.block_pattern[i % len(self.block_pattern)]
-            ffn = "rwkv_cm" if mixer == "rwkv" else self.mlp_kind
+            if mixer == "rwkv":
+                ffn = "rwkv_cm"
+            elif self.moe is not None and i >= self.first_k_dense:
+                ffn = "moe"
+            else:
+                ffn = self.mlp_kind
             plan.append((mixer, ffn))
         return plan
 
     @property
     def groups(self) -> tuple[list, list, list]:
         """(head_plan, body_pattern, tail_plan) of the reference's stacked
-        layout; the body repeats n_body times.  Without dense-first MoE
-        layers the head is empty."""
+        layout; the body repeats n_body times after the head."""
         plan = self.layer_plan
+        head, rest = plan[:self.first_k_dense], plan[self.first_k_dense:]
         pat_len = len(self.block_pattern)
-        return [], plan[:pat_len], plan[self.n_body * pat_len:]
+        return head, rest[:pat_len], rest[self.n_body * pat_len:]
 
     @property
     def n_body(self) -> int:
-        return self.n_layers // len(self.block_pattern)
+        return (self.n_layers - self.first_k_dense) // len(self.block_pattern)
 
     def attn_cfg(self, mixer: str) -> L.AttnConfig:
-        if self.pos_embedding != "rope":
-            raise NotImplementedError(
-                f"attention with pos_embedding={self.pos_embedding!r} is not "
-                "ported yet: unrotated positions come with a later slice")
         return L.AttnConfig(
             d_model=self.d_model, n_heads=self.n_heads,
             n_kv_heads=self.n_kv_heads, head_dim=self.head_dim,
-            rope_theta=self.rope_theta,
+            rope_theta=self.rope_theta, mrope_sections=self.mrope_sections,
             window=self.window if mixer == "local" else None,
-            cap=self.attn_cap)
+            cap=self.attn_cap, qkv_bias=self.qkv_bias,
+            use_rope=self.pos_embedding == "rope")
 
     def rwkv_cfg(self) -> L.RWKVConfig:
         return L.RWKVConfig(d_model=self.d_model,
@@ -132,6 +142,7 @@ def _norm_w(cfg: ArchConfig, device) -> torch.Tensor:
 
 def _block_init(gen: torch.Generator, cfg: ArchConfig, mixer: str, ffn: str,
                 dtype, device) -> Params:
+    d = cfg.d_model
     p: Params = {"ln1": _norm_w(cfg, device)}
     if mixer in ("attn", "local"):
         p["attn"] = L.attn_init(gen, cfg.attn_cfg(mixer), dtype, device)
@@ -140,14 +151,21 @@ def _block_init(gen: torch.Generator, cfg: ArchConfig, mixer: str, ffn: str,
     elif mixer == "rwkv":
         p["rwkv"] = L.rwkv_init(gen, cfg.rwkv_cfg(), dtype, device)
     else:
-        raise _not_yet(mixer)
+        raise _unknown(mixer)
     p["ln2"] = _norm_w(cfg, device)
-    if ffn == "rwkv_cm":
+    if ffn == "moe":
+        p["moe"] = L.moe_init(gen, d, cfg.moe, dtype, device)
+    elif ffn == "rwkv_cm":
         pass            # rwkv_init already holds the channel-mix weights
-    elif ffn in ("swiglu", "geglu"):
-        p["mlp"] = L.mlp_init(gen, cfg.d_model, cfg.d_ff, ffn, dtype, device)
+    elif ffn in ("swiglu", "geglu", "mlp"):
+        f = cfg.dense_ff if (cfg.moe is not None and cfg.dense_ff) \
+            else cfg.d_ff
+        p["mlp"] = L.mlp_init(gen, d, f, ffn, dtype, device)
     else:
-        raise _not_yet(ffn)
+        raise _unknown(ffn)
+    if cfg.post_norm:
+        p["pln1"] = _norm_w(cfg, device)
+        p["pln2"] = _norm_w(cfg, device)
     return p
 
 
@@ -160,15 +178,18 @@ def init_params(cfg: ArchConfig, gen: torch.Generator,
     card."""
     check_device(device)
     device = torch.device(device)
-    V = cfg.vocab_padded
+    V, d, K = cfg.vocab_padded, cfg.d_model, cfg.n_codebooks
     params: Params = {
-        "embed": L._normal(gen, (V, cfg.d_model), 0.02, dtype, device),
+        "embed": L._normal(gen, (K, V, d) if K > 1 else (V, d), 0.02, dtype,
+                           device),
         "final_ln": _norm_w(cfg, device),
     }
     if not cfg.tie_embeddings:
-        params["lm_head"] = L._normal(gen, (cfg.d_model, V),
-                                      1.0 / math.sqrt(cfg.d_model), dtype,
-                                      device)
+        params["lm_head"] = L._normal(gen, (K, d, V) if K > 1 else (d, V),
+                                      1.0 / math.sqrt(d), dtype, device)
+    if cfg.vlm_patches:
+        params["patch_proj"] = L._normal(gen, (d, d), 1.0 / math.sqrt(d),
+                                         dtype, device)
     params["layers"] = [_block_init(gen, cfg, mixer, ffn, dtype, device)
                         for mixer, ffn in cfg.layer_plan]
     return params
@@ -178,13 +199,18 @@ def init_params(cfg: ArchConfig, gen: torch.Generator,
 # carrying the reference's trees across
 # ----------------------------------------------------------------------
 
+#: the reference's top-level leaves other than the layers
+_TOP_KEYS = ("embed", "final_ln", "lm_head", "patch_proj")
+
+
 def _layer_keys(cfg: ArchConfig) -> list[tuple[str, int | None, str | None]]:
     """Where layer i lives in the reference's tree: (top key, body group
     index or None, key inside the group or None)."""
-    _head, body, tail = cfg.groups
-    out: list = [("body", g, f"b{j}") for g in range(cfg.n_body)
-                 for j in range(len(body))]
-    return out + [(f"tail{j}", None, None) for j in range(len(tail))]
+    head, body, tail = cfg.groups
+    return ([(f"head{j}", None, None) for j in range(len(head))]
+            + [("body", g, f"b{j}") for g in range(cfg.n_body)
+               for j in range(len(body))]
+            + [(f"tail{j}", None, None) for j in range(len(tail))])
 
 
 def _tree_map(fn, node):
@@ -216,12 +242,13 @@ def _unstack(cfg: ArchConfig, tree: dict, device) -> list:
 
 def params_from_jax(cfg: ArchConfig, tree: dict, device="cuda") -> Params:
     """The reference's ``init_params`` tree (leaves as numpy arrays, or
-    anything ``np.asarray`` takes) as this port's parameters: the stacked
-    body is unstacked along axis 0 into one dict per layer; every leaf keeps
-    its layout and dtype."""
+    anything ``np.asarray`` takes) as this port's parameters: the head and
+    tail layers and the stacked body, unstacked along axis 0, become one
+    dict per layer; every leaf keeps its layout and dtype (a codebook
+    model's embedding (K, V, d) and head (K, d, V) included)."""
     check_device(device)
     params = {key: _to_torch(tree[key], device)
-              for key in ("embed", "final_ln", "lm_head") if key in tree}
+              for key in _TOP_KEYS if key in tree}
     params["layers"] = _unstack(cfg, tree, device)
     return params
 
@@ -271,18 +298,24 @@ def _apply_block(bp: Params, x: torch.Tensor, cfg: ArchConfig, mixer: str,
         if mode != "train":
             new_state["rwkv"] = {"x_tm": xc, "s": s1}
     else:
-        raise _not_yet(mixer)
+        raise _unknown(mixer)
+    if cfg.post_norm:
+        a = _norm(a, bp["pln1"], cfg)
     x = x + a
     h = _norm(x, bp["ln2"], cfg)
-    if ffn == "rwkv_cm":
+    if ffn == "moe":
+        f = L.moe_forward(bp["moe"], h, cfg.moe)
+    elif ffn == "rwkv_cm":
         f, xc = L.rwkv_channel_mix(bp["rwkv"], h,
                                    state.get("rwkv_cm") if state else None)
         if mode != "train":
             new_state["rwkv_cm"] = xc
-    elif ffn in ("swiglu", "geglu"):
+    elif ffn in ("swiglu", "geglu", "mlp"):
         f = L.mlp_forward(bp["mlp"], h, ffn)
     else:
-        raise _not_yet(ffn)
+        raise _unknown(ffn)
+    if cfg.post_norm:
+        f = _norm(f, bp["pln2"], cfg)
     return x + f, new_state
 
 
@@ -291,25 +324,56 @@ def _apply_block(bp: Params, x: torch.Tensor, cfg: ArchConfig, mixer: str,
 # ----------------------------------------------------------------------
 
 def _embed(params: Params, cfg: ArchConfig, batch: dict):
-    """batch {"tokens": (B, S)} -> (x (B, S, d), positions (B, S))."""
-    if cfg.pos_embedding not in ("rope", "none"):
-        raise _not_yet(cfg.pos_embedding)
-    x = params["embed"][batch["tokens"]]
+    """batch {"tokens": (B, S) or (B, S, K) codes, "patches": (B, P, d)
+    for a vision model} -> (x (B, P + S, d), positions)."""
+    if cfg.n_codebooks > 1:
+        codes = batch["tokens"]
+        # summed left to right in the activation dtype, as the reference's
+        # Python sum does
+        x = params["embed"][0][codes[..., 0]]
+        for k in range(1, cfg.n_codebooks):
+            x = x + params["embed"][k][codes[..., k]]
+    else:
+        x = params["embed"][batch["tokens"]]
     B, S = x.shape[:2]
+    if cfg.vlm_patches:
+        patches = batch["patches"].to(x.dtype) @ params["patch_proj"]
+        x = torch.cat([patches, x], dim=1)
+        S = x.shape[1]
     if cfg.embed_scale:
         # the scale is rounded to the activation dtype before the multiply
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype,
                              device=x.device)
-    return x, _positions(B, S, x.device)
+    if cfg.pos_embedding == "sinusoidal":
+        x = x + L.sinusoidal_positions(S, cfg.d_model,
+                                       device=x.device).to(x.dtype)[None]
+    return x, _positions(cfg, B, S, x.device)
 
 
-def _positions(B: int, S: int, device) -> torch.Tensor:
-    return torch.arange(S, device=device)[None].expand(B, S)
+def _positions(cfg: ArchConfig, B: int, S: int, device) -> torch.Tensor:
+    """(B, S) token positions, or (3, B, S) under M-RoPE: the P patches get
+    a (t=0, h, w) grid of side floor(sqrt(P)), the text continues with
+    t = h = w counting from 0 (the reference's grid: text token j sits at
+    position j, not P + j)."""
+    ar = torch.arange(S, device=device)
+    if cfg.mrope_sections is None:
+        return ar[None].expand(B, S)
+    P = cfg.vlm_patches
+    side = max(int(math.sqrt(max(P, 1))), 1)
+    pa, text = torch.arange(P, device=device), ar[:S - P]
+    pos = torch.stack([torch.cat([torch.zeros_like(pa), text]),
+                       torch.cat([pa // side, text]),
+                       torch.cat([pa % side, text])])          # (3, S)
+    return pos[:, None, :].expand(3, B, S)
 
 
 def _lm_logits(params: Params, cfg: ArchConfig, x: torch.Tensor):
     x = _norm(x, params["final_ln"], cfg)
-    if cfg.tie_embeddings:
+    if cfg.n_codebooks > 1:
+        w = params["lm_head"] if not cfg.tie_embeddings else \
+            params["embed"].transpose(1, 2)                    # (K, d, V)
+        logits = torch.einsum("bsd,kdv->bskv", x, w)
+    elif cfg.tie_embeddings:
         logits = x @ params["embed"].T
     else:
         logits = x @ params["lm_head"]
@@ -329,7 +393,8 @@ def _lm_logits(params: Params, cfg: ArchConfig, x: torch.Tensor):
 
 @torch.no_grad()
 def forward(params: Params, cfg: ArchConfig, batch: dict):
-    """Scoring forward: logits (B, S, V) over the full sequence."""
+    """Scoring forward: logits (B, S, V), or (B, S, K, V) for codebooks,
+    over the full sequence (patches included)."""
     x, positions = _embed(params, cfg, batch)
     for bp, (mixer, ffn) in zip(params["layers"], cfg.layer_plan):
         x, _ = _apply_block(bp, x, cfg, mixer, ffn, positions, "train", None)
@@ -341,7 +406,7 @@ def init_decode_state(cfg: ArchConfig, B: int, S_max: int,
     """Zeroed decode state for every layer (KV caches + recurrent states).
     A local layer's cache holds min(S_max, window) slots: a ring.  The
     recurrent states ``rglru.h`` and ``rwkv.s`` are float32, the rest
-    ``dtype``."""
+    ``dtype``; an ffn has no state except the RWKV channel-mix's carry."""
     check_device(device)
     layers = []
     for mixer, ffn in cfg.layer_plan:
@@ -368,7 +433,7 @@ def init_decode_state(cfg: ArchConfig, B: int, S_max: int,
                 "s": torch.zeros((B, H, N, N), dtype=torch.float32,
                                  device=device)}
         else:
-            raise _not_yet(mixer)
+            raise _unknown(mixer)
         if ffn == "rwkv_cm":
             st["rwkv_cm"] = torch.zeros((B, cfg.d_model), dtype=dtype,
                                         device=device)
@@ -379,17 +444,29 @@ def init_decode_state(cfg: ArchConfig, B: int, S_max: int,
 @torch.no_grad()
 def decode_step(params: Params, cfg: ArchConfig, state: Params,
                 tokens: torch.Tensor, pos: torch.Tensor):
-    """One decode step.  tokens (B, 1); pos (B,) write index.
+    """One decode step.  tokens (B, 1), or (B, 1, K) codes; pos (B,) write
+    index (for a vision model it counts the prefilled patches).
 
-    Returns (logits (B, 1, V), new_state); KV caches are updated in place.
+    Returns (logits (B, 1, V...), new_state); KV caches are updated in
+    place.  A vision model decodes text only (its patches are in the
+    cache already); sinusoidal positions are added at ``pos``.
     """
-    x, _ = _embed(params, cfg, {"tokens": tokens})
-    n_body_layers = cfg.n_body * len(cfg.block_pattern)
+    ecfg = cfg
+    if cfg.vlm_patches:
+        ecfg = dataclasses.replace(ecfg, vlm_patches=0)
+    if cfg.pos_embedding == "sinusoidal":
+        ecfg = dataclasses.replace(ecfg, pos_embedding="none")
+    x, _ = _embed(params, ecfg, {"tokens": tokens})
+    if cfg.pos_embedding == "sinusoidal":
+        pe = L._sinusoid(pos.float(), cfg.d_model)             # (B, d)
+        x = x + pe[:, None, :].to(x.dtype)
+    n_head = len(cfg.groups[0])
+    body = range(n_head, n_head + cfg.n_body * len(cfg.block_pattern))
     new_layers = []
     for i, (bp, st, (mixer, ffn)) in enumerate(zip(
             params["layers"], state["layers"], cfg.layer_plan)):
         x, nst = _apply_block(bp, x, cfg, mixer, ffn, None, "decode", st, pos)
-        if i < n_body_layers:
+        if i in body:
             # the reference carries the body's states in its scan carry,
             # which casts each new state back to the dtype it came in
             nst = _cast_like(nst, st)
@@ -406,7 +483,8 @@ def _cast_like(new, old):
 @torch.no_grad()
 def prefill(params: Params, cfg: ArchConfig, batch: dict,
             last_only: bool = False):
-    """Forward over a prompt, returning (logits, decode state).
+    """Forward over a prompt (a vision model's patches first), returning
+    (logits, decode state).
 
     last_only=True computes the LM head for the final position only: the
     serving configuration (full-sequence logits at 4k x 256k vocab would

@@ -67,8 +67,14 @@ def make_decode_fn(cfg: M.ArchConfig) -> Callable:
 @torch.no_grad()
 def greedy_generate(params, cfg: M.ArchConfig, prompt, n_new: int,
                     s_max: int | None = None, device="cuda") -> torch.Tensor:
-    """Generate n_new tokens after ``prompt`` (B, S0).  Returns (B, n_new)
-    int32 on the params' device.
+    """Generate n_new tokens after ``prompt`` (B, S0), or (B, S0, K) codes
+    for a codebook model.  Returns (B, n_new) int32, or (B, n_new, K), on
+    the params' device.
+
+    As in the reference, a vision model cannot be served here: its
+    prefill reads ``patches``, which this entry point does not take (the
+    reference's does not either); its decode steps take text alone (see
+    `Batcher`).
 
     The reference prefills with full-sequence logits and reads only the
     last position's; this port calls ``prefill(last_only=True)``, which
@@ -83,7 +89,7 @@ def greedy_generate(params, cfg: M.ArchConfig, prompt, n_new: int,
                               last_only=True)
     state = pad_prefill_state(cfg, state, s_max)
     step = make_decode_fn(cfg)
-    last = torch.argmax(logits[:, -1:], dim=-1)                # (B, 1)
+    last = torch.argmax(logits[:, -1:], dim=-1)      # (B, 1) or (B, 1, K)
     out = []
     pos = torch.full((B,), S0, dtype=torch.int64, device=dev)
     for _ in range(n_new):
@@ -105,9 +111,11 @@ class Batcher:
 
     @torch.no_grad()
     def serve(self, prompts: list[np.ndarray], n_new: int) -> list[np.ndarray]:
-        """Serve a list of (S0,) prompts; returns a list of (n_new,) outputs.
+        """Serve a list of (S0,) prompts; returns a list of (n_new,) outputs,
+        or (n_new, K) for a codebook model.
 
-        As in the reference, a slot's decode state is not cleared when a
+        As in the reference, a codebook model's prompt token goes to all K
+        codebooks, and a slot's decode state is not cleared when a
         new request takes it: the prompt restarts at position 0, the
         attention masks hide older cache entries, and the recurrent state
         carries over.  The decode state is made in bfloat16 (the
@@ -136,7 +144,8 @@ class Batcher:
 
         for s in range(B):
             admit(s)
-        cur_np = np.zeros((B, 1), np.int64)
+        K = cfg.n_codebooks
+        cur_np = np.zeros((B, 1) if K == 1 else (B, 1, K), np.int64)
         while any(r >= 0 for r in slot_req):
             # feed either the next prompt token or the last generated token
             for s in range(B):
@@ -145,13 +154,13 @@ class Batcher:
             cur = torch.tensor(cur_np, device=dev)
             pos = torch.tensor(slot_pos, device=dev)
             logits, state = self.step(self.params, state, cur, pos)
-            nxt = torch.argmax(logits[:, -1], dim=-1).cpu().numpy()
+            nxt = torch.argmax(logits[:, -1], dim=-1).cpu().numpy()  # (B[, K])
             for s in range(B):
                 if slot_req[s] < 0:
                     continue
                 slot_pos[s] += 1
                 if not pending.get(s):
-                    slot_out[s].append(int(nxt[s]))
+                    slot_out[s].append(nxt[s].copy())
                     cur_np[s] = nxt[s]
                     if len(slot_out[s]) >= n_new:
                         results[slot_req[s]] = np.array(slot_out[s], np.int32)

@@ -22,7 +22,12 @@ order, and its bf16 variant rounds the softmax weights to bf16 for the
 tensor cores); wkv6 within the same limits for y and 1e-3 for the final
 state (it sums over i in another order), and in float32 at the model's
 scale within twice the first-order rounding bound ``ref.f32_error_bound``
-of the plain version and of its order twin ``ref.wkv6_tiled``.
+of the plain version and of its order twin ``ref.wkv6_tiled``.  Flash
+also runs at the other families' head shapes (GQA with KV > 1 and MHA at
+hd 128 and 64, gemma2's global layer at hd 256 with cap 50); the MoE's
+expert choices and dropped tokens on the card equal the CPU's; and each
+family's ``smoke()`` prefill on the card in float32 matches the CPU's
+within 1e-4.
 """
 
 import dataclasses
@@ -831,6 +836,16 @@ FLASH_CARD_CASES = [
     ((1, 1000, 1000, 10, 1, 256), "bfloat16", dict(causal=True, window=500)),
     ((2, 260, 130, 4, 1, 256), "bfloat16", dict(causal=True)),
     ((1, 64, 1000, 2, 1, 256), "bfloat16", dict(causal=False, cap=30.0)),
+    # the other families' head shapes: GQA with KV > 1 and MHA at hd 128
+    # and 64, global causal layers, gemma2's global layer (hd 256, 8/4,
+    # cap 50), and phi4-mini's smoke width hd 12 (float32 only)
+    ((1, 1000, 1000, 32, 8, 128), "bfloat16", dict(causal=True, window=333)),
+    ((2, 700, 700, 24, 8, 128), "bfloat16", dict(causal=True)),
+    ((1, 1024, 1024, 16, 16, 128), "bfloat16", dict(causal=True)),
+    ((1, 600, 600, 28, 4, 128), "bfloat16", dict(causal=True)),
+    ((1, 1000, 1000, 32, 32, 64), "bfloat16", dict(causal=True)),
+    ((1, 1024, 1024, 8, 4, 256), "bfloat16", dict(causal=True, cap=50.0)),
+    ((2, 333, 333, 4, 2, 12), "float32", dict(causal=True)),
 ]
 
 
@@ -1129,6 +1144,81 @@ def test_smoke_model_on_card_through_both_kernels(lm_kernels, monkeypatch):
         prompts, 6)
     assert all(r is not None and len(r) == 6 for r in res)
     assert rk.LAUNCHES["rglru_scan"] > 0
+
+
+def test_moe_on_card_routes_and_drops_as_on_the_cpu(lm_kernels):
+    """moe_forward on the card in float32 (default matmul settings: no
+    TF32) against the CPU: the same expert choices, the same kept and
+    dropped (token, choice) pairs, outputs within 1e-5."""
+    from repro_torch.models import layers as L
+    assert not torch.backends.cuda.matmul.allow_tf32
+    d, T = 64, 96
+    for mode, n_shared in (("softmax_topk", 1), ("topk_softmax", 0)):
+        cfg = L.MoEConfig(n_experts=8, top_k=2, d_expert=48,
+                          n_shared=n_shared, capacity_factor=0.75,
+                          router_mode=mode)
+        p = L.moe_init(torch.Generator().manual_seed(1), d, cfg,
+                       dtype=torch.float32, device="cpu")
+        x = torch.from_numpy(np.random.default_rng(2).standard_normal(
+            (2, T // 2, d), np.float32))
+        pc = {k: ({n: w.cuda() for n, w in v.items()} if isinstance(v, dict)
+                  else v.cuda()) for k, v in p.items()}
+        C = L.moe_capacity(T, cfg)
+        plans = []
+        for xx, pp in ((x, p), (x.cuda(), pc)):
+            w, idx = L.moe_route(xx.reshape(1, T, d), pp["router"], cfg)
+            plans.append([t.cpu() for t in (idx, *L.moe_plan(idx, w, C, 8))])
+        (idx, st, sw, keep, buf), (idx2, st2, sw2, keep2, buf2) = plans
+        assert torch.equal(idx, idx2) and torch.equal(keep, keep2)
+        assert torch.equal(st, st2) and torch.equal(buf, buf2)
+        assert 0 < int(keep.sum()) < keep.numel()
+        torch.testing.assert_close(sw2, sw, rtol=1e-6, atol=1e-6)
+        torch.testing.assert_close(L.moe_forward(pc, x.cuda(), cfg).cpu(),
+                                   L.moe_forward(p, x, cfg), rtol=1e-5,
+                                   atol=1e-5)
+
+
+FAMILIES = ["gemma2_2b", "phi4_mini_3_8b", "granite3_8b", "codeqwen15_7b",
+            "deepseek_moe_16b", "mixtral_8x7b", "qwen2_vl_7b",
+            "musicgen_large"]
+
+
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_family_smoke_prefill_on_card_matches_cpu(lm_kernels, arch):
+    """Each other family's smoke() prefill on the card in float32 (through
+    the f32 flash kernel: phi4-mini's head_dim 12 is not a bf16 width)
+    against the same weights on the CPU: logits and KV caches within
+    1e-4, one flash launch per attention layer."""
+    from repro_torch import configs
+    from repro_torch.models import model as M
+    fk = lm_kernels[0]
+    cfg = configs.get_smoke(arch)
+    params = M.init_params(cfg, torch.Generator().manual_seed(3),
+                           device="cpu", dtype=torch.float32)
+    rng = np.random.default_rng(4)
+    shape = (2, 40, cfg.n_codebooks) if cfg.n_codebooks > 1 else (2, 40)
+    batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab, shape))}
+    if cfg.vlm_patches:
+        batch["patches"] = torch.from_numpy(rng.standard_normal(
+            (2, cfg.vlm_patches, cfg.d_model), np.float32))
+
+    def to_cuda(node):
+        if isinstance(node, dict):
+            return {k: to_cuda(v) for k, v in node.items()}
+        if isinstance(node, list):
+            return [to_cuda(v) for v in node]
+        return node.cuda()
+    want, wstate = M.prefill(params, cfg, batch)
+    fk.reset_launches()
+    got, gstate = M.prefill(to_cuda(params), cfg, to_cuda(batch))
+    torch.cuda.synchronize()
+    n_attn = sum(m in ("attn", "local") for m, _ in cfg.layer_plan)
+    assert fk.LAUNCHES["flash_attention"] == n_attn > 0
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-4)
+    for g, w in zip(gstate["layers"], wstate["layers"]):
+        for name in ("k", "v"):
+            torch.testing.assert_close(g["kv"][name].cpu(), w["kv"][name],
+                                       rtol=0, atol=1e-4)
 
 
 def test_rwkv_smoke_model_on_card_through_the_kernel(lm_kernels,

@@ -110,10 +110,12 @@ def test_cuda_without_a_card_raises_at_the_lm_entry_points():
         Batcher(params, cfg, ServeConfig(batch=1, max_seq=8))
 
 
-@pytest.mark.parametrize("arch", ["recurrentgemma_2b", "rwkv6_7b"])
+@pytest.mark.parametrize("arch", ["recurrentgemma_2b", "rwkv6_7b",
+                                  "deepseek_moe_16b", "musicgen_large"])
 def test_cuda_without_a_card_raises_at_the_model_helpers(arch):
     """The initializers, the decode state and the reference-tree carriers
-    default to the card too; so do the rwkv6 serving entry points."""
+    default to the card too; so do the serving entry points of each
+    family."""
     _no_card()
     from repro_torch import configs
     from repro_torch.models import layers as L
@@ -124,6 +126,10 @@ def test_cuda_without_a_card_raises_at_the_model_helpers(arch):
     gen = torch.Generator().manual_seed(0)
     if arch == "rwkv6_7b":
         inits = [lambda: L.rwkv_init(gen, cfg.rwkv_cfg())]
+    elif arch == "deepseek_moe_16b":
+        inits = [lambda: L.moe_init(gen, cfg.d_model, cfg.moe)]
+    elif arch == "musicgen_large":
+        inits = [lambda: L.mlp_init(gen, cfg.d_model, cfg.d_ff, "mlp")]
     else:
         inits = [lambda: L.attn_init(gen, cfg.attn_cfg("local")),
                  lambda: L.mlp_init(gen, cfg.d_model, cfg.d_ff, "geglu"),

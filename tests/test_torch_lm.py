@@ -172,31 +172,38 @@ def test_configs_match_reference():
         assert mine.layer_plan == ref.layer_plan
         assert mine.groups == ref.groups and mine.n_body == ref.n_body
         assert mine.vocab_padded == ref.vocab_padded
-    assert tconfigs.ARCH_IDS == [ARCH, "rwkv6_7b"]
-    with pytest.raises(NotImplementedError, match="MoE"):
-        tconfigs.get("mixtral_8x7b")
+    # every reference architecture is ported (the other eight families:
+    # tests/test_torch_families.py)
+    assert tconfigs.ARCH_IDS == jconfigs.ARCH_IDS
+    assert tconfigs.get("mixtral_8x7b").moe.router_mode == "topk_softmax"
     with pytest.raises(KeyError):
         tconfigs.get_smoke("no_such_model")
 
 
 def test_other_mixers_and_ffns_raise():
+    """A mixer the reference does not define raises; the MoE, the plain
+    MLP and sinusoidal positions, once refused, now run (on the
+    recurrentgemma smoke model, swapped in one at a time)."""
+    gen = torch.Generator().manual_seed(0)
     cfg = dataclasses.replace(tconfigs.get_smoke(ARCH),
                               block_pattern=("mamba",))
     with pytest.raises(NotImplementedError, match="no planned slice"):
-        TM.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
-    cfg = dataclasses.replace(tconfigs.get_smoke(ARCH), mlp_kind="moe")
-    with pytest.raises(NotImplementedError, match="MoE"):
-        TM.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
-    cfg = dataclasses.replace(tconfigs.get_smoke(ARCH), mlp_kind="mlp")
-    with pytest.raises(NotImplementedError, match="musicgen"):
-        TM.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
-    cfg = dataclasses.replace(tconfigs.get_smoke(ARCH),
-                              pos_embedding="sinusoidal")
-    params = TM.init_params(dataclasses.replace(cfg, pos_embedding="rope"),
-                            torch.Generator().manual_seed(0), device="cpu")
-    with pytest.raises(NotImplementedError, match="musicgen"):
-        TM.forward(params, cfg, {"tokens": torch.zeros(1, 4,
-                                                       dtype=torch.long)})
+        TM.init_params(cfg, gen, device="cpu")
+    toks = {"tokens": torch.zeros(1, 4, dtype=torch.long)}
+    base = tconfigs.get_smoke(ARCH)
+    for cfg in (dataclasses.replace(base, moe=TL.MoEConfig(
+                    n_experts=4, top_k=2, d_expert=32), first_k_dense=1),
+                dataclasses.replace(base, mlp_kind="mlp"),
+                dataclasses.replace(base, pos_embedding="sinusoidal")):
+        params = TM.init_params(cfg, gen, device="cpu", dtype=torch.float32)
+        logits = TM.forward(params, cfg, toks)
+        assert logits.shape == (1, 4, cfg.vocab_padded)
+        assert bool(torch.isfinite(logits).all())
+    assert [f for _, f in cfg.layer_plan] == ["geglu"] * cfg.n_layers
+    moe = dataclasses.replace(base, moe=TL.MoEConfig(4, 2, 32),
+                              first_k_dense=1)
+    assert [f for _, f in moe.layer_plan] == ["geglu"] + ["moe"] * 4
+    assert "moe" in TM.init_params(moe, gen, device="cpu")["layers"][1]
 
 
 @pytest.fixture(scope="module")
