@@ -1,4 +1,5 @@
-// Tiled online-softmax attention (flash attention, forward only).
+// Tiled online-softmax attention (flash attention): the forward, which can
+// also write each query row's log-sum-exp, and its backward (at the end).
 //
 // Replaces the TPU kernel
 // src/repro/kernels/flash_attention/kernel.py::flash_attention
@@ -62,13 +63,16 @@ struct Args {
   int B, Sq, Sk, H, KV, hd;
   int causal, window;  // window <= 0: no window
   float scale, cap;    // cap <= 0: no soft-cap
+  // (B, H, Sq) natural-log log-sum-exp of each row's scaled, capped,
+  // masked scores, for the backward; null: not written (the serving path)
+  float* lse;
 };
 
 // K tiles [lo, hi) of a Q tile of rows [q0, q0 + BQ) with tiles of BK keys:
 // tiles wholly above the diagonal or wholly outside the window are not
 // live (an empty range leaves the rows' output 0)
-template <int BQ, int BK>
-__host__ __device__ inline void live_tiles(const Args& a, int q0, int& lo,
+template <int BQ, int BK, class A>
+__host__ __device__ inline void live_tiles(const A& a, int q0, int& lo,
                                            int& hi) {
   const int nk = (a.Sk + BK - 1) / BK;
   hi = nk;
@@ -212,6 +216,8 @@ __global__ void __launch_bounds__(kF32Threads, 1)
     const float denom = fmaxf(l_run, 1e-30f);
     float* out = static_cast<float*>(a.o) + (((size_t)b * a.Sq + qpos) * a.H + h) * hd;
     for (int c = spart; c < hd; c += TPR) out[c] = Os[srow * lay.ldo + c] / denom;
+    if (a.lse != nullptr && spart == 0)
+      a.lse[((size_t)b * a.H + h) * a.Sq + qpos] = m_run + logf(l_run);
   }
 }
 
@@ -387,7 +393,10 @@ struct TcLayout {
   static constexpr int ALLOC = BYTES + 1024;  // room to align the base
 };
 
-template <int HDP>
+// kLse: also store each row's log-sum-exp (the training forward); the
+// serving forward (a null lse) runs the instantiation without the store,
+// whose code is the kernel as it was before the store existed
+template <int HDP, bool kLse>
 __global__ void __launch_bounds__(kThreadsTC, 1)
     flash_tc_kernel(const __grid_constant__ CUtensorMap tmQ,
                     const __grid_constant__ CUtensorMap tmK,
@@ -564,6 +573,11 @@ __global__ void __launch_bounds__(kThreadsTC, 1)
       l += __shfl_xor_sync(0xffffffffu, l, 2);
       const float inv = 1.f / fmaxf(l, 1e-30f);
       const int qp = rq + 8 * r;
+      if constexpr (kLse) {
+        if (t4 == 0 && qp < a.Sq)  // log2 domain -> ln
+          a.lse[((size_t)b * a.H + h) * a.Sq + qp] =
+              (m_run[r] + log2f(l)) * 0.6931471805599453f;
+      }
       if (qp < a.Sq) {
         __nv_bfloat16* row = out + (((size_t)b * a.Sq + qp) * a.H + h) * a.hd;
 #pragma unroll
@@ -641,7 +655,8 @@ int launch_tc(const Args& a, cudaStream_t stream) {
       !make_bshd_map(&tv, a.v, a.B, a.Sk, a.KV, a.hd))
     return (int)cudaErrorInvalidValue;
   const int smem = TcLayout<HDP>::ALLOC;
-  auto kern = flash_tc_kernel<HDP>;
+  auto kern = a.lse != nullptr ? flash_tc_kernel<HDP, true>
+                                : flash_tc_kernel<HDP, false>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
@@ -728,18 +743,389 @@ __global__ void __launch_bounds__(128, 1)
       o_out[(r0 + (e >> 1) * 8) * 256 + 8 * i + 2 * t4 + (e & 1)] = o[4 * i + e];
 }
 
+
+// ---------------------------------------------------------------------------
+// backward: FlashAttention-2's three steps on the CUDA cores
+// ---------------------------------------------------------------------------
+//
+// No TPU kernel to replace: the JAX package has no backward kernel and
+// trains by differentiating its plain attention
+// (src/repro/models/layers.py::attention) with jax.grad.  Here the forward
+// is a hand-written kernel, so its gradient is one too.  With P_ij =
+// exp(S_ij - lse_i) recomputed from the forward's log-sum-exp (S the
+// scaled, capped, masked scores; P = 0 on masked pairs) and D_i = dO_i . O_i:
+//   dV_j = sum_i P_ij dO_i                dP_ij = dO_i . V_j
+//   dS_ij = P_ij (dP_ij - D_i) (1 - tanh^2(s_ij / cap)) scale
+//   dQ_i = sum_j dS_ij K_j                dK_j = sum_i dS_ij Q_i
+// (the tanh factor is 1 without a cap), dK and dV of a KV head summed over
+// the H/KV query heads that read it.  Three launches (four under GQA/MQA):
+//   flash_bwd_delta: D, one warp a (batch, query, head) row;
+//   flash_bwd_dkdv: one block per 32-key tile and query head; it loops over
+//     the 32-row query tiles that the causal mask and the window leave
+//     live, with dK and dV in registers, and stores them (H == KV) or its
+//     head's float32 partials, (B, Sk, H, hd) each;
+//   flash_bwd_group_sum (H > KV): each KV head's dK and dV, the partials
+//     of its H/KV query heads summed in head order;
+//   flash_bwd_dq: one block per 32-row query tile and head; it loops over
+//     the live key tiles (the forward's live_tiles), dQ in registers.
+// A dK/dV block per query head, not per KV head, gives MQA many blocks of
+// about equal work (1,280 at the training shape instead of 128, where the
+// key tiles near the end see fewer query tiles).  Every output element has
+// one writer: no atomics, so the result does not depend on the order the
+// blocks run in.  Operands are staged in shared memory as float32 (bf16
+// converted on load) and every sum is float32.  At
+// hd 256 the two 32 x 256 accumulators of dK and dV take 64 registers a
+// thread of 256: 32-key tiles keep them there; Q, dO, K and V take 32 KB
+// of shared memory each.  Ragged edges: rows and keys past Sq and Sk load
+// as zeros, get P = 0 and are not stored.
+//
+// What bounds it on an H100: at the training shape (B=1, S=4096, H=10,
+// KV=1, hd=256, causal, window 2048) the live pairs need about 2.5x the
+// forward's operations, some 161 GFLOP: 0.163 ms at the bf16 tensor-core
+// peak.  This simple design runs its seven hd-long products per tile on
+// the CUDA cores from shared memory (one operand broadcast, the other one
+// 128-byte row a warp), so it is bound by shared-memory loads, far above
+// that bound: wgmma and TMA are later work.
+
+constexpr int kBwdThreads = 256;
+constexpr int kBwdB = 32;  // query rows and keys per tile
+constexpr int kBwdLdp = kBwdB + 1;
+
+struct BwdArgs {
+  const void* q;
+  const void* k;
+  const void* v;
+  const void* o;
+  const void* dout;
+  const float* lse;  // (B, H, Sq), the forward's
+  float* delta;      // (B, H, Sq) scratch: D
+  void* dq;
+  void* dk;
+  void* dv;
+  float* part;  // (2, B, Sk, H, hd) scratch: dK, dV partials; null if H == KV
+  int B, Sq, Sk, H, KV, hd;
+  int causal, window;
+  float scale, cap;
+};
+
+template <typename T>
+__device__ __forceinline__ float ld_f(const T* p);
+template <>
+__device__ __forceinline__ float ld_f<float>(const float* p) {
+  return *p;
+}
+template <>
+__device__ __forceinline__ float ld_f<__nv_bfloat16>(const __nv_bfloat16* p) {
+  return __bfloat162float(*p);
+}
+__device__ __forceinline__ void st_f(float* p, float x) { *p = x; }
+__device__ __forceinline__ void st_f(__nv_bfloat16* p, float x) {
+  *p = __float2bfloat16_rn(x);
+}
+
+// D_i = sum_c dO_ic O_ic, one warp per row of the (B, Sq, H) rows
+template <typename T>
+__global__ void __launch_bounds__(256) flash_bwd_delta(const BwdArgs a) {
+  const long long row = (long long)blockIdx.x * 8 + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (row >= (long long)a.B * a.Sq * a.H) return;  // the whole warp
+  const T* o = static_cast<const T*>(a.o) + row * a.hd;
+  const T* d = static_cast<const T*>(a.dout) + row * a.hd;
+  float s = 0.f;
+  for (int c = lane; c < a.hd; c += 32) s = fmaf(ld_f(o + c), ld_f(d + c), s);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    s += __shfl_xor_sync(0xffffffffu, s, off);
+  if (lane == 0) {
+    const int h = (int)(row % a.H);
+    const long long bi = row / a.H;
+    const int i = (int)(bi % a.Sq), b = (int)(bi / a.Sq);
+    a.delta[((size_t)b * a.H + h) * a.Sq + i] = s;
+  }
+}
+
+// shared memory of both tile kernels: Q, dO, K, V tiles (32 rows of hd + 1
+// floats), P and dS (32 x 33), lse and D of the query rows
+struct BwdLayout {
+  int ld;
+  __host__ __device__ explicit BwdLayout(int hd) : ld(hd + 1) {}
+  __host__ __device__ size_t bytes() const {
+    return sizeof(float) * (4 * (size_t)kBwdB * ld + 2 * kBwdB * kBwdLdp +
+                            2 * kBwdB);
+  }
+};
+
+// rows [s0, s0 + 32) of head `head` of a (B, S, NH, hd) tensor, as float32
+// with row stride ld; rows past S are zero
+template <typename T>
+__device__ void load_tile(float* dst, int ld, const T* src, int b, int s0,
+                          int S, int NH, int head, int hd) {
+  for (int e = threadIdx.x; e < kBwdB * hd; e += kBwdThreads) {
+    const int r = e / hd, c = e % hd;
+    const int s = s0 + r;
+    dst[r * ld + c] =
+        s < S ? ld_f(src + (((size_t)b * S + s) * NH + head) * hd + c) : 0.f;
+  }
+}
+
+// lse and D of query rows [q0, q0 + 32) of head h (0 past Sq)
+__device__ void load_rows_stats(const BwdArgs& a, float* lse_s, float* D_s,
+                                int b, int h, int q0) {
+  const int t = threadIdx.x;
+  if (t < kBwdB) {
+    const int qp = q0 + t;
+    const size_t r = ((size_t)b * a.H + h) * a.Sq + qp;
+    lse_s[t] = qp < a.Sq ? a.lse[r] : 0.f;
+    D_s[t] = qp < a.Sq ? a.delta[r] : 0.f;
+  }
+}
+
+// P and dS of one (32-query, 32-key) tile from the staged Q, dO, K, V
+__device__ void tile_p_ds(const BwdArgs& a, const float* Qs, const float* dOs,
+                          const float* Ks, const float* Vs,
+                          const float* lse_s, const float* D_s, float* Ps,
+                          float* DSs, int q0, int k0, int ld) {
+  for (int e = threadIdx.x; e < kBwdB * kBwdB; e += kBwdThreads) {
+    const int i = e / kBwdB, j = e % kBwdB;  // a warp: one row i, 32 keys
+    const float* qr = Qs + i * ld;
+    const float* dr = dOs + i * ld;
+    const float* kr = Ks + j * ld;
+    const float* vr = Vs + j * ld;
+    float s = 0.f, dp = 0.f;
+    for (int c = 0; c < a.hd; ++c) {
+      s = fmaf(qr[c], kr[c], s);
+      dp = fmaf(dr[c], vr[c], dp);
+    }
+    const int qp = q0 + i, kp = k0 + j;
+    const bool live = qp < a.Sq && kp < a.Sk && !(a.causal && qp < kp) &&
+                      !(a.window > 0 && qp - kp >= a.window);
+    float x = s * a.scale, dcap = 1.f;
+    if (a.cap > 0.f) {
+      const float t = tanhf(x / a.cap);
+      x = a.cap * t;
+      dcap = 1.f - t * t;
+    }
+    const float p = live ? expf(x - lse_s[i]) : 0.f;
+    Ps[i * kBwdLdp + j] = p;
+    DSs[i * kBwdLdp + j] = p * (dp - D_s[i]) * dcap * a.scale;
+  }
+}
+
+// HDP = NR * 256 / 32 columns (64, 128 or 256): thread t owns elements
+// e = t + 256 r (r < NR) of a 32 x HDP accumulator, row e / HDP, column
+// e % HDP (a warp: one row, 32 consecutive columns)
+template <typename T, int NR>
+__global__ void __launch_bounds__(kBwdThreads, 1)
+    flash_bwd_dkdv(const BwdArgs a) {
+  constexpr int HDP = NR * kBwdThreads / kBwdB;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int hd = a.hd, ld = BwdLayout(hd).ld, tid = threadIdx.x;
+  float* Qs = reinterpret_cast<float*>(smem);
+  float* dOs = Qs + kBwdB * ld;
+  float* Ks = dOs + kBwdB * ld;
+  float* Vs = Ks + kBwdB * ld;
+  float* Ps = Vs + kBwdB * ld;
+  float* DSs = Ps + kBwdB * kBwdLdp;
+  float* lse_s = DSs + kBwdB * kBwdLdp;
+  float* D_s = lse_s + kBwdB;
+  const int k0 = blockIdx.x * kBwdB, h = blockIdx.y, b = blockIdx.z;
+  const int kvh = h / (a.H / a.KV);
+  const T* q = static_cast<const T*>(a.q);
+  const T* dout = static_cast<const T*>(a.dout);
+  load_tile(Ks, ld, static_cast<const T*>(a.k), b, k0, a.Sk, a.KV, kvh, hd);
+  load_tile(Vs, ld, static_cast<const T*>(a.v), b, k0, a.Sk, a.KV, kvh, hd);
+
+  float dk[NR], dv[NR];
+#pragma unroll
+  for (int r = 0; r < NR; ++r) dk[r] = dv[r] = 0.f;
+  // the query tiles that see a key of [k0, k0 + 32): causal, rows >= k0;
+  // a window, rows <= k0 + 31 + window - 1
+  const int nq = (a.Sq + kBwdB - 1) / kBwdB;
+  int qlo = a.causal ? k0 / kBwdB : 0, qhi = nq;
+  if (a.window > 0) {
+    const long long last = (long long)k0 + kBwdB - 1 + a.window - 1;
+    if (last / kBwdB + 1 < qhi) qhi = (int)(last / kBwdB + 1);
+  }
+  for (int iq = qlo; iq < qhi; ++iq) {
+    const int q0 = iq * kBwdB;
+    __syncthreads();  // the previous tile's readers are done
+    load_tile(Qs, ld, q, b, q0, a.Sq, a.H, h, hd);
+    load_tile(dOs, ld, dout, b, q0, a.Sq, a.H, h, hd);
+    load_rows_stats(a, lse_s, D_s, b, h, q0);
+    __syncthreads();
+    tile_p_ds(a, Qs, dOs, Ks, Vs, lse_s, D_s, Ps, DSs, q0, k0, ld);
+    __syncthreads();
+#pragma unroll
+    for (int r = 0; r < NR; ++r) {
+      const int e = tid + kBwdThreads * r;
+      const int j = e / HDP, c = e % HDP;
+      if (c < hd) {
+        float av = dv[r], ak = dk[r];
+        for (int i = 0; i < kBwdB; ++i) {
+          av = fmaf(Ps[i * kBwdLdp + j], dOs[i * ld + c], av);
+          ak = fmaf(DSs[i * kBwdLdp + j], Qs[i * ld + c], ak);
+        }
+        dv[r] = av;
+        dk[r] = ak;
+      }
+    }
+  }
+  // H == KV: dK and dV themselves; else this head's float32 partials
+  const size_t part_n = (size_t)a.B * a.Sk * a.H * hd;
+#pragma unroll
+  for (int r = 0; r < NR; ++r) {
+    const int e = tid + kBwdThreads * r;
+    const int j = e / HDP, c = e % HDP;
+    if (c < hd && k0 + j < a.Sk) {
+      const size_t row = (size_t)b * a.Sk + k0 + j;
+      if (a.part == nullptr) {
+        const size_t off = (row * a.KV + kvh) * hd + c;
+        st_f(static_cast<T*>(a.dk) + off, dk[r]);
+        st_f(static_cast<T*>(a.dv) + off, dv[r]);
+      } else {
+        const size_t off = (row * a.H + h) * hd + c;
+        a.part[off] = dk[r];
+        a.part[part_n + off] = dv[r];
+      }
+    }
+  }
+}
+
+// dK and dV of each (batch, key, KV head) column: the float32 partials of
+// the group's query heads summed in head order, one thread an element
+template <typename T>
+__global__ void __launch_bounds__(256) flash_bwd_group_sum(const BwdArgs a) {
+  const long long n = (long long)a.B * a.Sk * a.KV * a.hd;
+  const long long e = (long long)blockIdx.x * 256 + threadIdx.x;
+  if (e >= n) return;
+  const int rep = a.H / a.KV, c = (int)(e % a.hd);
+  const long long row = e / a.hd;  // (b * Sk + key) * KV + kvh
+  const int kvh = (int)(row % a.KV);
+  const size_t part_n = (size_t)a.B * a.Sk * a.H * a.hd;
+  const float* pk =
+      a.part + ((size_t)(row / a.KV) * a.H + (size_t)kvh * rep) * a.hd + c;
+  float sk = 0.f, sv = 0.f;
+  for (int hh = 0; hh < rep; ++hh) {
+    sk += pk[(size_t)hh * a.hd];
+    sv += pk[part_n + (size_t)hh * a.hd];
+  }
+  st_f(static_cast<T*>(a.dk) + e, sk);
+  st_f(static_cast<T*>(a.dv) + e, sv);
+}
+
+template <typename T, int NR>
+__global__ void __launch_bounds__(kBwdThreads, 1)
+    flash_bwd_dq(const BwdArgs a) {
+  constexpr int HDP = NR * kBwdThreads / kBwdB;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int hd = a.hd, ld = BwdLayout(hd).ld, tid = threadIdx.x;
+  float* Qs = reinterpret_cast<float*>(smem);
+  float* dOs = Qs + kBwdB * ld;
+  float* Ks = dOs + kBwdB * ld;
+  float* Vs = Ks + kBwdB * ld;
+  float* Ps = Vs + kBwdB * ld;
+  float* DSs = Ps + kBwdB * kBwdLdp;
+  float* lse_s = DSs + kBwdB * kBwdLdp;
+  float* D_s = lse_s + kBwdB;
+  const int q0 = blockIdx.x * kBwdB, h = blockIdx.y, b = blockIdx.z;
+  const int kvh = h / (a.H / a.KV);
+  const T* k = static_cast<const T*>(a.k);
+  const T* v = static_cast<const T*>(a.v);
+  load_tile(Qs, ld, static_cast<const T*>(a.q), b, q0, a.Sq, a.H, h, hd);
+  load_tile(dOs, ld, static_cast<const T*>(a.dout), b, q0, a.Sq, a.H, h, hd);
+  load_rows_stats(a, lse_s, D_s, b, h, q0);
+
+  float dq[NR];
+#pragma unroll
+  for (int r = 0; r < NR; ++r) dq[r] = 0.f;
+  int lo, hi;
+  live_tiles<kBwdB, kBwdB>(a, q0, lo, hi);
+  for (int ik = lo; ik < hi; ++ik) {
+    const int k0 = ik * kBwdB;
+    __syncthreads();  // the previous tile's readers are done
+    load_tile(Ks, ld, k, b, k0, a.Sk, a.KV, kvh, hd);
+    load_tile(Vs, ld, v, b, k0, a.Sk, a.KV, kvh, hd);
+    __syncthreads();
+    tile_p_ds(a, Qs, dOs, Ks, Vs, lse_s, D_s, Ps, DSs, q0, k0, ld);
+    __syncthreads();
+#pragma unroll
+    for (int r = 0; r < NR; ++r) {
+      const int e = tid + kBwdThreads * r;
+      const int i = e / HDP, c = e % HDP;
+      if (c < hd) {
+        float acc = dq[r];
+        for (int j = 0; j < kBwdB; ++j)
+          acc = fmaf(DSs[i * kBwdLdp + j], Ks[j * ld + c], acc);
+        dq[r] = acc;
+      }
+    }
+  }
+  T* dq_out = static_cast<T*>(a.dq);
+#pragma unroll
+  for (int r = 0; r < NR; ++r) {
+    const int e = tid + kBwdThreads * r;
+    const int i = e / HDP, c = e % HDP;
+    if (c < hd && q0 + i < a.Sq)
+      st_f(dq_out + (((size_t)b * a.Sq + q0 + i) * a.H + h) * hd + c, dq[r]);
+  }
+}
+
+// parts: a mask of the launches to make (1 the D pre-pass, 2 dK and dV with
+// their group sum, 4 dQ); 7 is the backward, the others are for timing
+template <typename T, int NR>
+int launch_bwd(const BwdArgs& a, int parts, cudaStream_t stream) {
+  const int smem = (int)BwdLayout(a.hd).bytes();
+  auto dkdv = flash_bwd_dkdv<T, NR>;
+  auto dq = flash_bwd_dq<T, NR>;
+  cudaError_t err = cudaFuncSetAttribute(
+      dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(
+        dq, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const long long rows = (long long)a.B * a.Sq * a.H;
+  if (parts & 1) {
+    flash_bwd_delta<T><<<(unsigned)((rows + 7) / 8), 256, 0, stream>>>(a);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  }
+  if (parts & 2) {
+    dkdv<<<dim3((a.Sk + kBwdB - 1) / kBwdB, a.H, a.B), kBwdThreads, smem,
+           stream>>>(a);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    if (a.part != nullptr) {
+      const long long n = (long long)a.B * a.Sk * a.KV * a.hd;
+      flash_bwd_group_sum<T><<<(unsigned)((n + 255) / 256), 256, 0,
+                               stream>>>(a);
+      if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    }
+  }
+  if (parts & 4)
+    dq<<<dim3((a.Sq + kBwdB - 1) / kBwdB, a.H, a.B), kBwdThreads, smem,
+         stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_bwd_hd(const BwdArgs& a, int parts, cudaStream_t stream) {
+  if (a.hd <= 64) return launch_bwd<T, 8>(a, parts, stream);
+  if (a.hd <= 128) return launch_bwd<T, 16>(a, parts, stream);
+  return launch_bwd<T, 32>(a, parts, stream);
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v and o share it).  Returns the
 // cudaGetLastError of the launch (0 on success).
+// lse: (B, H, Sq) float32 or null (see Args::lse).
 extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    const void* v, void* o, int B, int Sq,
                                    int Sk, int H, int KV, int hd, int dtype,
                                    int causal, int window, float scale,
-                                   float cap, cudaStream_t stream) {
+                                   float cap, float* lse,
+                                   cudaStream_t stream) {
   if (B > 65535 || H > 65535 || KV <= 0 || H % KV != 0)
     return (int)cudaErrorInvalidValue;
-  Args a{q, k, v, o, B, Sq, Sk, H, KV, hd, causal, window, scale, cap};
+  Args a{q, k, v, o, B, Sq, Sk, H, KV, hd, causal, window, scale, cap, lse};
   if (dtype == 1) {
     if (hd % 16 != 0 || hd > 256) return (int)cudaErrorInvalidValue;
     if (hd <= 64) return launch_tc<64>(a, stream);
@@ -769,4 +1155,29 @@ extern "C" int flash_wgmma_probe(const void* a, const void* b, const void* v,
   wgmma_probe_kernel<<<1, 128, smem, stream>>>(
       ta, tb, tv, static_cast<const __nv_bfloat16*>(a), s, o);
   return (int)cudaGetLastError();
+}
+
+// The backward: q, k, v, o, dout and the outputs dq (like q), dk and dv
+// (like k) share dtype (0 = float32, 1 = bfloat16); lse (B, H, Sq) is the
+// forward's; delta is (B, H, Sq) float32 scratch; part is (2, B, Sk, H, hd)
+// float32 scratch when H > KV (null when H == KV); parts selects the
+// launches (see launch_bwd).  Returns the cudaGetLastError of the launches
+// (0 on success).
+extern "C" int flash_attention_bwd(const void* q, const void* k,
+                                   const void* v, const void* o,
+                                   const void* dout, const float* lse,
+                                   float* delta, void* dq, void* dk, void* dv,
+                                   float* part, int B, int Sq, int Sk, int H,
+                                   int KV, int hd, int dtype, int causal,
+                                   int window, float scale, float cap,
+                                   int parts, cudaStream_t stream) {
+  if (B > 65535 || H > 65535 || KV <= 0 || H % KV != 0 || hd < 1 ||
+      hd > 256)
+    return (int)cudaErrorInvalidValue;
+  if ((part == nullptr) != (H == KV)) return (int)cudaErrorInvalidValue;
+  BwdArgs a{q,  k,  v,  o,      dout,   lse,   delta, dq, dk, dv, part,
+            B,  Sq, Sk, H, KV, hd,   causal, window, scale, cap};
+  if (dtype == 1) return launch_bwd_hd<__nv_bfloat16>(a, parts, stream);
+  if (dtype == 0) return launch_bwd_hd<float>(a, parts, stream);
+  return (int)cudaErrorInvalidValue;
 }

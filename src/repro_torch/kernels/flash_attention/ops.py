@@ -4,20 +4,56 @@ A CPU tensor takes the plain PyTorch version (``ref.py``); a CUDA tensor
 launches the hand-written kernel (``kernel.py``) or raises, unless
 ``REPRO_LM_KERNELS`` pins the op to its plain version (``kernels/pin.py``).
 There is no fallback from the kernel to the plain version.
+
+When an operand requires grad (and grad mode is on) the call goes through
+`FlashAttention`, an autograd Function: its forward also keeps each row's
+log-sum-exp, and its backward is the backward kernel on a CUDA tensor and
+``ref.attention_bwd`` on a CPU tensor (or under the pin).  Otherwise the
+call is the forward alone, which writes no log-sum-exp.
 """
 
 from __future__ import annotations
+
+import torch
 
 from .. import pin
 from . import ref
 
 
+def _impl(q):
+    if pin.use_kernel("flash_attention", q):
+        from . import kernel
+        return kernel.flash_attention, kernel.flash_attention_bwd
+    return ref.attention, ref.attention_bwd
+
+
+class FlashAttention(torch.autograd.Function):
+    """Attention with its hand-written backward: saves q, k, v, the output
+    and the row log-sum-exps; dk and dv come summed over each KV head's
+    group of query heads."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, cap, scale):
+        fwd, _ = _impl(q)
+        opts = dict(causal=causal, window=window, cap=cap, scale=scale)
+        o, lse = fwd(q, k, v, return_lse=True, **opts)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.opts = opts
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        _, bwd = _impl(q)
+        dq, dk, dv = bwd(q, k, v, o, lse, do.contiguous(), **ctx.opts)
+        return dq, dk, dv, None, None, None, None
+
+
 def flash_attention(q, k, v, *, causal: bool = True, window=None, cap=None,
                     scale=None):
     """q (B, Sq, H, hd); k, v (B, Sk, KV, hd) -> (B, Sq, H, hd) in q's dtype."""
-    if pin.use_kernel("flash_attention", q):
-        from . import kernel
-        return kernel.flash_attention(q, k, v, causal=causal, window=window,
-                                      cap=cap, scale=scale)
-    return ref.attention(q, k, v, causal=causal, window=window, cap=cap,
-                         scale=scale)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttention.apply(q, k, v, causal, window, cap, scale)
+    fwd, _ = _impl(q)
+    return fwd(q, k, v, causal=causal, window=window, cap=cap, scale=scale)

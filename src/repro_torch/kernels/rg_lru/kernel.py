@@ -1,4 +1,5 @@
-"""Build, bind and launch the RG-LRU scan kernel (``csrc/rg_lru.cu``).
+"""Build, bind and launch the RG-LRU scan kernels (``csrc/rg_lru.cu``):
+the forward and its backward (the reverse recurrence).
 
 The wrapper checks device, dtype, shape and contiguity, launches on
 PyTorch's current stream, raises if ``cudaGetLastError`` reports a refused
@@ -18,11 +19,12 @@ from ..build import NvccLibrary, check_launch, need, ptr, stream
 _SRC = Path(__file__).resolve().parent / "csrc" / "rg_lru.cu"
 
 #: launches since the last `reset_launches` (the wrapper is the only writer)
-LAUNCHES = {"rglru_scan": 0}
+LAUNCHES = {"rglru_scan": 0, "rglru_scan_bwd": 0}
 
 
 def reset_launches() -> None:
-    LAUNCHES["rglru_scan"] = 0
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
 
 
 def launch_counts() -> dict[str, int]:
@@ -33,6 +35,8 @@ def _bind(handle: ctypes.CDLL) -> None:
     vp, i = ctypes.c_void_p, ctypes.c_int
     handle.rglru_scan.argtypes = [vp, vp, vp, vp, vp, i, i, i, vp]
     handle.rglru_scan.restype = ctypes.c_int
+    handle.rglru_scan_bwd.argtypes = [vp] * 8 + [i, i, i, vp]
+    handle.rglru_scan_bwd.restype = ctypes.c_int
 
 
 #: the step is spelled __fadd_rn(__fmul_rn(a, h), x): no flag needed
@@ -60,3 +64,28 @@ def rglru_scan(x: torch.Tensor, a: torch.Tensor, h0: torch.Tensor):
     check_launch(err, "rglru_scan")
     LAUNCHES["rglru_scan"] += 1
     return y, hT
+
+
+def rglru_scan_bwd(a: torch.Tensor, h: torch.Tensor, h0: torch.Tensor,
+                   dh: torch.Tensor, dhT: torch.Tensor | None = None):
+    """Same contract as ``ref.rglru_scan_bwd``: a, h (the forward's output),
+    dh (B, S, D) f32; h0 and dhT (or None) (B, D) f32 -> (dx, da (B, S, D),
+    dh0 (B, D)), all float32, bitwise equal to the plain reverse loop."""
+    B, S, D = a.shape
+    dev = a.device
+    need(a, "a", torch.float32, (B, S, D), dev)
+    need(h, "h", torch.float32, (B, S, D), dev)
+    need(dh, "dh", torch.float32, (B, S, D), dev)
+    need(h0, "h0", torch.float32, (B, D), dev)
+    if dhT is not None:
+        need(dhT, "dhT", torch.float32, (B, D), dev)
+    dx, da = torch.empty_like(a), torch.empty_like(a)
+    dh0 = torch.empty_like(h0)
+    if B == 0 or D == 0 or S == 0:
+        return dx, da, (dh0.copy_(dhT) if dhT is not None else dh0.zero_())
+    err = lib().rglru_scan_bwd(ptr(a), ptr(h), ptr(h0), ptr(dh),
+                               ptr(dhT) if dhT is not None else None,
+                               ptr(dx), ptr(da), ptr(dh0), B, S, D, stream(a))
+    check_launch(err, "rglru_scan_bwd")
+    LAUNCHES["rglru_scan_bwd"] += 1
+    return dx, da, dh0

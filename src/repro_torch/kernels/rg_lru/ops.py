@@ -4,17 +4,52 @@ A CPU tensor takes the plain PyTorch version (``ref.py``); a CUDA tensor
 launches the hand-written kernel (``kernel.py``) or raises, unless
 ``REPRO_LM_KERNELS`` pins the op to its plain version (``kernels/pin.py``).
 There is no fallback from the kernel to the plain version.
+
+When an operand requires grad (and grad mode is on) the call goes through
+`RGLRUScan`, an autograd Function whose backward is the backward kernel on
+a CUDA tensor and ``ref.rglru_scan_bwd`` on a CPU tensor (or under the
+pin); it saves a, the output h and h0.
 """
 
 from __future__ import annotations
+
+import torch
 
 from .. import pin
 from . import ref
 
 
-def rglru_scan(x, a, h0):
-    """x, a (B, S, D); h0 (B, D) f32 -> (h (B, S, D), hT (B, D) f32)."""
+def _impl(x):
     if pin.use_kernel("rglru_scan", x):
         from . import kernel
-        return kernel.rglru_scan(x, a, h0)
-    return ref.rglru_scan(x, a, h0)
+        return kernel.rglru_scan, kernel.rglru_scan_bwd
+    return ref.rglru_scan, ref.rglru_scan_bwd
+
+
+class RGLRUScan(torch.autograd.Function):
+    """The scan with its hand-written backward (the reverse recurrence)."""
+
+    @staticmethod
+    def forward(ctx, x, a, h0):
+        fwd, _ = _impl(x)
+        h, hT = fwd(x, a, h0)
+        ctx.save_for_backward(a, h, h0)
+        ctx.dtypes = (x.dtype, a.dtype, h0.dtype)
+        return h, hT
+
+    @staticmethod
+    def backward(ctx, dh, dhT):
+        a, h, h0 = ctx.saved_tensors
+        _, bwd = _impl(a)
+        dx, da, dh0 = bwd(a, h, h0, dh.float().contiguous(),
+                          dhT.float().contiguous())
+        return tuple(g.to(dt) for g, dt in zip((dx, da, dh0), ctx.dtypes))
+
+
+def rglru_scan(x, a, h0):
+    """x, a (B, S, D); h0 (B, D) f32 -> (h (B, S, D), hT (B, D) f32)."""
+    if torch.is_grad_enabled() and (x.requires_grad or a.requires_grad
+                                    or h0.requires_grad):
+        return RGLRUScan.apply(x, a, h0)
+    fwd, _ = _impl(x)
+    return fwd(x, a, h0)

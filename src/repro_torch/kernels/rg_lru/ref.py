@@ -1,4 +1,5 @@
-"""Plain PyTorch version of the RG-LRU recurrence: a sequential loop.
+"""Plain PyTorch version of the RG-LRU recurrence and of its backward:
+sequential loops.
 
 Each step is one multiply and one add, each rounded on its own (two
 separate tensor ops, so nothing fuses them), which is the arithmetic the
@@ -21,3 +22,23 @@ def rglru_scan(x: torch.Tensor, a: torch.Tensor, h0: torch.Tensor):
         h = af[:, t] * h + xf[:, t]
         ys[:, t] = h
     return ys.to(x.dtype), h
+
+
+def rglru_scan_bwd(a: torch.Tensor, h: torch.Tensor, h0: torch.Tensor,
+                   dh: torch.Tensor, dhT: torch.Tensor | None = None):
+    """Gradient of `rglru_scan` from the forward's ``h`` (B, S, D) and the
+    outputs' gradients ``dh`` (B, S, D) and ``dhT`` (B, D) or None:
+    (dx, da (B, S, D), dh0 (B, D)), float32.  The reverse loop: g = dh_t +
+    c, dx_t = g, da_t = g * h_{t-1} (h_{-1} = h0), c = a_t * g, from
+    c = dhT; dh0 is the last c.  One rounding per op, as the kernel's
+    ``__fadd_rn``/``__fmul_rn``."""
+    af, hf, dhf = a.float(), h.float(), dh.float()
+    h0f = h0.float()
+    c = dhT.float() if dhT is not None else torch.zeros_like(h0f)
+    dx, da = torch.empty_like(dhf), torch.empty_like(dhf)
+    for t in range(a.shape[1] - 1, -1, -1):
+        g = dhf[:, t] + c
+        dx[:, t] = g
+        da[:, t] = g * (hf[:, t - 1] if t > 0 else h0f)
+        c = af[:, t] * g
+    return dx, da, c

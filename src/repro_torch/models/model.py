@@ -14,6 +14,14 @@ and qwen2-vl's projected patches prepended to the text under M-RoPE
 positions.  A mixer or ffn the reference does not define raises
 ``NotImplementedError``.
 
+The scoring `forward`, `prefill` and `decode_step` run without autograd.
+The training pass is `forward_hidden` and `loss_fn`: differentiable, and
+under ``ArchConfig.remat`` each layer and each loss chunk runs under
+``torch.utils.checkpoint`` (recomputed in the backward), where the
+reference checkpoints its scanned body (the port's layers are a plain
+list, so it checkpoints per layer, head and tail layers included: the
+same gradients, one layer's activations alive at a time).
+
 The reference groups the layers as a head (the dense layers before the
 MoE ones), a repeating body stacked under ``lax.scan`` and a tail;
 PyTorch runs eagerly, so here the layers are a plain list walked by a
@@ -32,6 +40,7 @@ import math
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..core.engine.kernels import check_device
 from . import layers as L
@@ -45,9 +54,10 @@ def _unknown(kind: str) -> NotImplementedError:
 
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
-    """The reference's ArchConfig, field for field, without its training
-    knobs (``remat``, ``scan_unroll``) and its XLA attention's
-    ``query_chunk`` (the flash op tiles the whole sequence itself)."""
+    """The reference's ArchConfig, field for field, without ``scan_unroll``
+    (there is no scan to unroll) and its XLA attention's ``query_chunk``
+    (the flash op tiles the whole sequence itself).  ``remat`` checkpoints
+    the training pass (`forward_hidden`, `loss_fn`)."""
     name: str
     family: str                  # dense | moe | ssm | hybrid | vlm | audio
     n_layers: int
@@ -79,6 +89,7 @@ class ArchConfig:
     conv_width: int = 4
     vlm_patches: int = 0               # stub frontend: patches prepended
     subquadratic: bool = False         # supports long_500k decode
+    remat: bool = True
 
     @property
     def vocab_padded(self) -> int:
@@ -221,7 +232,10 @@ def _tree_map(fn, node):
 
 def _to_torch(x, device, g: int | None = None) -> torch.Tensor:
     """One leaf as a tensor (row ``g`` of a stacked leaf); bfloat16 numpy
-    arrays cross as their bits."""
+    arrays cross as their bits, a tensor (a restored checkpoint's leaf) as
+    it is."""
+    if isinstance(x, torch.Tensor):
+        return (x if g is None else x[g]).detach().clone().to(device)
     arr = np.asarray(x)
     if g is not None:
         arr = arr[g]
@@ -399,6 +413,68 @@ def forward(params: Params, cfg: ArchConfig, batch: dict):
     for bp, (mixer, ffn) in zip(params["layers"], cfg.layer_plan):
         x, _ = _apply_block(bp, x, cfg, mixer, ffn, positions, "train", None)
     return _lm_logits(params, cfg, x)
+
+
+def _train_block(bp: Params, x: torch.Tensor, cfg: ArchConfig, mixer: str,
+                 ffn: str, positions) -> torch.Tensor:
+    return _apply_block(bp, x, cfg, mixer, ffn, positions, "train", None)[0]
+
+
+def forward_hidden(params: Params, cfg: ArchConfig, batch: dict):
+    """The training pass's backbone: final hidden states (B, P + S, d),
+    before the LM head, with autograd.  Under ``cfg.remat`` (and grad mode)
+    each layer runs under ``torch.utils.checkpoint`` (non-reentrant): only
+    its input is kept, and its activations are recomputed in the
+    backward."""
+    x, positions = _embed(params, cfg, batch)
+    remat = cfg.remat and torch.is_grad_enabled()
+    for bp, (mixer, ffn) in zip(params["layers"], cfg.layer_plan):
+        if remat:
+            x = checkpoint(_train_block, bp, x, cfg, mixer, ffn, positions,
+                           use_reentrant=False)
+        else:
+            x = _train_block(bp, x, cfg, mixer, ffn, positions)
+    return x
+
+
+def _chunk_loss(params: Params, cfg: ArchConfig, x: torch.Tensor,
+                labels: torch.Tensor) -> torch.Tensor:
+    """Summed next-token cross entropy of one sequence chunk: the LM head,
+    the float32 logsumexp, minus the gold logit."""
+    logits = _lm_logits(params, cfg, x).float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    return torch.sum(lse - gold)
+
+
+def loss_fn(params: Params, cfg: ArchConfig, batch: dict,
+            seq_chunk: int = 512) -> torch.Tensor:
+    """Next-token cross entropy, the mean over tokens (times codebooks),
+    float32 logsumexp.  As the reference, the LM head and the loss run in
+    sequence chunks of ``seq_chunk`` (halved until it divides S), so the
+    full (B, S, vocab) logits never exist at once; under ``cfg.remat``
+    each chunk is checkpointed too, so one chunk's float32 logits are
+    alive at a time in the backward as well.  A vision model's patch
+    positions are sliced off before the head."""
+    x = forward_hidden(params, cfg, batch)
+    labels = batch["labels"]
+    if cfg.vlm_patches:
+        x = x[:, cfg.vlm_patches:]
+    B, S = x.shape[:2]
+    while S % seq_chunk != 0:
+        seq_chunk //= 2
+    remat = cfg.remat and torch.is_grad_enabled()
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(S // seq_chunk):
+        part = slice(i * seq_chunk, (i + 1) * seq_chunk)
+        if remat:
+            total = total + checkpoint(_chunk_loss, params, cfg, x[:, part],
+                                       labels[:, part], use_reentrant=False)
+        else:
+            total = total + _chunk_loss(params, cfg, x[:, part],
+                                        labels[:, part])
+    n_tok = B * S * (cfg.n_codebooks if cfg.n_codebooks > 1 else 1)
+    return total / n_tok
 
 
 def init_decode_state(cfg: ArchConfig, B: int, S_max: int,

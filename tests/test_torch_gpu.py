@@ -27,7 +27,12 @@ also runs at the other families' head shapes (GQA with KV > 1 and MHA at
 hd 128 and 64, gemma2's global layer at hd 256 with cap 50); the MoE's
 expert choices and dropped tokens on the card equal the CPU's; and each
 family's ``smoke()`` prefill on the card in float32 matches the CPU's
-within 1e-4.
+within 1e-4.  The backward kernels: flash's dq, dk, dv within 2e-2 (bf16)
+/ 2e-5 (f32) of the plain version's max magnitude and its forward's
+log-sum-exp against the plain one's, its autograd Function against the
+same Function pinned to the plain versions, the RG-LRU backward bitwise;
+``wkv6`` raising under autograd; and four smoke models' train step on the
+card against the CPU's.
 """
 
 import dataclasses
@@ -1265,3 +1270,231 @@ def test_rwkv_smoke_model_on_card_through_the_kernel(lm_kernels,
     res = batcher.serve(prompts, 6)
     assert all(r is not None and len(r) == 6 for r in res)
     assert wk.LAUNCHES["wkv6"] == L * steps[0] > 0
+
+
+# ----------------------------------------------------------------------
+# backward kernels: flash attention and the RG-LRU scan
+# ----------------------------------------------------------------------
+
+FLASH_BWD_CARD_CASES = [
+    # (B, Sq, Sk, H, KV, hd), dtype, opts: MQA with a window (the
+    # training shape's kind), gemma2's GQA 8/4 at hd 256 with cap 50, MHA
+    # at hd 128, ragged S with a window edge inside a tile, Sq != Sk, float32
+    # at a narrow width, hd 64 non-causal with a cap
+    ((1, 300, 300, 10, 1, 256), "bfloat16", dict(causal=True, window=100)),
+    ((1, 200, 200, 8, 4, 256), "bfloat16", dict(causal=True, cap=50.0)),
+    ((2, 160, 160, 4, 4, 128), "bfloat16", dict(causal=True)),
+    ((2, 77, 77, 4, 2, 64), "bfloat16", dict(causal=True, window=19)),
+    ((1, 70, 130, 4, 1, 64), "bfloat16", dict(causal=False, cap=20.0)),
+    ((2, 65, 65, 4, 2, 16), "float32", dict(causal=True, window=20)),
+    ((1, 50, 90, 6, 3, 40), "float32", dict(causal=False, cap=5.0)),
+]
+
+
+def _rel_max(got, want):
+    return float((got.float() - want.float()).abs().max()
+                 / want.float().abs().max())
+
+
+@pytest.mark.parametrize("shape,dtype,opts", FLASH_BWD_CARD_CASES)
+def test_flash_backward_kernel_matches_plain(lm_kernels, shape, dtype,
+                                             opts):
+    """dq, dk, dv of the backward kernel against ``ref.attention_bwd`` on the
+    same q, k, v, o, lse and do (the kernel forward's o and lse): max
+    |diff| within 2e-2 (bf16) / 2e-5 (f32) of the plain version's max
+    magnitude; the forward's lse against the plain one's."""
+    from repro_torch.kernels.flash_attention import ref as fref
+    fk = lm_kernels[0]
+    B, Sq, Sk, H, KV, hd = shape
+    rng = np.random.default_rng(sum(shape) + 7)
+    dt = getattr(torch, dtype)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal(s, np.float32)).to(
+        "cuda", dt) for s in ((B, Sq, H, hd), (B, Sk, KV, hd),
+                              (B, Sk, KV, hd), (B, Sq, H, hd)))
+    o, lse = fk.flash_attention(q, k, v, return_lse=True, **opts)
+    _, lse_plain = fref.attention(q, k, v, return_lse=True, **opts)
+    torch.testing.assert_close(lse, lse_plain, rtol=1e-4, atol=1e-4)
+    before = fk.LAUNCHES["flash_attention_bwd"]
+    got = fk.flash_attention_bwd(q, k, v, o, lse, do, **opts)
+    torch.cuda.synchronize()
+    assert fk.LAUNCHES["flash_attention_bwd"] == before + 1
+    want = fref.attention_bwd(q, k, v, o, lse, do, **opts)
+    tol = 2e-2 if dtype == "bfloat16" else 2e-5
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == dt and bool(torch.isfinite(g.float()).all()), name
+        assert _rel_max(g, w) <= tol, (name, _rel_max(g, w))
+
+
+def test_flash_autograd_on_the_card_matches_plain(lm_kernels, monkeypatch):
+    """``ops.flash_attention`` under autograd: the Function's kernel pair
+    against the same Function pinned to the plain versions."""
+    from repro_torch.kernels import pin
+    from repro_torch.kernels.flash_attention import ops as fops
+    fk = lm_kernels[0]
+    rng = np.random.default_rng(5)
+    shapes = ((1, 130, 10, 256), (1, 130, 1, 256), (1, 130, 1, 256))
+    base = [torch.from_numpy(rng.standard_normal(s, np.float32)).to(
+        "cuda", torch.bfloat16) for s in shapes]
+    do = torch.from_numpy(rng.standard_normal(shapes[0], np.float32)).to(
+        "cuda", torch.bfloat16)
+    grads = []
+    for plain in (False, True):
+        if plain:
+            monkeypatch.setenv(pin.PIN_ENV, "plain")
+        leaves = [t.clone().requires_grad_() for t in base]
+        before = dict(fk.LAUNCHES)
+        out = fops.flash_attention(*leaves, causal=True, window=50)
+        out.backward(do)
+        launched = {k: fk.LAUNCHES[k] - before[k] for k in before}
+        assert launched == ({"flash_attention": 0, "flash_attention_bwd": 0}
+                            if plain else {"flash_attention": 1,
+                                           "flash_attention_bwd": 1})
+        grads.append([t.grad for t in leaves])
+    for g, w in zip(*grads):
+        assert _rel_max(g, w) <= 2e-2
+
+
+@pytest.mark.parametrize("shape", [(1, 4096, 2560), (4, 1000, 300),
+                                   (2, 1, 77), (1, 9, 31), (3, 65, 2561)])
+def test_rglru_backward_kernel_bitwise_equal_to_plain(lm_kernels, shape):
+    from repro_torch.kernels.rg_lru import ref as rref
+    rk = lm_kernels[1]
+    B, S, D = shape
+    rng = np.random.default_rng(S + D + 1)
+
+    def t(a):
+        return torch.from_numpy(np.asarray(a, np.float32)).cuda()
+    a = t(rng.uniform(0.5, 0.999, shape))
+    x = t(rng.standard_normal(shape))
+    h0 = t(rng.standard_normal((B, D)))
+    h, _ = rk.rglru_scan(x, a, h0)
+    dh = t(rng.standard_normal(shape))
+    for dhT in (t(rng.standard_normal((B, D))), None):
+        before = rk.LAUNCHES["rglru_scan_bwd"]
+        got = rk.rglru_scan_bwd(a, h, h0, dh, dhT)
+        torch.cuda.synchronize()
+        assert rk.LAUNCHES["rglru_scan_bwd"] == before + 1
+        want = rref.rglru_scan_bwd(a, h, h0, dh, dhT)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+
+
+def test_wkv6_under_autograd_on_the_card_raises(lm_kernels):
+    from repro_torch.kernels.rwkv6 import ops as wops
+    r, k, v, w, u, s0 = _wkv_inputs(1, 8, 2, 16, "float32", 3)
+    r.requires_grad_()
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        wops.wkv6(r, k, v, w, u, s0)
+    with torch.no_grad():
+        wops.wkv6(r, k, v, w, u, s0)
+
+
+# ----------------------------------------------------------------------
+# training: one train step on the card against the same on the CPU
+# ----------------------------------------------------------------------
+
+@pytest.mark.parametrize("arch", ["recurrentgemma_2b", "gemma2_2b",
+                                  "deepseek_moe_16b", "qwen2_vl_7b"])
+def test_train_step_on_the_card_matches_cpu(lm_kernels, arch):
+    """A smoke model's train step in float32 (two microbatches, then AdamW)
+    from the same weights and batch: on the card through the forward and
+    backward kernels, on the CPU through their plain versions.  Loss within
+    1e-5 and grad_norm within 1e-4 (relative), every gradient leaf within
+    1e-4 of its largest element.  The update: the first step's ``m``
+    (0.1 g s, s the clip factor) within 2e-4 of each leaf's largest and
+    ``v`` (0.05 g^2 s^2) within 4e-4, the margins the gradient limit and
+    the grad_norm limit leave (|g1^2 - g2^2| <= |g1 - g2| 2 max|g|); the
+    parameters and the float32 master after the step within 1e-3 lr
+    wherever |g| is at least 1e-3 of its leaf's largest (there the step
+    is lr sign(g) plus the weight decay on both sides), and everywhere
+    within 2 lr (near g = 0 float32 sums in another order can flip the
+    sign of g, and the step with it)."""
+    from repro_torch import configs
+    from repro_torch.data import DataConfig, make_batch
+    from repro_torch.models import model as M
+    from repro_torch.optim import (AdamWConfig, apply_updates, init_state,
+                                   tree_leaves, tree_map)
+    from repro_torch.train import loss_and_grads
+    fk, rk, _ = lm_kernels
+    cfg = configs.get_smoke(arch)
+    ocfg = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+    base = M.init_params(cfg, torch.Generator().manual_seed(3),
+                         device="cpu", dtype=torch.float32)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        params = tree_map(lambda t: t.clone().to(dev), base)
+        opt = init_state(ocfg, params)
+        batch = make_batch(cfg, DataConfig(seed=4), 0, 4, 40, device=dev)
+        before = {**fk.LAUNCHES, **rk.LAUNCHES}
+        loss, grads = loss_and_grads(params, cfg, batch, microbatches=2)
+        params, opt, m = apply_updates(ocfg, params, grads, opt)
+        torch.cuda.synchronize()
+        after = {**fk.LAUNCHES, **rk.LAUNCHES}
+        out[dev] = (dict(loss=float(loss), lr=float(m["lr"]),
+                         grad_norm=float(m["grad_norm"])),
+                    [g.cpu() for g in grads],
+                    {k: [t.cpu() for t in tree_leaves(tree)]
+                     for k, tree in (("params", params), ("m", opt["m"]),
+                                     ("v", opt["v"]),
+                                     ("master", opt["master"]))},
+                    {k: after[k] - before[k] for k in after})
+    (mc, gc, sc, _), (mg, gg, sg, launched) = out["cpu"], out["cuda"]
+    n_attn = sum(mx in ("attn", "local") for mx, _ in cfg.layer_plan)
+    n_rec = sum(mx == "rglru" for mx, _ in cfg.layer_plan)
+    # remat: each layer's forward twice a microbatch, its backward once
+    assert launched == {"flash_attention": 4 * n_attn,
+                        "flash_attention_bwd": 2 * n_attn,
+                        "rglru_scan": 4 * n_rec, "rglru_scan_bwd": 2 * n_rec}
+    assert abs(mg["loss"] - mc["loss"]) <= 1e-5 * abs(mc["loss"])
+    assert abs(mg["grad_norm"] - mc["grad_norm"]) <= 1e-4 * mc["grad_norm"]
+    assert mg["lr"] == mc["lr"]
+    for g, c in zip(gg, gc):
+        assert float((g - c).abs().max()) <= 1e-4 * float(c.abs().max())
+    for key, tol in (("m", 2e-4), ("v", 4e-4)):
+        for i, (g, c) in enumerate(zip(sg[key], sc[key])):
+            assert float((g - c).abs().max()) <= tol * float(c.abs().max()), \
+                (key, i)
+    for key in ("params", "master"):
+        for i, (g, c, gr) in enumerate(zip(sg[key], sc[key], gc)):
+            diff = (g - c).abs()
+            assert float(diff.max()) <= 2 * ocfg.lr, (key, i)
+            clear = gr.abs() >= 1e-3 * float(gr.abs().max())
+            assert float(diff[clear].max()) <= 1e-3 * ocfg.lr, (key, i)
+
+
+def test_remat_off_on_the_card(lm_kernels):
+    """``remat=False`` on the card: each layer's forward kernel runs once a
+    microbatch (twice under remat), and the loss and gradients equal
+    ``remat=True``'s bit for bit (the recomputation repeats the same
+    launches on the same inputs)."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.data import DataConfig, make_batch
+    from repro_torch.models import model as M
+    from repro_torch.optim import tree_map
+    from repro_torch.train import loss_and_grads
+    fk, rk, _ = lm_kernels
+    cfg = configs.get_smoke("recurrentgemma_2b")
+    base = M.init_params(cfg, torch.Generator().manual_seed(3),
+                         device="cpu", dtype=torch.float32)
+    batch = make_batch(cfg, DataConfig(seed=4), 0, 4, 40, device="cuda")
+    n_attn = sum(mx in ("attn", "local") for mx, _ in cfg.layer_plan)
+    n_rec = sum(mx == "rglru" for mx, _ in cfg.layer_plan)
+    out = {}
+    for remat in (True, False):
+        params = tree_map(lambda t: t.clone().cuda(), base)
+        before = {**fk.LAUNCHES, **rk.LAUNCHES}
+        out[remat] = loss_and_grads(
+            params, dataclasses.replace(cfg, remat=remat), batch,
+            microbatches=2)
+        torch.cuda.synchronize()
+        after = {**fk.LAUNCHES, **rk.LAUNCHES}
+        fwd = 2 if remat else 1
+        assert {k: after[k] - before[k] for k in after} == {
+            "flash_attention": 2 * fwd * n_attn,
+            "flash_attention_bwd": 2 * n_attn,
+            "rglru_scan": 2 * fwd * n_rec, "rglru_scan_bwd": 2 * n_rec}
+    assert torch.equal(out[True][0], out[False][0])
+    for on, off in zip(out[True][1], out[False][1]):
+        assert torch.equal(on, off)

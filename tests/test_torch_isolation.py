@@ -149,6 +149,50 @@ def test_cuda_without_a_card_raises_at_the_model_helpers(arch):
         Batcher(params, cfg, ServeConfig(batch=1, max_seq=8))
 
 
+def test_cuda_without_a_card_raises_at_the_training_entry_points(tmp_path):
+    """The training slice's entry points default to the card too:
+    ``init_train_state``, ``make_batch``, the step ``make_train_step``
+    returns, ``opt_state_from_jax``, ``ckpt.restore``, ``schedule_pipeline``
+    and ``examples/torch_train_lm.py``; each runs with ``device="cpu"``."""
+    _no_card()
+    from repro_torch import configs
+    from repro_torch.ckpt import restore, save
+    from repro_torch.data import DataConfig, make_batch
+    from repro_torch.optim import opt_state_from_jax
+    from repro_torch.train import (TrainConfig, init_train_state,
+                                   make_train_step, schedule_pipeline)
+
+    cfg = configs.get_smoke("recurrentgemma_2b")
+    tcfg = TrainConfig()
+    gen = torch.Generator().manual_seed(0)
+    with pytest.raises(RuntimeError, match="cuda"):
+        init_train_state(cfg, tcfg, gen)
+    with pytest.raises(RuntimeError, match="cuda"):
+        make_batch(cfg, DataConfig(), 0, 1, 8)
+    with pytest.raises(RuntimeError, match="cuda"):
+        opt_state_from_jax(cfg, {"step": 0})
+    with pytest.raises(RuntimeError, match="cuda"):
+        schedule_pipeline(2, 2, 1.0)
+    params, opt = init_train_state(cfg, tcfg, gen, dtype=torch.float32,
+                                   device="cpu")
+    batch = make_batch(cfg, DataConfig(), 0, 1, 8, device="cpu")
+    with pytest.raises(RuntimeError, match="cuda"):
+        make_train_step(cfg, tcfg)(params, opt, batch)
+    save(str(tmp_path), 1, params)
+    with pytest.raises(RuntimeError, match="cuda"):
+        restore(str(tmp_path))
+    assert restore(str(tmp_path), device="cpu")[0] == 1
+    assert schedule_pipeline(2, 2, 1.0, device="cpu").makespan > 0
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
+               PYTHONPATH=os.path.join(ROOT, "src"))
+    proc = subprocess.run(
+        [sys.executable, os.path.join(ROOT, "examples", "torch_train_lm.py"),
+         "--steps", "1"], capture_output=True, text=True, timeout=120,
+        env=env, cwd=str(tmp_path))
+    assert proc.returncode != 0 and "cuda" in proc.stderr
+    assert "step" not in proc.stdout
+
+
 @pytest.mark.parametrize("where", ["repo", "alone"])
 def test_chip_smoke_refuses_without_a_card(where, tmp_path):
     _no_card()
