@@ -2687,7 +2687,8 @@ def flash_bwd_case(label, shape, dtype, opts, seed, timed=True) -> dict:
     within `FLASH_BWD_TOL`, lse within `FLASH_LSE_TOL`), then the backward
     kernel on the kernel forward's o and lse against ``ref.attention_bwd``
     on the plain forward's: dq, dk and dv within `FLASH_BWD_TOL` of the
-    plain version's max magnitude; then (``timed``) the kernel (and the
+    plain version's max magnitude, and a second call bitwise equal to the
+    first; then (``timed``) the kernel (and the
     cumulative times of its three launches), the forward with its
     log-sum-exp, the plain version and SDPA's backward timed.  Untimed, it
     returns the backward's errors unchecked (the mutant control reads
@@ -2733,6 +2734,11 @@ def flash_bwd_case(label, shape, dtype, opts, seed, timed=True) -> dict:
     check(all(e <= tol for e in errs.values()),
           f"flash_attention_bwd {label}: {errs} over the plain version's "
           f"max (limit {tol})")
+    # no atomics: a second call gives the same bits
+    again = kernel.flash_attention_bwd(q, k, v, o, lse, do, **opts)
+    check(all(torch.equal(g, a) for g, a in zip(got, again)),
+          f"flash_attention_bwd {label}: two calls differ")
+    del again
     mask = ref.live_mask(Sq, Sk, causal=opts.get("causal", True),
                          window=opts.get("window"), device="cuda")
     live = int(mask.sum())
@@ -2782,7 +2788,8 @@ def flash_bwd_case(label, shape, dtype, opts, seed, timed=True) -> dict:
         rel_err=json.dumps({k: f"{e:.3e}" for k, e in errs.items()},
                             separators=(",", ":")), tol=tol,
         fwd_o_err=f"{o_err:.3e}", fwd_lse_err=f"{lse_err:.3e}",
-        ms=round(ms, 6), **{k: round(t, 6) for k, t in split.items()},
+        repeat_bitwise=True, ms=round(ms, 6),
+        **{k: round(t, 6) for k, t in split.items()},
         fwd_lse_ms=round(fwd_ms, 6),
         plain_ms=round(plain, 6),
         library_ms=None if lib is None else round(lib, 6),

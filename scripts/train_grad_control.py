@@ -54,16 +54,15 @@ ROOT = Path(__file__).resolve().parents[1]
 # above it
 MUTANTS = {
     # the backward without D: dS = P dP instead of P (dP - D)
-    "no_delta": ("flash", r"p \* \(dp - D_s\[i\]\)", "p * dp", 1),
+    "no_delta": ("flash", r"p \* \(dp - D\) \* dcap", "p * dp * dcap", 1),
     # dK and dV from the first query head of each KV group only
     "group_not_summed": ("flash", r"hh < rep; \+\+hh", "hh < 1; ++hh", 1),
     # the soft-cap's derivative (1 - tanh^2) dropped
-    "cap_derivative_dropped": ("flash", r"dcap = 1\.f - t \* t;",
+    "cap_derivative_dropped": ("flash", r"dcap = 1\.f - th \* th;",
                                "dcap = 1.f;", 1),
     # da_t = g_t h_t instead of g_t h_{t-1}: the saved state one step late
-    "rglru_shifted": ("rglru",
-                      r"t > 0 \? hp \+ \(size_t\)\(t - 1\) \* stride : h0p",
-                      "hp + (size_t)t * stride", 1),
+    "rglru_shifted": ("rglru", r"const int shift = 1;",
+                      "const int shift = 0;", 1),
 }
 #: the models each variant is read on: every variant on recurrentgemma-2b;
 #: the sound one and the cap mutant on gemma2-2b too

@@ -621,6 +621,15 @@ EncodeTiledFn encode_tiled() {
   return fn;
 }
 
+// Make the device that holds p current on this thread:
+// cuTensorMapEncodeTiled needs a current context, which a thread that has
+// made no CUDA call yet (the autograd engine's, for one) lacks.
+bool bind_device(const void* p) {
+  cudaPointerAttributes attr;
+  return cudaPointerGetAttributes(&attr, p) == cudaSuccess &&
+         cudaSetDevice(attr.device) == cudaSuccess;
+}
+
 // bf16 tensor of `dims` (innermost first) with byte strides of dims 1..n-1,
 // read in boxes of `box`, 128-byte swizzled, zeros past every edge
 bool make_map(CUtensorMap* map, const void* ptr, int rank,
@@ -650,7 +659,7 @@ bool make_bshd_map(CUtensorMap* map, const void* ptr, int B, int S, int NH,
 template <int HDP>
 int launch_tc(const Args& a, cudaStream_t stream) {
   CUtensorMap tq, tk, tv;
-  if (!make_bshd_map(&tq, a.q, a.B, a.Sq, a.H, a.hd) ||
+  if (!bind_device(a.q) || !make_bshd_map(&tq, a.q, a.B, a.Sq, a.H, a.hd) ||
       !make_bshd_map(&tk, a.k, a.B, a.Sk, a.KV, a.hd) ||
       !make_bshd_map(&tv, a.v, a.B, a.Sk, a.KV, a.hd))
     return (int)cudaErrorInvalidValue;
@@ -745,7 +754,7 @@ __global__ void __launch_bounds__(128, 1)
 
 
 // ---------------------------------------------------------------------------
-// backward: FlashAttention-2's three steps on the CUDA cores
+// backward
 // ---------------------------------------------------------------------------
 //
 // No TPU kernel to replace: the JAX package has no backward kernel and
@@ -760,36 +769,72 @@ __global__ void __launch_bounds__(128, 1)
 // (the tanh factor is 1 without a cap), dK and dV of a KV head summed over
 // the H/KV query heads that read it.  Three launches (four under GQA/MQA):
 //   flash_bwd_delta: D, one warp a (batch, query, head) row;
-//   flash_bwd_dkdv: one block per 32-key tile and query head; it loops over
-//     the 32-row query tiles that the causal mask and the window leave
-//     live, with dK and dV in registers, and stores them (H == KV) or its
-//     head's float32 partials, (B, Sk, H, hd) each;
+//   dK/dV: one block per key tile and query head; it loops over the query
+//     tiles that the causal mask and the window leave live, with dK and dV
+//     in registers, and stores them (H == KV) or its head's float32
+//     partials, (B, Sk, H, hd) each;
 //   flash_bwd_group_sum (H > KV): each KV head's dK and dV, the partials
 //     of its H/KV query heads summed in head order;
-//   flash_bwd_dq: one block per 32-row query tile and head; it loops over
-//     the live key tiles (the forward's live_tiles), dQ in registers.
+//   dQ: one block per query tile and head; it loops over the live key
+//     tiles (the forward's live_tiles), dQ in registers.
 // A dK/dV block per query head, not per KV head, gives MQA many blocks of
-// about equal work (1,280 at the training shape instead of 128, where the
-// key tiles near the end see fewer query tiles).  Every output element has
-// one writer: no atomics, so the result does not depend on the order the
-// blocks run in.  Operands are staged in shared memory as float32 (bf16
-// converted on load) and every sum is float32.  At
-// hd 256 the two 32 x 256 accumulators of dK and dV take 64 registers a
-// thread of 256: 32-key tiles keep them there; Q, dO, K and V take 32 KB
-// of shared memory each.  Ragged edges: rows and keys past Sq and Sk load
-// as zeros, get P = 0 and are not stored.
+// about equal work.  Every output element has one writer: no atomics, so
+// two calls give the same bits whatever order the blocks run in (the
+// checkpoint resume rests on that).  The price is that the dQ pass
+// recomputes S and dP: a live (query, key) pair costs seven hd-long
+// products where five would do (S, dP, dV, dK, dQ), so this design's
+// ceiling is 5/7 of the tensor-core peak against a bound that counts five.
+//
+// bfloat16 (the training path): warp-specialised Hopper kernels in the
+// forward's mould.  64-row tiles come by TMA (64 x 64 boxes, 128-byte
+// swizzle) into mbarrier rings that one producer thread keeps full; the
+// products are wgmma with float32 accumulators; setmaxnreg gives the
+// producer warpgroup's registers to the consumers.
+//   flash_bwd_dkdv_tc: 384 threads per (64-key tile, query head, batch).
+//     K and V stay resident; Q and dO of each live 64-row query tile come
+//     through a ring of two stages.  Consumer c (0 or 1) computes S^T = K
+//     Q^T and dP^T = V dO^T for query columns [32c, 32c + 32)
+//     (wgmma.m64n32k16, both operands K-major), P^T and dS^T from them in
+//     float32 registers, and writes both, rounded to bf16, to shared
+//     memory in the 128-byte swizzled K-major layout TMA writes.  After a
+//     named barrier consumer 0 accumulates dV += P^T dO and consumer 1
+//     dK += dS^T Q (wgmma.m64n{HDP}k16, A from shared memory, B = dO or Q
+//     MN-major as V in the forward).  So each consumer holds one 64 x HDP
+//     float32 accumulator, 128 registers a thread at hd 256, where dK and
+//     dV together would need 256.  Shared memory at hd 256: K and V 64 KB,
+//     two stages of Q and dO 128 KB, P^T and dS^T 16 KB.
+//   flash_bwd_dq_tc: NC consumer warpgroups of 64 query rows, 128 (NC + 1)
+//     threads per (64 NC-row query tile, head, batch): NC = 1 at hd 256,
+//     where Q and dO take 64 KB and K and V 64 KB a stage, and 2 at hd
+//     <= 128.  Q and dO stay resident; K and V of each live key tile come
+//     through a ring of two stages.  S = Q K^T and dP = dO V^T by
+//     wgmma.m64n64k16, P and dS in float32 registers, dS rounded to bf16
+//     as the register A operand of dQ += dS K (K MN-major).  As in the
+//     forward, a consumer skips the products of a key tile wholly masked
+//     for its rows.
+// The one rounding these add is P and dS to bf16 before their products
+// (`ref.attention_bwd(..., tile_dtype=torch.bfloat16)` is its plain
+// twin); every sum is float32.  hd is padded to HDP = 64, 128 or 256 as in
+// the forward: TMA zero-fills columns past hd and rows past Sq and Sk, P
+// is 0 on pairs that the mask or a ragged edge drops, and only columns
+// < hd and rows < Sq (keys < Sk) are stored.
 //
 // What bounds it on an H100: at the training shape (B=1, S=4096, H=10,
-// KV=1, hd=256, causal, window 2048) the live pairs need about 2.5x the
-// forward's operations, some 161 GFLOP: 0.163 ms at the bf16 tensor-core
-// peak.  This simple design runs its seven hd-long products per tile on
-// the CUDA cores from shared memory (one operand broadcast, the other one
-// 128-byte row a warp), so it is bound by shared-memory loads, far above
-// that bound: wgmma and TMA are later work.
+// KV=1, hd=256, causal, window 2048) the live pairs need five hd-long
+// products, some 161 GFLOP: 0.163 ms at the bf16 tensor-core peak, and
+// this design's seven make it 0.228 ms.  MQA's float32 partials add 84 MB
+// written by the dK/dV launch and read by the group sum.
+//
+// float32 (no card path trains in float32): the first design on the CUDA
+// cores, 32 x 32 tiles staged in shared memory as float32 and float32
+// FMAs, so float32 keeps float32 accuracy.  Its hd-long passes read one
+// operand broadcast and one row a warp from shared memory: it is bound by
+// shared-memory loads.
 
 constexpr int kBwdThreads = 256;
-constexpr int kBwdB = 32;  // query rows and keys per tile
+constexpr int kBwdB = 32;  // float32: query rows and keys per tile
 constexpr int kBwdLdp = kBwdB + 1;
+constexpr int kBwdTile = 64;  // bfloat16: keys per dK/dV block, rows per consumer
 
 struct BwdArgs {
   const void* q;
@@ -823,6 +868,25 @@ __device__ __forceinline__ void st_f(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16_rn(x);
 }
 
+__device__ __forceinline__ bool pair_live(const BwdArgs& a, int qp, int kp) {
+  return qp < a.Sq && kp < a.Sk && !(a.causal && qp < kp) &&
+         !(a.window > 0 && qp - kp >= a.window);
+}
+
+// the query tiles [qlo, qhi) of BT rows that see a key of [k0, k0 + BT):
+// causal, rows >= k0; a window, rows <= k0 + BT - 1 + window - 1
+template <int BT>
+__device__ inline void query_tiles(const BwdArgs& a, int k0, int& qlo,
+                                   int& qhi) {
+  const int nq = (a.Sq + BT - 1) / BT;
+  qlo = a.causal ? k0 / BT : 0;
+  qhi = nq;
+  if (a.window > 0) {
+    const long long last = (long long)k0 + BT - 1 + a.window - 1;
+    if (last / BT + 1 < qhi) qhi = (int)(last / BT + 1);
+  }
+}
+
 // D_i = sum_c dO_ic O_ic, one warp per row of the (B, Sq, H) rows
 template <typename T>
 __global__ void __launch_bounds__(256) flash_bwd_delta(const BwdArgs a) {
@@ -844,6 +908,30 @@ __global__ void __launch_bounds__(256) flash_bwd_delta(const BwdArgs a) {
   }
 }
 
+// dK and dV of each (batch, key, KV head) column: the float32 partials of
+// the group's query heads summed in head order, one thread an element
+template <typename T>
+__global__ void __launch_bounds__(256) flash_bwd_group_sum(const BwdArgs a) {
+  const long long n = (long long)a.B * a.Sk * a.KV * a.hd;
+  const long long e = (long long)blockIdx.x * 256 + threadIdx.x;
+  if (e >= n) return;
+  const int rep = a.H / a.KV, c = (int)(e % a.hd);
+  const long long row = e / a.hd;  // (b * Sk + key) * KV + kvh
+  const int kvh = (int)(row % a.KV);
+  const size_t part_n = (size_t)a.B * a.Sk * a.H * a.hd;
+  const float* pk =
+      a.part + ((size_t)(row / a.KV) * a.H + (size_t)kvh * rep) * a.hd + c;
+  float sk = 0.f, sv = 0.f;
+  for (int hh = 0; hh < rep; ++hh) {
+    sk += pk[(size_t)hh * a.hd];
+    sv += pk[part_n + (size_t)hh * a.hd];
+  }
+  st_f(static_cast<T*>(a.dk) + e, sk);
+  st_f(static_cast<T*>(a.dv) + e, sv);
+}
+
+// ---- float32: CUDA cores ------------------------------------------------
+
 // shared memory of both tile kernels: Q, dO, K, V tiles (32 rows of hd + 1
 // floats), P and dS (32 x 33), lse and D of the query rows
 struct BwdLayout {
@@ -855,16 +943,15 @@ struct BwdLayout {
   }
 };
 
-// rows [s0, s0 + 32) of head `head` of a (B, S, NH, hd) tensor, as float32
-// with row stride ld; rows past S are zero
-template <typename T>
-__device__ void load_tile(float* dst, int ld, const T* src, int b, int s0,
+// rows [s0, s0 + 32) of head `head` of a (B, S, NH, hd) tensor, with row
+// stride ld; rows past S are zero
+__device__ void load_tile(float* dst, int ld, const float* src, int b, int s0,
                           int S, int NH, int head, int hd) {
   for (int e = threadIdx.x; e < kBwdB * hd; e += kBwdThreads) {
     const int r = e / hd, c = e % hd;
     const int s = s0 + r;
-    dst[r * ld + c] =
-        s < S ? ld_f(src + (((size_t)b * S + s) * NH + head) * hd + c) : 0.f;
+    dst[r * ld + c] = s < S ? src[(((size_t)b * S + s) * NH + head) * hd + c]
+                            : 0.f;
   }
 }
 
@@ -896,16 +983,13 @@ __device__ void tile_p_ds(const BwdArgs& a, const float* Qs, const float* dOs,
       s = fmaf(qr[c], kr[c], s);
       dp = fmaf(dr[c], vr[c], dp);
     }
-    const int qp = q0 + i, kp = k0 + j;
-    const bool live = qp < a.Sq && kp < a.Sk && !(a.causal && qp < kp) &&
-                      !(a.window > 0 && qp - kp >= a.window);
     float x = s * a.scale, dcap = 1.f;
     if (a.cap > 0.f) {
       const float t = tanhf(x / a.cap);
       x = a.cap * t;
       dcap = 1.f - t * t;
     }
-    const float p = live ? expf(x - lse_s[i]) : 0.f;
+    const float p = pair_live(a, q0 + i, k0 + j) ? expf(x - lse_s[i]) : 0.f;
     Ps[i * kBwdLdp + j] = p;
     DSs[i * kBwdLdp + j] = p * (dp - D_s[i]) * dcap * a.scale;
   }
@@ -914,9 +998,9 @@ __device__ void tile_p_ds(const BwdArgs& a, const float* Qs, const float* dOs,
 // HDP = NR * 256 / 32 columns (64, 128 or 256): thread t owns elements
 // e = t + 256 r (r < NR) of a 32 x HDP accumulator, row e / HDP, column
 // e % HDP (a warp: one row, 32 consecutive columns)
-template <typename T, int NR>
+template <int NR>
 __global__ void __launch_bounds__(kBwdThreads, 1)
-    flash_bwd_dkdv(const BwdArgs a) {
+    flash_bwd_dkdv_f32(const BwdArgs a) {
   constexpr int HDP = NR * kBwdThreads / kBwdB;
   extern __shared__ __align__(16) unsigned char smem[];
   const int hd = a.hd, ld = BwdLayout(hd).ld, tid = threadIdx.x;
@@ -930,22 +1014,18 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
   float* D_s = lse_s + kBwdB;
   const int k0 = blockIdx.x * kBwdB, h = blockIdx.y, b = blockIdx.z;
   const int kvh = h / (a.H / a.KV);
-  const T* q = static_cast<const T*>(a.q);
-  const T* dout = static_cast<const T*>(a.dout);
-  load_tile(Ks, ld, static_cast<const T*>(a.k), b, k0, a.Sk, a.KV, kvh, hd);
-  load_tile(Vs, ld, static_cast<const T*>(a.v), b, k0, a.Sk, a.KV, kvh, hd);
+  const float* q = static_cast<const float*>(a.q);
+  const float* dout = static_cast<const float*>(a.dout);
+  load_tile(Ks, ld, static_cast<const float*>(a.k), b, k0, a.Sk, a.KV, kvh,
+            hd);
+  load_tile(Vs, ld, static_cast<const float*>(a.v), b, k0, a.Sk, a.KV, kvh,
+            hd);
 
   float dk[NR], dv[NR];
 #pragma unroll
   for (int r = 0; r < NR; ++r) dk[r] = dv[r] = 0.f;
-  // the query tiles that see a key of [k0, k0 + 32): causal, rows >= k0;
-  // a window, rows <= k0 + 31 + window - 1
-  const int nq = (a.Sq + kBwdB - 1) / kBwdB;
-  int qlo = a.causal ? k0 / kBwdB : 0, qhi = nq;
-  if (a.window > 0) {
-    const long long last = (long long)k0 + kBwdB - 1 + a.window - 1;
-    if (last / kBwdB + 1 < qhi) qhi = (int)(last / kBwdB + 1);
-  }
+  int qlo, qhi;
+  query_tiles<kBwdB>(a, k0, qlo, qhi);
   for (int iq = qlo; iq < qhi; ++iq) {
     const int q0 = iq * kBwdB;
     __syncthreads();  // the previous tile's readers are done
@@ -980,8 +1060,8 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
       const size_t row = (size_t)b * a.Sk + k0 + j;
       if (a.part == nullptr) {
         const size_t off = (row * a.KV + kvh) * hd + c;
-        st_f(static_cast<T*>(a.dk) + off, dk[r]);
-        st_f(static_cast<T*>(a.dv) + off, dv[r]);
+        static_cast<float*>(a.dk)[off] = dk[r];
+        static_cast<float*>(a.dv)[off] = dv[r];
       } else {
         const size_t off = (row * a.H + h) * hd + c;
         a.part[off] = dk[r];
@@ -991,31 +1071,9 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
   }
 }
 
-// dK and dV of each (batch, key, KV head) column: the float32 partials of
-// the group's query heads summed in head order, one thread an element
-template <typename T>
-__global__ void __launch_bounds__(256) flash_bwd_group_sum(const BwdArgs a) {
-  const long long n = (long long)a.B * a.Sk * a.KV * a.hd;
-  const long long e = (long long)blockIdx.x * 256 + threadIdx.x;
-  if (e >= n) return;
-  const int rep = a.H / a.KV, c = (int)(e % a.hd);
-  const long long row = e / a.hd;  // (b * Sk + key) * KV + kvh
-  const int kvh = (int)(row % a.KV);
-  const size_t part_n = (size_t)a.B * a.Sk * a.H * a.hd;
-  const float* pk =
-      a.part + ((size_t)(row / a.KV) * a.H + (size_t)kvh * rep) * a.hd + c;
-  float sk = 0.f, sv = 0.f;
-  for (int hh = 0; hh < rep; ++hh) {
-    sk += pk[(size_t)hh * a.hd];
-    sv += pk[part_n + (size_t)hh * a.hd];
-  }
-  st_f(static_cast<T*>(a.dk) + e, sk);
-  st_f(static_cast<T*>(a.dv) + e, sv);
-}
-
-template <typename T, int NR>
+template <int NR>
 __global__ void __launch_bounds__(kBwdThreads, 1)
-    flash_bwd_dq(const BwdArgs a) {
+    flash_bwd_dq_f32(const BwdArgs a) {
   constexpr int HDP = NR * kBwdThreads / kBwdB;
   extern __shared__ __align__(16) unsigned char smem[];
   const int hd = a.hd, ld = BwdLayout(hd).ld, tid = threadIdx.x;
@@ -1029,10 +1087,11 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
   float* D_s = lse_s + kBwdB;
   const int q0 = blockIdx.x * kBwdB, h = blockIdx.y, b = blockIdx.z;
   const int kvh = h / (a.H / a.KV);
-  const T* k = static_cast<const T*>(a.k);
-  const T* v = static_cast<const T*>(a.v);
-  load_tile(Qs, ld, static_cast<const T*>(a.q), b, q0, a.Sq, a.H, h, hd);
-  load_tile(dOs, ld, static_cast<const T*>(a.dout), b, q0, a.Sq, a.H, h, hd);
+  const float* k = static_cast<const float*>(a.k);
+  const float* v = static_cast<const float*>(a.v);
+  load_tile(Qs, ld, static_cast<const float*>(a.q), b, q0, a.Sq, a.H, h, hd);
+  load_tile(dOs, ld, static_cast<const float*>(a.dout), b, q0, a.Sq, a.H, h,
+            hd);
   load_rows_stats(a, lse_s, D_s, b, h, q0);
 
   float dq[NR];
@@ -1054,50 +1113,543 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
       const int i = e / HDP, c = e % HDP;
       if (c < hd) {
         float acc = dq[r];
+        // unrolled 8 deep: the full 32 at NR 16 and 8 spilled (255
+        // registers, the loads of every r hoisted together)
+#pragma unroll 8
         for (int j = 0; j < kBwdB; ++j)
           acc = fmaf(DSs[i * kBwdLdp + j], Ks[j * ld + c], acc);
         dq[r] = acc;
       }
     }
   }
-  T* dq_out = static_cast<T*>(a.dq);
+  float* dq_out = static_cast<float*>(a.dq);
 #pragma unroll
   for (int r = 0; r < NR; ++r) {
     const int e = tid + kBwdThreads * r;
     const int i = e / HDP, c = e % HDP;
     if (c < hd && q0 + i < a.Sq)
-      st_f(dq_out + (((size_t)b * a.Sq + q0 + i) * a.H + h) * hd + c, dq[r]);
+      dq_out[(((size_t)b * a.Sq + q0 + i) * a.H + h) * hd + c] = dq[r];
   }
+}
+
+// ---- bfloat16: Hopper ----------------------------------------------------
+
+__device__ __forceinline__ void wgmma_ss_m64n32k16(float* d, uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_sst_m64n64k16(float* d, uint64_t da, uint64_t db) {
+  asm volatile(
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, 1, 1, 1, 0, 1;\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db));
+}
+
+__device__ __forceinline__ void wgmma_sst_m64n128k16(float* d, uint64_t da, uint64_t db) {
+  asm volatile(
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, 1, 1, 1, 0, 1;\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db));
+}
+
+__device__ __forceinline__ void wgmma_sst_m64n256k16(float* d, uint64_t da, uint64_t db) {
+  asm volatile(
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, %128, %129, 1, 1, 1, 0, 1;\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(da), "l"(db));
+}
+
+// D += A B for one k-step of 16: wgmma.m64n{HDP}k16, A K-major and B
+// MN-major, both from shared memory
+template <int HDP>
+__device__ __forceinline__ void wgmma_sst(float* d, uint64_t da, uint64_t db) {
+  if constexpr (HDP == 64) wgmma_sst_m64n64k16(d, da, db);
+  if constexpr (HDP == 128) wgmma_sst_m64n128k16(d, da, db);
+  if constexpr (HDP == 256) wgmma_sst_m64n256k16(d, da, db);
+}
+
+// x, which the compiler may not assume loop-invariant
+__device__ __forceinline__ uint32_t opaque(uint32_t x) {
+  asm volatile("mov.b32 %0, %0;" : "+r"(x));
+  return x;
+}
+
+__device__ __forceinline__ void named_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(n) : "memory");
+}
+
+__device__ __forceinline__ void st_shared_u32(uint32_t addr, uint32_t v) {
+  asm volatile("st.shared.u32 [%0], %1;" ::"r"(addr), "r"(v) : "memory");
+}
+
+// byte offset of element (row r, column col) of a 64 x 64 bf16 tile stored
+// K-major with the 128-byte swizzle, as TMA writes a box: the 16-byte
+// chunk index of each 128-byte row XORed with the row's index mod 8
+__device__ __forceinline__ uint32_t swizzled(int r, int col) {
+  return r * 128 + ((((col >> 3) ^ (r & 7)) << 4) | ((col & 7) * 2));
+}
+
+// P and dS of one pair from its raw products s = q . k and dp = dO . v,
+// the row's lse in log2 units and its D (the forward's log2 domain); P is
+// 0 on a pair that is not live
+__device__ __forceinline__ void p_ds(const BwdArgs& a, float s, float dp,
+                                     float lse2, float D, bool live,
+                                     float& p, float& ds) {
+  float x, dcap = 1.f;
+  if (a.cap > 0.f) {
+    const float th = tanhf(s * (a.scale / a.cap));
+    x = a.cap * kLog2e * th;
+    dcap = 1.f - th * th;
+  } else {
+    x = s * (a.scale * kLog2e);
+  }
+  p = live ? exp2f(x - lse2) : 0.f;
+  ds = p * (dp - D) * dcap * a.scale;
+}
+
+// Shared memory of the dK/dV kernel, offsets from a 1024-byte aligned base:
+// K and V [box][64 keys][128 B], per stage Q and dO [box][64 rows][128 B],
+// P^T and dS^T [64 keys][128 B], then the mbarriers.
+template <int HDP>
+struct DkdvLayout {
+  static constexpr int NB = HDP / 64;
+  static constexpr int K = 0;
+  static constexpr int V = K + NB * kBox;
+  static constexpr int Q = V + NB * kBox;
+  static constexpr int DO = Q + kStages * NB * kBox;
+  static constexpr int P = DO + kStages * NB * kBox;
+  static constexpr int DS = P + kBox;
+  static constexpr int BAR = DS + kBox;
+  // kv_full, full[S], empty[S]
+  static constexpr int BYTES = BAR + 8 * (1 + 2 * kStages);
+  static constexpr int ALLOC = BYTES + 1024;
+};
+
+template <int HDP>
+__global__ void __launch_bounds__(kThreadsTC, 1)
+    flash_bwd_dkdv_tc(const __grid_constant__ CUtensorMap tmQ,
+                      const __grid_constant__ CUtensorMap tmK,
+                      const __grid_constant__ CUtensorMap tmV,
+                      const __grid_constant__ CUtensorMap tmDO,
+                      const BwdArgs a) {
+  using L = DkdvLayout<HDP>;
+  constexpr int NB = L::NB;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t kv_full = base + L::BAR;
+  const uint32_t full = kv_full + 8;
+  const uint32_t empty = full + 8 * kStages;
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int wg = warp / 4;  // 0: producer, 1 and 2: consumers
+  const int k0 = blockIdx.x * kBwdTile, h = blockIdx.y, b = blockIdx.z;
+  const int kvh = h / (a.H / a.KV);
+  int qlo, qhi;
+  query_tiles<kBwdTile>(a, k0, qlo, qhi);
+  const int n = qhi > qlo ? qhi - qlo : 0;
+
+  if (tid == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 2 * 128);  // every consumer thread
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    // ---- producer: K and V once, then Q and dO of each query tile -------
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;" ::: "memory");
+    if (warp == 0 && lane == 0) {
+      mbar_expect_tx(kv_full, 2 * NB * kBox);
+      for (int x = 0; x < NB; ++x) {
+        tma_load_4d(base + L::K + x * kBox, &tmK, kv_full, x * 64, kvh, k0, b);
+        tma_load_4d(base + L::V + x * kBox, &tmV, kv_full, x * 64, kvh, k0, b);
+      }
+      for (int t = 0; t < n; ++t) {
+        const int s = t % kStages;
+        if (t >= kStages) mbar_wait(empty + 8 * s, ((t / kStages) - 1) & 1);
+        const int q0 = (qlo + t) * kBwdTile;
+        mbar_expect_tx(full + 8 * s, 2 * NB * kBox);
+        for (int x = 0; x < NB; ++x) {
+          tma_load_4d(base + L::Q + (s * NB + x) * kBox, &tmQ, full + 8 * s,
+                      x * 64, h, q0, b);
+          tma_load_4d(base + L::DO + (s * NB + x) * kBox, &tmDO, full + 8 * s,
+                      x * 64, h, q0, b);
+        }
+      }
+    }
+  } else {
+    // ---- consumers: S^T, dP^T of 32 query columns each; then dV or dK ---
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;" ::: "memory");
+    const int c = wg - 1;
+    const int w = warp % 4, g = lane / 4, t4 = lane % 4;
+    const int kr = w * 16 + g;  // this thread's key rows: kr, kr + 8
+    // consumer 0: dV += P^T dO; consumer 1: dK += dS^T Q
+    const uint32_t a_op = base + (c == 0 ? L::P : L::DS);
+    const uint32_t b_op = base + (c == 0 ? L::DO : L::Q);
+    float acc[HDP / 2];
+#pragma unroll
+    for (int i = 0; i < HDP / 2; ++i) acc[i] = 0.f;
+    mbar_wait(kv_full, 0);
+
+    for (int t = 0; t < n; ++t) {
+      const int s = t % kStages;
+      const uint32_t par = (t / kStages) & 1;
+      const int q0 = (qlo + t) * kBwdTile;
+      const int qc = q0 + 32 * c;  // this consumer's query columns
+      // lse (log2 units) and D of the thread's columns qc + 8 i + 2 t4 + e
+      float lse2[8], dl[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int qp = qc + 8 * (j >> 1) + 2 * t4 + (j & 1);
+        const size_t r = ((size_t)b * a.H + h) * a.Sq + qp;
+        lse2[j] = qp < a.Sq ? a.lse[r] * kLog2e : 0.f;
+        dl[j] = qp < a.Sq ? a.delta[r] : 0.f;
+      }
+      mbar_wait(full + 8 * s, par);
+      // ---- S^T = K Q^T and dP^T = V dO^T, 32 query columns ----
+      const uint32_t qs = base + L::Q + s * NB * kBox + c * 32 * 128;
+      const uint32_t dos = base + L::DO + s * NB * kBox + c * 32 * 128;
+      float st[16], dpt[16];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < HDP / 16; ++kk) {
+        const uint32_t off = (kk / 4) * kBox + (kk % 4) * 32;
+        wgmma_ss_m64n32k16(st, wgmma_desc(base + L::K + off, 16, 1024),
+                           wgmma_desc(qs + off, 16, 1024), kk > 0);
+      }
+#pragma unroll
+      for (int kk = 0; kk < HDP / 16; ++kk) {
+        const uint32_t off = (kk / 4) * kBox + (kk % 4) * 32;
+        wgmma_ss_m64n32k16(dpt, wgmma_desc(base + L::V + off, 16, 1024),
+                           wgmma_desc(dos + off, 16, 1024), kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait0();
+      pin_regs<16>(st);
+      pin_regs<16>(dpt);
+
+      // ---- P^T and dS^T in float32, rounded to bf16 pairs ----
+      const bool edge = q0 + kBwdTile > a.Sq || k0 + kBwdTile > a.Sk ||
+                        (a.causal && k0 + kBwdTile - 1 > q0) ||
+                        (a.window > 0 && q0 + kBwdTile - 1 - k0 >= a.window);
+      uint32_t pw[4][2], dw[4][2];  // [column group i][key row half]
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          float p2[2], d2[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int j = 4 * i + 2 * r + e;
+            const int qp = qc + 8 * i + 2 * t4 + e;
+            const bool live = !edge || pair_live(a, qp, k0 + kr + 8 * r);
+            p_ds(a, st[j], dpt[j], lse2[2 * i + e], dl[2 * i + e], live,
+                 p2[e], d2[e]);
+          }
+          pw[i][r] = pack_bf16(p2[0], p2[1]);
+          dw[i][r] = pack_bf16(d2[0], d2[1]);
+        }
+      }
+      named_sync(1, 256);  // the last tile's products have read P^T, dS^T
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const uint32_t off = swizzled(kr + 8 * r, 32 * c + 8 * i + 2 * t4);
+          st_shared_u32(base + L::P + off, pw[i][r]);
+          st_shared_u32(base + L::DS + off, dw[i][r]);
+        }
+      }
+      // the generic proxy's stores, before wgmma (the async proxy) reads
+      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+      named_sync(2, 256);
+
+      // ---- dV += P^T dO (consumer 0) or dK += dS^T Q (consumer 1) ----
+      const uint32_t bs = b_op + s * NB * kBox;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBwdTile / 16; ++kk)
+        wgmma_sst<HDP>(acc, wgmma_desc(a_op + kk * 32, 16, 1024),
+                       wgmma_desc(bs + kk * 2048, kBox, 1024));
+      wgmma_commit();
+      wgmma_wait0();
+      pin_regs<HDP / 2>(acc);
+      mbar_arrive(empty + 8 * s);
+    }
+
+    // ---- dV or dK (H == KV) or this head's float32 partials ----
+    const size_t part_n = (size_t)a.B * a.Sk * a.H * a.hd;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int kp = k0 + kr + 8 * r;
+      if (kp < a.Sk) {
+        const size_t row = (size_t)b * a.Sk + kp;
+#pragma unroll
+        for (int i = 0; i < HDP / 8; ++i) {
+          const int col = 8 * i + 2 * t4;
+          if (col < a.hd) {
+            const float v0 = acc[4 * i + 2 * r], v1 = acc[4 * i + 2 * r + 1];
+            if (a.part == nullptr) {
+              void* out = c == 0 ? a.dv : a.dk;
+              *reinterpret_cast<uint32_t*>(
+                  static_cast<__nv_bfloat16*>(out) +
+                  (row * a.KV + kvh) * a.hd + col) = pack_bf16(v0, v1);
+            } else {
+              *reinterpret_cast<float2*>(a.part + (c == 0 ? part_n : 0) +
+                                         (row * a.H + h) * a.hd + col) =
+                  make_float2(v0, v1);
+            }
+          }
+        }
+      }
+    }
+  }
+}
+
+// Shared memory of the dQ kernel, offsets from a 1024-byte aligned base:
+// Q and dO [consumer][box][64 rows][128 B], per stage K and V [box][64
+// keys][128 B], then the mbarriers.
+template <int HDP, int NC>
+struct DqLayout {
+  static constexpr int NB = HDP / 64;
+  static constexpr int Q = 0;
+  static constexpr int DO = Q + NC * NB * kBox;
+  static constexpr int K = DO + NC * NB * kBox;
+  static constexpr int V = K + kStages * NB * kBox;
+  static constexpr int BAR = V + kStages * NB * kBox;
+  // q_full, k_full[S], v_full[S], empty[S]
+  static constexpr int BYTES = BAR + 8 * (1 + 3 * kStages);
+  static constexpr int ALLOC = BYTES + 1024;
+};
+
+template <int HDP, int NC>
+__global__ void __launch_bounds__(128 * (NC + 1), 1)
+    flash_bwd_dq_tc(const __grid_constant__ CUtensorMap tmQ,
+                    const __grid_constant__ CUtensorMap tmK,
+                    const __grid_constant__ CUtensorMap tmV,
+                    const __grid_constant__ CUtensorMap tmDO,
+                    const BwdArgs a) {
+  using L = DqLayout<HDP, NC>;
+  constexpr int NB = L::NB;
+  constexpr int BQ = 64 * NC;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t q_full = base + L::BAR;
+  const uint32_t k_full = q_full + 8;
+  const uint32_t v_full = k_full + 8 * kStages;
+  const uint32_t empty = v_full + 8 * kStages;
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int wg = warp / 4;  // 0: producer, then the consumers
+  const int h = blockIdx.x, b = blockIdx.z;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // longest rows first
+  const int kvh = h / (a.H / a.KV);
+  int lo, hi;
+  live_tiles<BQ, kBwdTile>(a, q0, lo, hi);
+
+  if (tid == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(k_full + 8 * s, 1);
+      mbar_init(v_full + 8 * s, 1);
+      mbar_init(empty + 8 * s, NC * 128);  // every consumer thread
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    // ---- producer: Q and dO once, then K and V of each key tile ---------
+    // (with one consumer the block's 256 threads fit 255 registers each)
+    if constexpr (NC > 1)
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 24;" ::: "memory");
+    if (warp == 0 && lane == 0) {
+      mbar_expect_tx(q_full, 2 * NC * NB * kBox);
+      for (int cc = 0; cc < NC; ++cc)
+        for (int x = 0; x < NB; ++x) {
+          tma_load_4d(base + L::Q + (cc * NB + x) * kBox, &tmQ, q_full,
+                      x * 64, h, q0 + cc * 64, b);
+          tma_load_4d(base + L::DO + (cc * NB + x) * kBox, &tmDO, q_full,
+                      x * 64, h, q0 + cc * 64, b);
+        }
+      for (int t = 0; t < hi - lo; ++t) {
+        const int s = t % kStages;
+        if (t >= kStages) mbar_wait(empty + 8 * s, ((t / kStages) - 1) & 1);
+        const int k0 = (lo + t) * kBwdTile;
+        mbar_expect_tx(k_full + 8 * s, NB * kBox);
+        for (int x = 0; x < NB; ++x)
+          tma_load_4d(base + L::K + (s * NB + x) * kBox, &tmK, k_full + 8 * s,
+                      x * 64, kvh, k0, b);
+        mbar_expect_tx(v_full + 8 * s, NB * kBox);
+        for (int x = 0; x < NB; ++x)
+          tma_load_4d(base + L::V + (s * NB + x) * kBox, &tmV, v_full + 8 * s,
+                      x * 64, kvh, k0, b);
+      }
+    }
+  } else {
+    // ---- consumers: 64 query rows each ----------------------------------
+    if constexpr (NC > 1)
+      asm volatile("setmaxnreg.inc.sync.aligned.u32 240;" ::: "memory");
+    const int c = wg - 1;
+    const int w = warp % 4, g = lane / 4, t4 = lane % 4;
+    const int rq = q0 + c * 64 + w * 16 + g;  // this thread's rows: rq, rq + 8
+    const int qa = q0 + c * 64, qb = qa + 63;  // the consumer's rows
+    float lse2[2], dl[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int qp = rq + 8 * r;
+      const size_t i = ((size_t)b * a.H + h) * a.Sq + qp;
+      lse2[r] = qp < a.Sq ? a.lse[i] * kLog2e : 0.f;
+      dl[r] = qp < a.Sq ? a.delta[i] : 0.f;
+    }
+    float dq[HDP / 2];
+#pragma unroll
+    for (int i = 0; i < HDP / 2; ++i) dq[i] = 0.f;
+    const uint32_t qs0 = base + L::Q + c * NB * kBox;
+    const uint32_t dos0 = base + L::DO + c * NB * kBox;
+    mbar_wait(q_full, 0);
+
+    for (int t = 0; t < hi - lo; ++t) {
+      const int s = t % kStages;
+      const uint32_t par = (t / kStages) & 1;
+      const int k0 = (lo + t) * kBwdTile;
+      mbar_wait(k_full + 8 * s, par);
+      // a tile wholly masked for these 64 rows adds nothing to their dQ
+      const bool dead = (a.causal && k0 > qb) ||
+                        (a.window > 0 && qa - (k0 + kBwdTile - 1) >= a.window);
+      if (dead) {
+        mbar_wait(v_full + 8 * s, par);
+        mbar_arrive(empty + 8 * s);
+        continue;
+      }
+      // ---- S = Q K^T and dP = dO V^T ----
+      // Q's and dO's addresses made opaque each tile: hoisted out of the
+      // loop, their 2 x HDP / 16 descriptors would hold registers that the
+      // 64 x HDP accumulator needs (at hd 256 ptxas spilled)
+      const uint32_t qs = opaque(qs0), dos = opaque(dos0);
+      const uint32_t ks = base + L::K + s * NB * kBox;
+      const uint32_t vs = base + L::V + s * NB * kBox;
+      float sc[32], dp[32];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < HDP / 16; ++kk) {
+        const uint32_t off = (kk / 4) * kBox + (kk % 4) * 32;
+        wgmma_ss_m64n64k16(sc, wgmma_desc(qs + off, 16, 1024),
+                           wgmma_desc(ks + off, 16, 1024), kk > 0);
+      }
+      wgmma_commit();
+      mbar_wait(v_full + 8 * s, par);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < HDP / 16; ++kk) {
+        const uint32_t off = (kk / 4) * kBox + (kk % 4) * 32;
+        wgmma_ss_m64n64k16(dp, wgmma_desc(dos + off, 16, 1024),
+                           wgmma_desc(vs + off, 16, 1024), kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait0();
+      pin_regs<32>(sc);
+      pin_regs<32>(dp);
+
+      // ---- dS in float32, rounded to bf16 as the A operand ----
+      const bool edge = (k0 + kBwdTile > a.Sk) ||
+                        (a.causal && k0 + kBwdTile - 1 > qa) ||
+                        (a.window > 0 && qb - k0 >= a.window);
+      uint32_t da[4][4];  // dS as the A operand of 4 k-steps of 16 keys
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        float d4[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int qp = rq + (e >> 1) * 8;
+          const int kp = k0 + 8 * i + 2 * t4 + (e & 1);
+          const bool live = !edge || pair_live(a, qp, kp);
+          float p;
+          p_ds(a, sc[4 * i + e], dp[4 * i + e], lse2[e >> 1], dl[e >> 1],
+               live, p, d4[e]);
+        }
+        da[i / 2][(i % 2) * 2 + 0] = pack_bf16(d4[0], d4[1]);
+        da[i / 2][(i % 2) * 2 + 1] = pack_bf16(d4[2], d4[3]);
+      }
+
+      // ---- dQ += dS K ----
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBwdTile / 16; ++kk)
+        wgmma_pv<HDP>(dq, da[kk], wgmma_desc(ks + kk * 2048, kBox, 1024));
+      wgmma_commit();
+      wgmma_wait0();
+      pin_regs<HDP / 2>(dq);
+      mbar_arrive(empty + 8 * s);
+    }
+
+    // ---- dQ, rows < Sq and columns < hd only ----
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int qp = rq + 8 * r;
+      if (qp < a.Sq) {
+        __nv_bfloat16* row = static_cast<__nv_bfloat16*>(a.dq) +
+                             (((size_t)b * a.Sq + qp) * a.H + h) * a.hd;
+#pragma unroll
+        for (int i = 0; i < HDP / 8; ++i) {
+          const int col = 8 * i + 2 * t4;
+          if (col < a.hd)
+            *reinterpret_cast<uint32_t*>(row + col) =
+                pack_bf16(dq[4 * i + 2 * r], dq[4 * i + 2 * r + 1]);
+        }
+      }
+    }
+  }
+}
+
+// ---- launches -------------------------------------------------------------
+
+template <typename T>
+int launch_delta(const BwdArgs& a, cudaStream_t stream) {
+  const long long rows = (long long)a.B * a.Sq * a.H;
+  flash_bwd_delta<T><<<(unsigned)((rows + 7) / 8), 256, 0, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_group_sum(const BwdArgs& a, cudaStream_t stream) {
+  if (a.part == nullptr) return 0;
+  const long long n = (long long)a.B * a.Sk * a.KV * a.hd;
+  flash_bwd_group_sum<T><<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(a);
+  return (int)cudaGetLastError();
 }
 
 // parts: a mask of the launches to make (1 the D pre-pass, 2 dK and dV with
 // their group sum, 4 dQ); 7 is the backward, the others are for timing
-template <typename T, int NR>
-int launch_bwd(const BwdArgs& a, int parts, cudaStream_t stream) {
+template <int NR>
+int launch_bwd_f32(const BwdArgs& a, int parts, cudaStream_t stream) {
   const int smem = (int)BwdLayout(a.hd).bytes();
-  auto dkdv = flash_bwd_dkdv<T, NR>;
-  auto dq = flash_bwd_dq<T, NR>;
+  auto dkdv = flash_bwd_dkdv_f32<NR>;
+  auto dq = flash_bwd_dq_f32<NR>;
   cudaError_t err = cudaFuncSetAttribute(
       dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err == cudaSuccess)
     err = cudaFuncSetAttribute(
         dq, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  const long long rows = (long long)a.B * a.Sq * a.H;
-  if (parts & 1) {
-    flash_bwd_delta<T><<<(unsigned)((rows + 7) / 8), 256, 0, stream>>>(a);
-    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  }
+  int e = 0;
+  if ((parts & 1) && (e = launch_delta<float>(a, stream)) != 0) return e;
   if (parts & 2) {
     dkdv<<<dim3((a.Sk + kBwdB - 1) / kBwdB, a.H, a.B), kBwdThreads, smem,
            stream>>>(a);
-    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-    if (a.part != nullptr) {
-      const long long n = (long long)a.B * a.Sk * a.KV * a.hd;
-      flash_bwd_group_sum<T><<<(unsigned)((n + 255) / 256), 256, 0,
-                               stream>>>(a);
-      if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-    }
+    if ((e = (int)cudaGetLastError()) != 0) return e;
+    if ((e = launch_group_sum<float>(a, stream)) != 0) return e;
   }
   if (parts & 4)
     dq<<<dim3((a.Sq + kBwdB - 1) / kBwdB, a.H, a.B), kBwdThreads, smem,
@@ -1105,11 +1657,38 @@ int launch_bwd(const BwdArgs& a, int parts, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch_bwd_hd(const BwdArgs& a, int parts, cudaStream_t stream) {
-  if (a.hd <= 64) return launch_bwd<T, 8>(a, parts, stream);
-  if (a.hd <= 128) return launch_bwd<T, 16>(a, parts, stream);
-  return launch_bwd<T, 32>(a, parts, stream);
+template <int HDP>
+int launch_bwd_tc(const BwdArgs& a, int parts, cudaStream_t stream) {
+  constexpr int NC = HDP <= 128 ? 2 : 1;
+  CUtensorMap tq, tk, tv, tdo;
+  if (!bind_device(a.q) || !make_bshd_map(&tq, a.q, a.B, a.Sq, a.H, a.hd) ||
+      !make_bshd_map(&tk, a.k, a.B, a.Sk, a.KV, a.hd) ||
+      !make_bshd_map(&tv, a.v, a.B, a.Sk, a.KV, a.hd) ||
+      !make_bshd_map(&tdo, a.dout, a.B, a.Sq, a.H, a.hd))
+    return (int)cudaErrorInvalidValue;
+  auto dkdv = flash_bwd_dkdv_tc<HDP>;
+  auto dq = flash_bwd_dq_tc<HDP, NC>;
+  const int smem_kv = DkdvLayout<HDP>::ALLOC;
+  const int smem_q = DqLayout<HDP, NC>::ALLOC;
+  cudaError_t err = cudaFuncSetAttribute(
+      dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_kv);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(
+        dq, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_q);
+  if (err != cudaSuccess) return (int)err;
+  int e = 0;
+  if ((parts & 1) && (e = launch_delta<__nv_bfloat16>(a, stream)) != 0)
+    return e;
+  if (parts & 2) {
+    dkdv<<<dim3((a.Sk + kBwdTile - 1) / kBwdTile, a.H, a.B), kThreadsTC,
+           smem_kv, stream>>>(tq, tk, tv, tdo, a);
+    if ((e = (int)cudaGetLastError()) != 0) return e;
+    if ((e = launch_group_sum<__nv_bfloat16>(a, stream)) != 0) return e;
+  }
+  if (parts & 4)
+    dq<<<dim3(a.H, (a.Sq + 64 * NC - 1) / (64 * NC), a.B), 128 * (NC + 1),
+         smem_q, stream>>>(tq, tk, tv, tdo, a);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -1139,6 +1718,7 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
 // the wgmma probe (see wgmma_probe_kernel); a, b, v bf16, s and o float32
 extern "C" int flash_wgmma_probe(const void* a, const void* b, const void* v,
                                  float* s, float* o, cudaStream_t stream) {
+  if (!bind_device(a)) return (int)cudaErrorInvalidValue;
   CUtensorMap ta, tb, tv;
   const cuuint64_t dims64[4] = {64, 1, 64, 1}, dims256[4] = {256, 1, 64, 1};
   const cuuint64_t st64[3] = {128, 128, 64 * 128};
@@ -1177,7 +1757,16 @@ extern "C" int flash_attention_bwd(const void* q, const void* k,
   if ((part == nullptr) != (H == KV)) return (int)cudaErrorInvalidValue;
   BwdArgs a{q,  k,  v,  o,      dout,   lse,   delta, dq, dk, dv, part,
             B,  Sq, Sk, H, KV, hd,   causal, window, scale, cap};
-  if (dtype == 1) return launch_bwd_hd<__nv_bfloat16>(a, parts, stream);
-  if (dtype == 0) return launch_bwd_hd<float>(a, parts, stream);
+  if (dtype == 1) {  // the forward's widths
+    if (hd % 16 != 0) return (int)cudaErrorInvalidValue;
+    if (hd <= 64) return launch_bwd_tc<64>(a, parts, stream);
+    if (hd <= 128) return launch_bwd_tc<128>(a, parts, stream);
+    return launch_bwd_tc<256>(a, parts, stream);
+  }
+  if (dtype == 0) {
+    if (hd <= 64) return launch_bwd_f32<8>(a, parts, stream);
+    if (hd <= 128) return launch_bwd_f32<16>(a, parts, stream);
+    return launch_bwd_f32<32>(a, parts, stream);
+  }
   return (int)cudaErrorInvalidValue;
 }

@@ -1,8 +1,9 @@
 """Build, bind and launch the flash-attention kernels
 (``csrc/flash_attention.cu``): the forward (the Hopper kernel, TMA and
 wgmma, for bfloat16; the CUDA-core kernel for float32), optionally writing
-each row's log-sum-exp, and the backward (three CUDA-core launches, a
-fourth summing dK and dV over each KV head's group under GQA/MQA).
+each row's log-sum-exp, and the backward (three launches, a fourth summing
+dK and dV over each KV head's group under GQA/MQA: Hopper kernels on TMA
+and wgmma for bfloat16, CUDA-core kernels for float32).
 
 The wrapper checks device, dtype, shape, contiguity and alignment, launches
 on PyTorch's current stream, raises if ``cudaGetLastError`` reports a
@@ -121,7 +122,10 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     each query head, 2 x B x Sk x H x hd scratch, summed in head order).
     ``parts`` is for timing the launches apart: a mask of those to make (1
     the D pre-pass, 2 dK and dV with their group sum, 4 dQ); the outputs a
-    launch left out does not write are undefined."""
+    launch left out does not write are undefined.  For bfloat16 the
+    kernels round P and dS to bfloat16 before their products, as
+    ``ref.attention_bwd(..., tile_dtype=torch.bfloat16)`` does; every sum
+    is float32, and two calls give the same bits (no atomics)."""
     if not 1 <= parts <= 7:
         raise ValueError(f"parts must be a mask in 1..7, got {parts}")
     _check(q, k, v, window, cap)
@@ -130,6 +134,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     need(o, "o", q.dtype, (B, Sq, H, hd), q.device)
     need(do, "do", q.dtype, (B, Sq, H, hd), q.device)
     need(lse, "lse", torch.float32, (B, H, Sq), q.device)
+    if do.data_ptr() % 16:
+        raise ValueError("flash_attention_bwd needs a 16-byte aligned do")
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     if not (B and Sq and H):
         return dq, dk.zero_(), dv.zero_()

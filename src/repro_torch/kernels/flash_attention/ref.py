@@ -60,13 +60,18 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor, *,
                   causal: bool = True, window: int | None = None,
-                  cap: float | None = None, scale: float | None = None):
+                  cap: float | None = None, scale: float | None = None,
+                  tile_dtype: torch.dtype | None = None):
     """Gradient of `attention` from its output ``o`` (B, Sq, H, hd), the
     row log-sum-exps ``lse`` (B, H, Sq) and the output's gradient ``do``:
     (dq, dk, dv) in the operands' dtypes, dk and dv summed over the H/KV
     query heads of each KV head.  The full matrices in float32:
     P = exp(S - lse) on live pairs, D = rowsum(dO o O),
-    dS = P (dO V^T - D) (1 - tanh^2) scale."""
+    dS = P (dO V^T - D) (1 - tanh^2) scale.  ``tile_dtype`` (the bfloat16
+    kernel's rounding point, for the tests) rounds P and dS to that dtype
+    before their products dV = P^T dO, dK = dS^T Q and dQ = dS K, as the
+    kernel's tensor-core operands are; dS itself comes from the unrounded P,
+    and every sum stays float32."""
     B, Sq, H, hd = q.shape
     Sk, KV = k.shape[1], k.shape[2]
     rep = H // KV
@@ -78,13 +83,16 @@ def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          scale=scale)
     p = torch.where(mask[None, None], torch.exp(s - lse.float()[..., None]),
                     torch.zeros((), device=q.device))
-    dv = torch.einsum("bhqk,bqhd->bkhd", p, dof)
+
+    def tile(x):
+        return x if tile_dtype is None else x.to(tile_dtype).float()
+    dv = torch.einsum("bhqk,bqhd->bkhd", tile(p), dof)
     dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
     delta = (dof * o.float()).sum(-1).transpose(1, 2)          # (B, H, Sq)
     ds = p * (dp - delta[..., None])
     if t is not None:
         ds = ds * (1.0 - t * t)
-    ds = ds * scale
+    ds = tile(ds * scale)
     dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf)
     dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf)
 

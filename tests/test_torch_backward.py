@@ -9,6 +9,11 @@ kernels, against torch autograd and the JAX reference, on the CPU.
     differentiates) within 2e-5: MQA 4/1 with a window, GQA 4/2 with cap
     50, MHA, and S off any tile size; the forward's log-sum-exp against
     ``torch.logsumexp`` of the masked scores;
+  * its bf16 kernel's rounding point (``attention_bwd(tile_dtype=
+    torch.bfloat16)``: P and dS rounded before their products) against
+    the float32 version and ``jax.vjp`` of the reference model's attention
+    within the card's limit, 2e-2 of the maximum, at hd 64, 128 and 256,
+    MHA/GQA/MQA, a window, a cap the scores reach, and Sq != Sk;
   * ``rg_lru.ref.rglru_scan_bwd`` (the reverse loop) against autograd
     through ``ref.rglru_scan`` within 1e-6 and against ``jax.vjp`` of the
     reference's ``layers.rglru_scan`` (its associative scan) within 1e-5;
@@ -125,6 +130,45 @@ def test_attention_bwd_matches_jax_vjp(shape, opts):
                         q, k, v, cot=do)
         for g, w in zip(got, want):
             _close(g.numpy(), w, 2e-5)
+
+
+#: the bf16 backward kernel's widths: (B, Sq, Sk, H, KV, hd), opts, the
+#: factor q and k are scaled by (so capped scores reach the cap's bend)
+TILE_CASES = [
+    ((1, 70, 70, 4, 1, 256), dict(causal=True, window=30), 1.0),
+    ((1, 65, 65, 8, 4, 256), dict(causal=True, cap=50.0), 4.0),
+    ((2, 48, 48, 4, 2, 128), dict(causal=True, cap=20.0), 3.0),
+    ((1, 40, 72, 3, 3, 64), dict(causal=False), 1.0),
+    ((2, 50, 50, 4, 1, 64), dict(causal=True, window=17), 1.0),
+]
+#: the card's bf16 limit (chip_smoke.py FLASH_BWD_TOL): max |diff| over
+#: the reference's max |value|
+FLASH_BWD_TOL = 2e-2
+
+
+@pytest.mark.parametrize("shape,opts,qk_scale", TILE_CASES)
+def test_attention_bwd_bf16_tiles_within_the_card_limit(shape, opts,
+                                                        qk_scale):
+    """The bf16 kernel's one new rounding, P and dS to bf16 before their
+    products (``attention_bwd(tile_dtype=torch.bfloat16)``), on bf16
+    operands: within `FLASH_BWD_TOL` of the float32 plain version and of
+    ``jax.vjp`` of the reference model's attention; and not equal to the
+    float32 version, so the rounding is there to be held."""
+    q, k, v, do = (torch.from_numpy(x).to(torch.bfloat16).float() for x in
+                   _attn_inputs(shape, sum(shape) + 5))
+    q, k = q * qk_scale, k * qk_scale
+    o, lse = fref.attention(q, k, v, return_lse=True, **opts)
+    got = fref.attention_bwd(q, k, v, o, lse, do, tile_dtype=torch.bfloat16,
+                             **opts)
+    plain = fref.attention_bwd(q, k, v, o, lse, do, **opts)
+    want = _jit_vjp(lambda a, b, c: JL.attention(a, b, c, **opts),
+                    q.numpy(), k.numpy(), v.numpy(), cot=do.numpy())
+    for g, p, w in zip(got, plain, want):
+        w = np.asarray(w, np.float64)
+        for ref_side in (p.double().numpy(), w):
+            err = np.abs(g.double().numpy() - ref_side).max()
+            assert err <= FLASH_BWD_TOL * np.abs(ref_side).max(), err
+    assert not all(torch.equal(g, p) for g, p in zip(got, plain))
 
 
 @pytest.mark.parametrize("shape", [(2, 50, 7), (1, 1, 5), (3, 33, 16)])

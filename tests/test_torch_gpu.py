@@ -29,8 +29,10 @@ expert choices and dropped tokens on the card equal the CPU's; and each
 family's ``smoke()`` prefill on the card in float32 matches the CPU's
 within 1e-4.  The backward kernels: flash's dq, dk, dv within 2e-2 (bf16)
 / 2e-5 (f32) of the plain version's max magnitude and its forward's
-log-sum-exp against the plain one's, its autograd Function against the
-same Function pinned to the plain versions, the RG-LRU backward bitwise;
+log-sum-exp against the plain one's, two calls bitwise equal (no
+atomics), a bf16 hd-40 call raising as the forward does, its autograd
+Function against the same Function pinned to the plain versions, the
+RG-LRU backward bitwise;
 ``wkv6`` raising under autograd; and four smoke models' train step on the
 card against the CPU's.
 """
@@ -1288,6 +1290,12 @@ FLASH_BWD_CARD_CASES = [
     ((1, 70, 130, 4, 1, 64), "bfloat16", dict(causal=False, cap=20.0)),
     ((2, 65, 65, 4, 2, 16), "float32", dict(causal=True, window=20)),
     ((1, 50, 90, 6, 3, 40), "float32", dict(causal=False, cap=5.0)),
+    # the Hopper backward's widths and edges: MQA at hd 256 with S off the
+    # 64-row grid and a window edge inside a tile, GQA at hd 128 (two dQ
+    # consumers), MHA at hd 64
+    ((1, 1000, 1000, 10, 1, 256), "bfloat16", dict(causal=True, window=300)),
+    ((2, 333, 333, 8, 2, 128), "bfloat16", dict(causal=True)),
+    ((2, 250, 250, 6, 6, 64), "bfloat16", dict(causal=True, window=90)),
 ]
 
 
@@ -1325,6 +1333,51 @@ def test_flash_backward_kernel_matches_plain(lm_kernels, shape, dtype,
         assert _rel_max(g, w) <= tol, (name, _rel_max(g, w))
 
 
+@pytest.mark.parametrize("shape,opts", [
+    ((1, 1000, 1000, 10, 1, 256), dict(causal=True, window=300)),
+    ((2, 333, 333, 8, 2, 128), dict(causal=True, cap=20.0)),
+])
+def test_flash_backward_kernel_is_deterministic(lm_kernels, shape, opts):
+    """No atomics: two calls of the bf16 backward give the same bits, and
+    so do two dK/dV passes (``parts=3``: D, dK/dV and the group sum) under
+    GQA/MQA."""
+    fk = lm_kernels[0]
+    B, Sq, Sk, H, KV, hd = shape
+    rng = np.random.default_rng(sum(shape))
+    q, k, v, do = (torch.from_numpy(rng.standard_normal(s, np.float32)).to(
+        "cuda", torch.bfloat16) for s in ((B, Sq, H, hd), (B, Sk, KV, hd),
+                                          (B, Sk, KV, hd), (B, Sq, H, hd)))
+    o, lse = fk.flash_attention(q, k, v, return_lse=True, **opts)
+    first = fk.flash_attention_bwd(q, k, v, o, lse, do, **opts)
+    second = fk.flash_attention_bwd(q, k, v, o, lse, do, **opts)
+    dkdv = [fk.flash_attention_bwd(q, k, v, o, lse, do, parts=3, **opts)[1:]
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+    for a, b in zip(*dkdv):
+        assert torch.equal(a, b)
+    for a, b in zip(dkdv[0], first[1:]):
+        assert torch.equal(a, b)
+
+
+def test_flash_backward_bf16_hd40_raises_as_the_forward(lm_kernels):
+    """bfloat16 takes hd a multiple of 16 (the Hopper kernels' k-step),
+    forward and backward alike; float32 takes hd 40."""
+    fk = lm_kernels[0]
+    q = torch.zeros((1, 64, 2, 40), device="cuda", dtype=torch.bfloat16)
+    k = torch.zeros((1, 64, 1, 40), device="cuda", dtype=torch.bfloat16)
+    lse = torch.zeros((1, 2, 64), device="cuda")
+    with pytest.raises(ValueError, match="multiple of 16"):
+        fk.flash_attention(q, k, k)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        fk.flash_attention_bwd(q, k, k, q, lse, q)
+    f = [t.float() for t in (q, k)]
+    o, lse = fk.flash_attention(f[0], f[1], f[1], return_lse=True)
+    assert all(bool(torch.isfinite(g).all()) for g in
+               fk.flash_attention_bwd(f[0], f[1], f[1], o, lse, f[0]))
+
+
 def test_flash_autograd_on_the_card_matches_plain(lm_kernels, monkeypatch):
     """``ops.flash_attention`` under autograd: the Function's kernel pair
     against the same Function pinned to the plain versions."""
@@ -1355,7 +1408,8 @@ def test_flash_autograd_on_the_card_matches_plain(lm_kernels, monkeypatch):
 
 
 @pytest.mark.parametrize("shape", [(1, 4096, 2560), (4, 1000, 300),
-                                   (2, 1, 77), (1, 9, 31), (3, 65, 2561)])
+                                   (2, 1, 77), (1, 9, 31), (3, 65, 2561),
+                                   (2, 1003, 2557), (1, 7, 5)])
 def test_rglru_backward_kernel_bitwise_equal_to_plain(lm_kernels, shape):
     from repro_torch.kernels.rg_lru import ref as rref
     rk = lm_kernels[1]
