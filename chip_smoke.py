@@ -127,7 +127,22 @@ per source, all started together.  Phases, each printing its own lines:
  16. checkpoint resume: recurrentgemma-2b cut to 3 layers (one pattern
      triple; depth is the only cut) takes 2 steps, saves (``ckpt.save``,
      in a temporary directory, removed after), restores, and its third
-     step equals a third step from the live state bit for bit.
+     step equals a third step from the live state bit for bit;
+ 17. sharding and launch: the dry run (``launch/dryrun.py``, counted on
+     meta tensors) of all ten architectures at train_4k on the single-pod
+     16 x 16 mesh, its records written under the output directory and its
+     roofline rows printed; 30 jobs built from them (``job_from_roofline``,
+     25, 50 and 100 steps) and a sweep job per architecture (its three
+     trainings side by side) scheduled with dagps in exact and routed mode
+     on the card, the scan,
+     wave and eligibility kernels launching, each run's decisions equal to
+     its numpy-pinned twin's by ``repr``; an NCCL process group of world
+     size 1 (a FileStore in a temporary directory), the (1, 1) debug mesh,
+     full-width recurrentgemma-2b distributed on it and
+     ``compressed_psum_tree`` of a gradient tree of its shapes, each leaf
+     bitwise ``dequantize(quantize_int8(g))``; the dry run's count at
+     phase 15's shape beside phase 15's measured peak memory (within a
+     factor of 2) and step wall (achieved TFLOP/s).
 
 Any failed phase exits non-zero before the result line.  The last line is
 ``{"ok": true, "device": {...}}``; the line before it lists every kernel
@@ -1533,10 +1548,11 @@ class HeldLaunches:
                     held_wave_max_n=max((n for _, n in shapes), default=0))
 
 
-def pinned_numpy(run):
+def pinned_numpy(run, need=("scan.numpy", "match_wave.numpy")):
     """``run()`` with every op pinned to numpy (``REPRO_KERNELS=all=numpy``)
     and the schedule cache cleared, so that its builds scan with numpy too;
-    checks that no op dispatched to the card or to torch."""
+    checks that no op dispatched to the card or to torch, and that each op
+    of ``need`` ran."""
     from repro_torch.core.engine import kernels as K
     from repro_torch.sim import clear_schedule_cache
 
@@ -1553,9 +1569,8 @@ def pinned_numpy(run):
     check(not any(k.split(".")[1] in ("cuda", "torch") for k in prof
                   if k.count(".") >= 1),
           "the numpy-pinned twin dispatched a kernel")
-    check(prof.get("scan.numpy", (0, 0.0))[0] > 0
-          and prof.get("match_wave.numpy", (0, 0.0))[0] > 0,
-          "the numpy-pinned twin built or waved nothing")
+    check(all(prof.get(key, (0, 0.0))[0] > 0 for key in need),
+          f"the numpy-pinned twin ran none of {need}")
     return res, wall
 
 
@@ -3145,6 +3160,257 @@ def ckpt_resume(summary: dict) -> dict:
     return launches
 
 
+# ----------------------------------------------------------------------
+# phase 17: sharding and launch
+# ----------------------------------------------------------------------
+
+#: the dry run's cells: every architecture at train_4k on the single-pod
+#: 16 x 16 mesh, written where `job_from_roofline` reads them
+DRYRUN_SHAPE = "train_4k"
+#: jobs built from the records: one per step count and architecture, and
+#: a sweep job per architecture that runs those trainings side by side.
+#: A chain of single-task stages never reaches the builder's scan: each
+#: stage is a part of its own (the DAG is totally ordered), spans that
+#: part's whole horizon and so runs longer than `LONG_K` ticks, which the
+#: builder probes on the host; the sweep's trainings of 1 : 2 : 4 lengths
+#: share one part, and the shorter two are scanned
+DRYRUN_STEPS = (25, 50, 100)
+DRYRUN_SLICES = 32
+#: the calibration's estimated peak memory against phase 15's measured
+#: one: within this factor either way
+CALIBRATION_FACTOR = 2.0
+
+
+def dryrun_records(out_dir: str) -> list:
+    """The dry run of every architecture at `DRYRUN_SHAPE` on the
+    single-pod mesh, written fresh under ``out_dir``."""
+    from repro_torch import configs
+    from repro_torch.launch import dryrun, report
+
+    os.makedirs(out_dir, exist_ok=True)
+    cells = [(a, DRYRUN_SHAPE) for a in configs.ARCH_IDS]
+    for arch, shape in cells:
+        path = os.path.join(out_dir, f"{arch}_{shape}_single.json")
+        if os.path.exists(path):
+            os.remove(path)
+    t = time.perf_counter()
+    recs = dryrun.run_cells(cells, ["single"], out_dir, quiet=True)
+    count_s = time.perf_counter() - t
+    bad = [r["arch"] for r in recs if "error" in r]
+    check(not bad, f"dry run failed for {bad}: "
+                   f"{[r.get('error') for r in recs if 'error' in r]}")
+    for line in report.roofline_table(recs).splitlines()[2:]:
+        print(f"dryrun:row {line}", flush=True)
+    say("launch:dryrun", cells=len(recs), mesh="single", shape=DRYRUN_SHAPE,
+        count_s=round(count_s, 3),
+        cell_count_s=",".join(str(r["count_s"]) for r in recs),
+        dominant=",".join(r["roofline"]["dominant"] for r in recs),
+        fits_80g=sum(r["memory"]["fits_80g"] for r in recs),
+        out=os.path.relpath(out_dir, ROOT))
+    return recs
+
+
+def dryrun_jobs(recs: list, out_dir: str) -> list:
+    """Jobs from the records (`job_from_roofline`), one per architecture
+    and `DRYRUN_STEPS` entry, each train stage's seconds and HBM share read
+    from its architecture's record; then one sweep job per architecture:
+    warmup, its trainings side by side, eval after all of them, export."""
+    from repro_torch.launch import TPUJob, job_from_roofline
+    from repro_torch.launch.roofline import HBM_PER_DEVICE
+
+    jobs, sweeps = [], []
+    for a, rec in enumerate(recs):
+        rl = rec["roofline"]
+        mine = []
+        for steps in DRYRUN_STEPS:
+            job = job_from_roofline(f"job-{rec['arch']}-{steps}", rec["arch"],
+                                    out_dir, steps=steps, group=a % 2)
+            train = job.stages[1]
+            want = max(rl["compute_s"], rl["memory_s"],
+                       rl["collective_s"]) * steps
+            check(train["seconds"] == want and train["hbm"] == min(
+                rec["memory"]["peak_live_bytes"] / HBM_PER_DEVICE, 0.9),
+                  f"{job.name}: its train stage is not its record's")
+            mine.append(job)
+        first, k = mine[0].stages, len(mine)
+        stages = ([dict(first[0])]
+                  + [dict(j.stages[1], deps=[0]) for j in mine]
+                  + [dict(first[2], deps=list(range(1, k + 1))),
+                     dict(first[3], deps=[k + 1])])
+        sweeps.append(TPUJob(f"sweep-{rec['arch']}", rec["arch"], stages,
+                             group=a % 2))
+        jobs += mine
+    return jobs + sweeps
+
+
+def schedule_dryrun_jobs(jobs: list, summary: dict) -> dict:
+    """`schedule_cluster` of the jobs with dagps in exact mode (the scan
+    and the wave) and routed mode (the eligibility op) on the card, each
+    against its numpy-pinned twin by ``repr``.  Returns the kernel runs'
+    launches, counted from 0 for each run."""
+    from repro_torch.kernels.placement_scan import kernel
+    from repro_torch.launch import schedule_cluster
+    from repro_torch.sim import clear_schedule_cache
+
+    launches = {k: 0 for k in kernel.launch_counts()}
+    for mode in ("exact", "routed"):
+        def run():
+            return schedule_cluster(jobs, n_slices=DRYRUN_SLICES, seed=SEED,
+                                    matcher_mode=mode, profile=True,
+                                    device="cuda")
+        clear_schedule_cache()
+        kernel.reset_launches()
+        t = time.perf_counter()
+        res = run()
+        wall = time.perf_counter() - t
+        got = kernel.launch_counts()
+        wave = ("match_wave.numpy" if mode == "exact"
+                else "machines_with_candidates.numpy")
+        twin, twin_wall = pinned_numpy(run, need=("scan.numpy", wave))
+        mine = decisions(res)
+        check(len(res.jobs) == len(jobs),
+              f"launch:{mode}: {len(res.jobs)} of {len(jobs)} jobs completed")
+        check(mine == decisions(twin),
+              f"launch:{mode}: decisions differ from the numpy twin")
+        for k, v in got.items():
+            launches[k] += v
+        say(f"launch:schedule_{mode}", jobs=len(jobs), slices=DRYRUN_SLICES,
+            identical_to_numpy=True, wall_s=round(wall, 3),
+            numpy_wall_s=round(twin_wall, 3),
+            launches=json.dumps(got, separators=(",", ":")),
+            makespan=mine["makespan"], jain_60=mine["jain_60"])
+        summary[f"launch_schedule_{mode}"] = dict(
+            wall_s=wall, numpy_wall_s=twin_wall, launches=got,
+            decisions=mine)
+    for name in ("scan_bitmaps", "match_wave_walk", "heartbeat_eligible"):
+        check(launches[name] > 0,
+              f"launch: {name} never launched scheduling the dry-run jobs")
+    return launches
+
+
+def nccl_mesh_psum(summary: dict) -> None:
+    """An NCCL process group of world size 1 on a FileStore, the (1, 1)
+    debug mesh, full-width recurrentgemma-2b distributed on it, and
+    `compressed_psum_tree` over "data" on a float32 gradient tree of the
+    same shapes drawn from `SEED`: each leaf bitwise
+    ``dequantize(quantize_int8(g))``, which world size 1 must give."""
+    import shutil
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor, Replicate
+
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.launch.sharding import distribute_tree
+    from repro_torch.optim import (compressed_psum_tree, dequantize,
+                                   quantize_int8, tree_leaves, tree_map)
+
+    tmp = tempfile.mkdtemp(prefix="repro_nccl_")
+    try:
+        store = dist.FileStore(os.path.join(tmp, "store"), 1)
+        dist.init_process_group("nccl", store=store, rank=0, world_size=1)
+        try:
+            mesh = make_debug_mesh(1, 1, device_type="cuda")
+            cfg, params, n_params = full_model(LM_ARCH)
+            t = time.perf_counter()
+            dtree = distribute_tree(params, mesh, cfg)
+            torch.cuda.synchronize()
+            dist_s = time.perf_counter() - t
+            leaves = tree_leaves(dtree)
+            check(all(isinstance(x, DTensor) and tuple(x.placements)
+                      == (Replicate(), Replicate()) for x in leaves),
+                  "distribute_tree: a leaf is not replicated on the mesh")
+            check(all(torch.equal(x.to_local(), y) for x, y in
+                      zip(leaves, tree_leaves(params))),
+                  "distribute_tree: a local part differs from its leaf")
+            del dtree, leaves
+            gen = torch.Generator(device="cuda").manual_seed(SEED)
+            grads = tree_map(lambda p: torch.randn(
+                p.shape, generator=gen, device="cuda") * 1e-3, params)
+            del params
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = compressed_psum_tree(grads, "data", mesh)
+            end.record()
+            torch.cuda.synchronize()
+            psum_ms = start.elapsed_time(end)
+            same = [torch.equal(o, dequantize(*quantize_int8(g)).to(g.dtype))
+                    for o, g in zip(tree_leaves(out), tree_leaves(grads))]
+            n_bytes = sum(g.numel() * g.element_size()
+                          for g in tree_leaves(grads))
+            del grads, out
+            torch.cuda.empty_cache()
+        finally:
+            dist.destroy_process_group()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    say("launch:nccl", backend="nccl", world_size=1, mesh="data=1,model=1",
+        arch=LM_ARCH, params=n_params, distribute_s=round(dist_s, 3),
+        psum_leaves=len(same), psum_bitwise=f"{sum(same)}/{len(same)}",
+        psum_bytes=n_bytes, psum_tree_ms=round(psum_ms, 3))
+    summary["launch_nccl"] = dict(distribute_s=dist_s, psum_ms=psum_ms,
+                                  psum_bytes=n_bytes, leaves=len(same),
+                                  bitwise=sum(same))
+    check(all(same), "compressed_psum_tree at world size 1 is not "
+                     "dequantize(quantize_int8(g)) bitwise")
+
+
+def dryrun_calibration(summary: dict) -> None:
+    """The dry run's count at phase 15's shape on a (1, 1) abstract mesh:
+    its peak memory beside the peak phase 15 measured (within
+    `CALIBRATION_FACTOR`), its FLOPs over phase 15's mean step wall as
+    achieved TFLOP/s.  Readings, not claims."""
+    from repro_torch import configs
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import AbstractMesh
+
+    cfg = configs.get(LM_ARCH)
+    rec = dryrun.count_cell(cfg, "train", TRAIN_B, TRAIN_S,
+                            AbstractMesh((1, 1), ("data", "model")),
+                            microbatches=TRAIN_MB)
+    train = summary["train"]
+    measured = train["peak_bytes"]
+    est = rec["memory"]["peak_live_bytes"]
+    step_ms = sum(train["step_ms"][1:]) / (len(train["step_ms"]) - 1)
+    flops = rec["roofline"]["flops_per_device"]
+    say("launch:calibration", arch=LM_ARCH, B=TRAIN_B, S=TRAIN_S,
+        microbatches=TRAIN_MB, est_peak_gb=round(est / 1e9, 3),
+        measured_peak_gb=round(measured / 1e9, 3),
+        peak_ratio=round(est / measured, 4),
+        memory=json.dumps({k: v for k, v in rec["memory"].items()
+                           if k.endswith("_bytes")}, separators=(",", ":")),
+        flops=f"{flops:.6e}", step_ms=round(step_ms, 3),
+        achieved_tflops=round(flops / (step_ms / 1e3) / 1e12, 3),
+        est_compute_s=round(rec["roofline"]["compute_s"], 6),
+        est_memory_s=round(rec["roofline"]["memory_s"], 6),
+        count_s=rec["count_s"])
+    summary["launch_calibration"] = dict(
+        est_peak_bytes=est, measured_peak_bytes=measured, flops=flops,
+        step_ms=step_ms, memory=rec["memory"], roofline=rec["roofline"])
+    check(measured / CALIBRATION_FACTOR <= est
+          <= measured * CALIBRATION_FACTOR,
+          f"dry-run peak {est} bytes is not within {CALIBRATION_FACTOR}x of "
+          f"the measured {measured}")
+
+
+def launch_phase(summary: dict) -> dict:
+    """Phase 17.  Returns the schedule runs' kernel launches."""
+    import torch
+
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    out_dir = os.path.join(ROOT, "chiprun_out", "dryrun")
+    recs = dryrun_records(out_dir)
+    launches = schedule_dryrun_jobs(dryrun_jobs(recs, out_dir), summary)
+    nccl_mesh_psum(summary)
+    dryrun_calibration(summary)
+    say("lm:phase", arch="launch", wall_s=round(time.perf_counter() - t, 3))
+    return launches
+
+
 def main() -> int:
     started = time.perf_counter()
     try:
@@ -3278,6 +3544,11 @@ def main() -> int:
         launches[k] += sum(run[k] for run in train_runs)
     lm_walls["train"] = time.perf_counter() - t
     say("lm:phase", arch="train", wall_s=round(lm_walls["train"], 3))
+    # phase 17: the dry run, its jobs scheduled on the card, the NCCL mesh
+    t = time.perf_counter()
+    for k, v in launch_phase(summary).items():
+        launches[k] += v
+    lm_walls["launch"] = time.perf_counter() - t
     for r in report:
         r["launches"] = launches[r["name"]]
         check(r["launches"] > 0, f"{r['name']} never launched on the path")

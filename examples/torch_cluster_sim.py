@@ -1,7 +1,8 @@
 """Cluster-scale scenario on the PyTorch/CUDA port: a day of
 training/serving jobs gang-scheduled onto cluster slices with DAGPS vs
 Tez-style FIFO, with stage profiles pulled from the dry-run roofline
-artifacts when available.
+artifacts when available (``python -m repro_torch.launch.dryrun --all
+--out artifacts/dryrun`` writes them).
 
 All engine backends and scheme presets are reachable from the CLI; the
 kernel ops run on ``--device`` (cuda by default, cpu for the plain torch

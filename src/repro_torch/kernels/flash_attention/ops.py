@@ -10,17 +10,57 @@ When an operand requires grad (and grad mode is on) the call goes through
 log-sum-exp, and its backward is the backward kernel on a CUDA tensor and
 ``ref.attention_bwd`` on a CPU tensor (or under the pin).  Otherwise the
 call is the forward alone, which writes no log-sum-exp.
+
+A meta tensor takes the shape-only route (`pin.py`): outputs of the right
+shapes, each call charged with the kernel's work, 4 hd operations a live
+(query, key) pair and head forward, 10 hd backward (recomputing S, then
+dP, dV, dQ, dK), and q, k, v, o (and lse, do, dq, dk, dv) moved once.
+The plain version would instead count the masked pairs and move the full
+(B, H, Sq, Sk) float32 matrices, which the kernel never writes.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .. import pin
 from . import ref
 
 
+def live_pairs(Sq: int, Sk: int, *, causal: bool, window) -> int:
+    """The (query, key) pairs `ref.live_mask` lets attend, counted."""
+    q = np.arange(Sq, dtype=np.int64)
+    lo = np.zeros(Sq, np.int64) if window is None else np.maximum(
+        q - window + 1, 0)
+    hi = np.minimum(q, Sk - 1) if causal else np.full(Sq, Sk - 1, np.int64)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def _meta_fwd(q, k, v, *, causal=True, window=None, cap=None, scale=None,
+              return_lse=False):
+    B, Sq, H, hd = q.shape
+    o = torch.empty_like(q)
+    lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    pairs = live_pairs(Sq, k.shape[1], causal=causal, window=window)
+    pin.charge("flash_attention", 4.0 * hd * pairs * B * H,
+               pin.nbytes(q, k, v, o, lse if return_lse else None))
+    return (o, lse) if return_lse else o
+
+
+def _meta_bwd(q, k, v, o, lse, do, *, causal=True, window=None, cap=None,
+              scale=None):
+    B, Sq, H, hd = q.shape
+    grads = tuple(torch.empty_like(t) for t in (q, k, v))
+    pairs = live_pairs(Sq, k.shape[1], causal=causal, window=window)
+    pin.charge("flash_attention_bwd", 10.0 * hd * pairs * B * H,
+               pin.nbytes(q, k, v, o, lse, do, *grads))
+    return grads
+
+
 def _impl(q):
+    if q.device.type == "meta":
+        return _meta_fwd, _meta_bwd
     if pin.use_kernel("flash_attention", q):
         from . import kernel
         return kernel.flash_attention, kernel.flash_attention_bwd

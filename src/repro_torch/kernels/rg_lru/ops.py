@@ -9,6 +9,11 @@ When an operand requires grad (and grad mode is on) the call goes through
 `RGLRUScan`, an autograd Function whose backward is the backward kernel on
 a CUDA tensor and ``ref.rglru_scan_bwd`` on a CPU tensor (or under the
 pin); it saves a, the output h and h0.
+
+A meta tensor takes the shape-only route (`pin.py`), each call charged
+with the kernel's work: forward, one multiply and one add per element,
+x, a, h0 read and h, hT written; backward, an add and two multiplies per
+element, a, h, dh, h0, dhT read and dx, da, dh0 written.
 """
 
 from __future__ import annotations
@@ -19,7 +24,25 @@ from .. import pin
 from . import ref
 
 
+def _meta_fwd(x, a, h0):
+    h = torch.empty_like(x)
+    hT = torch.empty(h0.shape, dtype=torch.float32, device=x.device)
+    pin.charge("rglru_scan", 2.0 * x.numel(), pin.nbytes(x, a, h0, h, hT))
+    return h, hT
+
+
+def _meta_bwd(a, h, h0, dh, dhT):
+    f32 = dict(dtype=torch.float32, device=a.device)
+    dx, da = torch.empty(a.shape, **f32), torch.empty(a.shape, **f32)
+    dh0 = torch.empty(h0.shape, **f32)
+    pin.charge("rglru_scan_bwd", 3.0 * a.numel(),
+               pin.nbytes(a, h, h0, dh, dhT, dx, da, dh0))
+    return dx, da, dh0
+
+
 def _impl(x):
+    if x.device.type == "meta":
+        return _meta_fwd, _meta_bwd
     if pin.use_kernel("rglru_scan", x):
         from . import kernel
         return kernel.rglru_scan, kernel.rglru_scan_bwd

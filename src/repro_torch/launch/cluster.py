@@ -23,6 +23,7 @@ import numpy as np
 
 from ..core.dag import DAG, from_stage_graph
 from ..sim.cluster import ClusterSim, SimConfig, scheme
+from .roofline import HBM_PER_DEVICE
 
 
 @dataclasses.dataclass
@@ -52,8 +53,10 @@ class TPUJob:
 def job_from_roofline(name: str, arch: str, dryrun_dir: str,
                       steps: int = 100, group: int = 0) -> TPUJob:
     """Build a train job whose stage profile comes from the dry-run
-    artifacts (§7.1 adapted: compiled-cost profiles instead of container
-    histories)."""
+    artifacts (§7.1 adapted: counted-cost profiles instead of container
+    histories): ``launch/dryrun.py``'s ``{arch}_train_4k_single.json``,
+    its peak memory as a share of one device's (`HBM_PER_DEVICE`).
+    Without a record the job takes a built-in profile."""
     path = os.path.join(dryrun_dir, f"{arch}_train_4k_single.json")
     secs, hbm_frac, bw, ici = 60.0, 0.5, 0.5, 0.3
     if os.path.exists(path):
@@ -62,7 +65,8 @@ def job_from_roofline(name: str, arch: str, dryrun_dir: str,
             rl = rec["roofline"]
             step_s = max(rl["compute_s"], rl["memory_s"], rl["collective_s"])
             secs = step_s * steps
-            hbm_frac = min(rec["memory"]["peak_live_bytes"] / (16 * 2**30), 0.9)
+            hbm_frac = min(rec["memory"]["peak_live_bytes"] / HBM_PER_DEVICE,
+                           0.9)
             total = step_s or 1.0
             bw = min(rl["memory_s"] / total, 0.9)
             ici = min(rl["collective_s"] / total, 0.9)

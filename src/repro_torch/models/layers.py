@@ -20,8 +20,11 @@ plain version on a CPU tensor.  Decode attention is a one-query softmax
 over the cache in plain PyTorch, and the MoE's routing, dispatch, expert
 products and combine are plain PyTorch too, as the reference keeps both
 outside any kernel.  The reference's ``logical(...)`` sharding annotations
-are the identity outside a mesh and are left out; so are its MoE
-``shard_map`` branches, which run only under a mesh (`_moe_groups`).
+stand where it has them (`models.sharding`: the identity outside a mesh);
+under a mesh's rules the MoE's dispatch groups tile the device grid as the
+reference's do (`_moe_groups`), each group dispatched on its own as its
+``shard_map`` does.  The initializers also take ``device="meta"``, whose
+tensors hold no data: the dry run counts a step on them.
 """
 
 from __future__ import annotations
@@ -36,8 +39,16 @@ from ..core.engine.kernels import check_device
 from ..kernels.flash_attention import ops as flash_ops
 from ..kernels.rg_lru import ops as rglru_ops
 from ..kernels.rwkv6 import ops as rwkv6_ops
+from .sharding import axis_prod, current_mesh, current_rules, logical
 
 Params = dict
+
+
+def check_init_device(device) -> str:
+    """`check_device` for the initializers, which also take "meta"."""
+    if torch.device(device).type == "meta":
+        return "meta"
+    return check_device(device)
 
 
 # ----------------------------------------------------------------------
@@ -163,7 +174,7 @@ def _normal(gen: torch.Generator, shape, std: float, dtype, device):
 
 def attn_init(gen: torch.Generator, cfg: AttnConfig, dtype=torch.bfloat16,
               device="cuda") -> Params:
-    check_device(device)
+    check_init_device(device)
     d, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     s = 1.0 / math.sqrt(d)
     p = {
@@ -246,8 +257,10 @@ def attn_decode(p: Params, x: torch.Tensor, cfg: AttnConfig, cache: Params,
         write(cache[name], rows, wpos, new[:, 0])
     kpos = torch.arange(S, device=x.device)
     H, KV = cfg.n_heads, cfg.n_kv_heads
-    kf = _repeat_kv(cache["k"], H // KV)
-    vf = _repeat_kv(cache["v"], H // KV)
+    kf = logical(_repeat_kv(cache["k"], H // KV), "batch", "kv_seq", "heads",
+                 None)
+    vf = logical(_repeat_kv(cache["v"], H // KV), "batch", "kv_seq", "heads",
+                 None)
     scale = 1.0 / math.sqrt(cfg.head_dim)
     logits = torch.einsum("bchd,bshd->bhcs", q.float(), kf.float()) * scale
     if cfg.cap is not None:
@@ -272,7 +285,7 @@ def attn_decode(p: Params, x: torch.Tensor, cfg: AttnConfig, cache: Params,
 
 def mlp_init(gen: torch.Generator, d: int, f: int, kind: str = "swiglu",
              dtype=torch.bfloat16, device="cuda") -> Params:
-    check_device(device)
+    check_init_device(device)
     s_in, s_out = 1.0 / math.sqrt(d), 1.0 / math.sqrt(f)
     if kind in ("swiglu", "geglu"):
         return {"wg": _normal(gen, (d, f), s_in, dtype, device),
@@ -314,7 +327,7 @@ def moe_init(gen: torch.Generator, d: int, cfg: MoEConfig,
     """Router (float32), routed experts ``wg``/``wu`` (E, d, f) and ``wd``
     (E, f, d), and the shared experts as one swiglu MLP of width
     ``n_shared * d_expert``."""
-    check_device(device)
+    check_init_device(device)
     E, f = cfg.n_experts, cfg.d_expert
     s_in, s_out = 1.0 / math.sqrt(d), 1.0 / math.sqrt(f)
     p = {"router": _normal(gen, (d, E), s_in, torch.float32, device),
@@ -328,10 +341,27 @@ def moe_init(gen: torch.Generator, d: int, cfg: MoEConfig,
 
 
 def _moe_groups(B: int, S: int) -> tuple[int, int]:
-    """(batch-groups, seq-groups) of the dispatch.  The reference tiles a
-    mesh's device grid with them; outside a mesh, which is everywhere in
-    this port until it shards, both are 1."""
-    return 1, 1
+    """(batch-groups, seq-groups) of the dispatch, as the reference's.
+
+    Under a mesh's rules the groups cover the full device grid (data x
+    model axes), so that routing, sorting and capacity dropping are
+    device-local and only the (G, E, C, d) buffer crosses the model axis.
+    On an expert-factorized mesh the seq groups stay 1 (the buffer crosses
+    into the expert axis by slicing).  Outside a mesh both are 1.
+    """
+    mesh, rules = current_mesh(), current_rules()
+    if mesh is None or rules is None:
+        return 1, 1
+    g1 = axis_prod(mesh, rules.get("batch"))
+    if "expert" in tuple(mesh.mesh_dim_names):
+        g2 = 1
+    else:
+        g2 = axis_prod(mesh, rules.get("capacity"))   # the TP axis
+    if g1 <= 0 or B % max(g1, 1) != 0:
+        g1 = 1
+    if g2 <= 0 or S % max(g2, 1) != 0:
+        g2 = 1
+    return g1, g2
 
 
 def moe_capacity(Tg: int, cfg: MoEConfig) -> int:
@@ -399,7 +429,13 @@ def moe_forward(p: Params, x: torch.Tensor, cfg: MoEConfig) -> torch.Tensor:
     G = G1 * G2
     Tg = B * S // G
     C = moe_capacity(Tg, cfg)
-    xg = x.reshape(G, Tg, d)
+    if G2 > 1:
+        # (B, S, d) -> (G1, B/G1, G2, S/G2, d) -> (G, Tg, d): the groups
+        # line up with the (data, model) device grid
+        xg = x.reshape(G1, B // G1, G2, S // G2, d).transpose(1, 2).reshape(
+            G, Tg, d)
+    else:
+        xg = x.reshape(G, Tg, d)
     w, idx = moe_route(xg, p["router"], cfg)
     st, sw, keep, buf_idx = moe_plan(idx, w, C, E)
     # dispatch: tokens gathered in expert order into their slots (the
@@ -409,10 +445,14 @@ def moe_forward(p: Params, x: torch.Tensor, cfg: MoEConfig) -> torch.Tensor:
     xb[rows, buf_idx] = xg[rows, st]
     sw_eff = torch.where(keep, sw, torch.zeros((), device=x.device)).to(
         x.dtype)
-    xb = xb[:, :E * C].reshape(G, E, C, d)
+    # expert compute: the buffer reshards from groups to experts here
+    xb = logical(xb[:, :E * C].reshape(G, E, C, d), "moe_batch", "expert",
+                 None, None)
     h = F.silu(torch.einsum("gecd,edf->gecf", xb, p["wg"])) * torch.einsum(
         "gecd,edf->gecf", xb, p["wu"])
-    yb = torch.einsum("gecf,efd->gecd", h, p["wd"])
+    h = logical(h, "moe_batch", "expert", None, "ffn")
+    yb = logical(torch.einsum("gecf,efd->gecd", h, p["wd"]), "moe_batch",
+                 "expert", None, None)
     # combine: each pair reads its slot (the spare slot reads zeros)
     ybf = torch.cat([yb.reshape(G, E * C, d),
                      torch.zeros((G, 1, d), dtype=yb.dtype,
@@ -424,6 +464,8 @@ def moe_forward(p: Params, x: torch.Tensor, cfg: MoEConfig) -> torch.Tensor:
     out = out.reshape(G, Tg, d).to(yb.dtype)
     if "shared" in p:
         out = out + mlp_forward(p["shared"], xg, "swiglu")
+    if G2 > 1:
+        out = out.reshape(G1, G2, B // G1, S // G2, d).transpose(1, 2)
     return out.reshape(B, S, d)
 
 
@@ -441,7 +483,7 @@ class RGLRUConfig:
 
 def rglru_init(gen: torch.Generator, cfg: RGLRUConfig, dtype=torch.bfloat16,
                device="cuda") -> Params:
-    check_device(device)
+    check_init_device(device)
     d, dr = cfg.d_model, cfg.d_rnn
     s = 1.0 / math.sqrt(d)
     sr = 1.0 / math.sqrt(dr)
@@ -534,7 +576,7 @@ def rwkv_init(gen: torch.Generator, cfg: RWKVConfig, dtype=torch.bfloat16,
     """Time-mix and channel-mix weights of one layer, the reference's
     shapes and scales; ``mu``, ``w0``, ``u``, ``ln_w`` and ``cm_mu`` stay
     float32, the rest take ``dtype``."""
-    check_device(device)
+    check_init_device(device)
     d, r, f = cfg.d_model, cfg.lora_rank, cfg.d_ff
     s = 1.0 / math.sqrt(d)
 
@@ -610,6 +652,11 @@ def rwkv_time_mix(p: Params, x: torch.Tensor, cfg: RWKVConfig,
     if state is None:
         state = torch.zeros((B, H, N, N), dtype=torch.float32,
                             device=x.device)
+    r = logical(r, "batch", None, "heads", None)
+    k = logical(k, "batch", None, "heads", None)
+    v = logical(v, "batch", None, "heads", None)
+    w = logical(w, "batch", None, "heads", None)
+    state = logical(state, "batch", "heads", None, None)
     y, new_state = rwkv6_ops.wkv6(r.contiguous(), k.contiguous(),
                                   v.contiguous(), w.contiguous(),
                                   u.contiguous(), state.contiguous())

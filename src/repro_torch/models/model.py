@@ -44,6 +44,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..core.engine.kernels import check_device
 from . import layers as L
+from .sharding import logical
 
 Params = dict
 
@@ -141,6 +142,23 @@ class ArchConfig:
                              d_rnn=self.rglru_width or self.d_model,
                              conv_width=self.conv_width)
 
+    def n_params(self) -> int:
+        """Total parameter count (for 6ND model flops), from the shapes of
+        `init_params` on the meta device."""
+        shapes = init_params(self, torch.Generator(), device="meta")
+        return sum(math.prod(x.shape) for x in _leaves(shapes))
+
+    def n_active_params(self) -> int:
+        """Active params per token (MoE: routed experts count top_k/E)."""
+        total = self.n_params()
+        if self.moe is None:
+            return total
+        E, K = self.moe.n_experts, self.moe.top_k
+        n_moe_layers = sum(1 for _, f in self.layer_plan if f == "moe")
+        per_expert = 3 * self.d_model * self.moe.d_expert
+        routed = n_moe_layers * E * per_expert
+        return int(total - routed + n_moe_layers * K * per_expert)
+
 
 # ----------------------------------------------------------------------
 # init
@@ -186,8 +204,8 @@ def init_params(cfg: ArchConfig, gen: torch.Generator,
     ``gen`` (a ``torch.Generator`` on ``device``).  The numbers differ from
     the reference's ``jax.random`` draws; carry those across with
     `params_from_jax`.  ``device`` defaults to "cuda" and raises without a
-    card."""
-    check_device(device)
+    card; "meta" gives the shapes and dtypes alone."""
+    L.check_init_device(device)
     device = torch.device(device)
     V, d, K = cfg.vocab_padded, cfg.d_model, cfg.n_codebooks
     params: Params = {
@@ -222,6 +240,14 @@ def _layer_keys(cfg: ArchConfig) -> list[tuple[str, int | None, str | None]]:
             + [("body", g, f"b{j}") for g in range(cfg.n_body)
                for j in range(len(body))]
             + [(f"tail{j}", None, None) for j in range(len(tail))])
+
+
+def _leaves(node) -> list:
+    if isinstance(node, dict):
+        return [x for v in node.values() for x in _leaves(v)]
+    if isinstance(node, list):
+        return [x for v in node for x in _leaves(v)]
+    return [node]
 
 
 def _tree_map(fn, node):
@@ -330,7 +356,7 @@ def _apply_block(bp: Params, x: torch.Tensor, cfg: ArchConfig, mixer: str,
         raise _unknown(ffn)
     if cfg.post_norm:
         f = _norm(f, bp["pln2"], cfg)
-    return x + f, new_state
+    return logical(x + f, "batch", "seq", "embed"), new_state
 
 
 # ----------------------------------------------------------------------
@@ -361,7 +387,8 @@ def _embed(params: Params, cfg: ArchConfig, batch: dict):
     if cfg.pos_embedding == "sinusoidal":
         x = x + L.sinusoidal_positions(S, cfg.d_model,
                                        device=x.device).to(x.dtype)[None]
-    return x, _positions(cfg, B, S, x.device)
+    return logical(x, "batch", "seq", "embed"), _positions(cfg, B, S,
+                                                           x.device)
 
 
 def _positions(cfg: ArchConfig, B: int, S: int, device) -> torch.Tensor:
@@ -398,7 +425,7 @@ def _lm_logits(params: Params, cfg: ArchConfig, x: torch.Tensor):
         pad = torch.arange(cfg.vocab_padded, device=x.device) >= cfg.vocab
         logits = logits + pad * torch.tensor(-1e9, dtype=logits.dtype,
                                              device=x.device)
-    return logits
+    return logical(logits, "batch", None, "vocab")
 
 
 # ----------------------------------------------------------------------
@@ -483,7 +510,7 @@ def init_decode_state(cfg: ArchConfig, B: int, S_max: int,
     A local layer's cache holds min(S_max, window) slots: a ring.  The
     recurrent states ``rglru.h`` and ``rwkv.s`` are float32, the rest
     ``dtype``; an ffn has no state except the RWKV channel-mix's carry."""
-    check_device(device)
+    L.check_init_device(device)
     layers = []
     for mixer, ffn in cfg.layer_plan:
         st: dict = {}

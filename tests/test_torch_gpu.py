@@ -34,7 +34,13 @@ atomics), a bf16 hd-40 call raising as the forward does, its autograd
 Function against the same Function pinned to the plain versions, the
 RG-LRU backward bitwise;
 ``wkv6`` raising under autograd; and four smoke models' train step on the
-card against the CPU's.
+card against the CPU's.  The sharding and launch layer: an NCCL process
+group of world size 1 (a FileStore, no network) under the (1, 1) debug
+mesh, ``distribute_tree`` on it, ``compressed_psum_tree`` bitwise
+``dequantize(quantize_int8(g))``, ``logical`` leaving a replicated DTensor
+as it is, meta tensors through the three LM ops (shapes only, nothing
+launched) while a CUDA tensor still launches, and the dry run's
+``HBM_PER_DEVICE`` against the card's own.
 """
 
 import dataclasses
@@ -1552,3 +1558,131 @@ def test_remat_off_on_the_card(lm_kernels):
     assert torch.equal(out[True][0], out[False][0])
     for on, off in zip(out[True][1], out[False][1]):
         assert torch.equal(on, off)
+
+
+# ----------------------------------------------------------------------
+# sharding and launch: a world-size-1 NCCL mesh on the card, the meta route
+# ----------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def nccl_mesh(tmp_path_factory):
+    """A (1, 1) ("data", "model") DeviceMesh over an NCCL process group of
+    world size 1 on a FileStore (no network), destroyed after the module."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: NCCL runs only on the card")
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_debug_mesh
+    store = dist.FileStore(str(tmp_path_factory.mktemp("nccl") / "store"), 1)
+    dist.init_process_group("nccl", store=store, rank=0, world_size=1)
+    try:
+        yield make_debug_mesh(1, 1, device_type="cuda")
+    finally:
+        dist.destroy_process_group()
+
+
+def test_nccl_debug_mesh_of_world_size_1(nccl_mesh):
+    from repro_torch.launch.mesh import axis_size, data_axes
+    assert nccl_mesh.device_type == "cuda"
+    assert tuple(nccl_mesh.mesh_dim_names) == ("data", "model")
+    assert tuple(nccl_mesh.shape) == (1, 1)
+    assert data_axes(nccl_mesh) == ("data",)
+    assert axis_size(nccl_mesh, ("data", "model")) == 1
+
+
+def test_distribute_tree_on_the_card(nccl_mesh):
+    """Every leaf of a smoke model's parameters becomes a DTensor on the
+    mesh, replicated (each mesh dim has size 1), its local part the leaf."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    from repro_torch import configs
+    from repro_torch.launch.sharding import distribute_tree, tree_items
+    from repro_torch.models import model as M
+    cfg = configs.get_smoke("recurrentgemma_2b")
+    params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                           device="cuda")
+    dist_tree = distribute_tree(params, nccl_mesh, cfg)
+    flat = dict(tree_items(dist_tree))
+    for path, leaf in tree_items(params):
+        got = flat[path]
+        assert isinstance(got, DTensor)
+        assert tuple(got.placements) == (Replicate(), Replicate())
+        assert torch.equal(got.to_local(), leaf)
+
+
+def test_compressed_psum_tree_bitwise_on_nccl(nccl_mesh):
+    """At world size 1 the int8 sum is one replica's grid scaled back: each
+    leaf equals ``dequantize(quantize_int8(g))`` in g's dtype, bitwise."""
+    from repro_torch.optim import (compressed_psum_tree, dequantize,
+                                   quantize_int8)
+    rng = np.random.default_rng(5)
+    grads = {"a": torch.from_numpy(rng.standard_normal((64, 33)).astype(
+                 np.float32)).cuda(),
+             "b": [torch.from_numpy(rng.standard_normal(1000).astype(
+                 np.float32) * 1e-3).cuda().to(torch.bfloat16)]}
+    got = compressed_psum_tree(grads, "data", nccl_mesh)
+    for g, r in ((grads["a"], got["a"]), (grads["b"][0], got["b"][0])):
+        want = dequantize(*quantize_int8(g)).to(g.dtype)
+        assert r.dtype == g.dtype and torch.equal(r, want)
+
+
+def test_logical_leaves_a_dtensor_as_it_is(nccl_mesh):
+    """``logical`` under a mesh's rules redistributes a DTensor to its
+    spec's placements; on a (1, 1) mesh those are the replicated ones it
+    has, so it comes back as it went in."""
+    from torch.distributed.tensor import Replicate, distribute_tensor
+
+    from repro_torch.launch.sharding import activation_rules
+    from repro_torch.models.sharding import activation_sharding, logical
+    x = torch.randn(4, 16, 32, device="cuda")
+    dt = distribute_tensor(x, nccl_mesh, [Replicate(), Replicate()])
+    rules = activation_rules(nccl_mesh, 4, n_kv=1)
+    with activation_sharding(nccl_mesh, rules):
+        got = logical(dt, "batch", "seq", "embed")
+    assert tuple(got.placements) == tuple(dt.placements)
+    assert torch.equal(got.to_local(), x)
+
+
+def test_meta_tensors_take_the_shape_only_route(lm_kernels):
+    """A meta tensor through the three LM ops returns outputs of the right
+    shapes and dtypes and launches nothing; a CUDA tensor still launches
+    the kernel."""
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.rg_lru import ops as rops
+    from repro_torch.kernels.rwkv6 import ops as wops
+    fk, rk, wk = lm_kernels
+    before = {**fk.LAUNCHES, **rk.LAUNCHES, **wk.LAUNCHES}
+    meta = dict(device="meta")
+    q = torch.empty(2, 64, 4, 64, dtype=torch.bfloat16, **meta)
+    kv = torch.empty(2, 64, 2, 64, dtype=torch.bfloat16, **meta)
+    o = fops.flash_attention(q, kv, kv, causal=True)
+    assert o.shape == q.shape and o.dtype == q.dtype and o.is_meta
+    x = torch.empty(2, 64, 96, **meta)
+    h, hT = rops.rglru_scan(x, x, torch.empty(2, 96, **meta))
+    assert h.shape == x.shape and hT.shape == (2, 96) and h.is_meta
+    r = torch.empty(2, 64, 4, 16, dtype=torch.bfloat16, **meta)
+    y, s = wops.wkv6(r, r, r, torch.empty(2, 64, 4, 16, **meta),
+                     torch.empty(4, 16, **meta),
+                     torch.empty(2, 4, 16, 16, **meta))
+    assert y.shape == r.shape and y.dtype == r.dtype
+    assert s.shape == (2, 4, 16, 16) and s.dtype == torch.float32
+    assert {**fk.LAUNCHES, **rk.LAUNCHES, **wk.LAUNCHES} == before
+    xc = torch.randn(2, 64, 96, device="cuda")
+    rops.rglru_scan(xc, torch.rand_like(xc), torch.zeros(2, 96,
+                                                         device="cuda"))
+    torch.cuda.synchronize()
+    assert rk.LAUNCHES["rglru_scan"] == before["rglru_scan"] + 1
+
+
+def test_hbm_per_device_is_the_cards():
+    """The dry run's device memory is what this card reports, on the card
+    it was read from."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.launch.roofline import HBM_PER_DEVICE
+    props = torch.cuda.get_device_properties(0)
+    print("total_memory", props.total_memory, props.name)
+    if props.name != "NVIDIA H100 80GB HBM3":
+        pytest.skip(f"HBM_PER_DEVICE is the H100 80GB HBM3's; this is "
+                    f"{props.name}")
+    assert props.total_memory == HBM_PER_DEVICE

@@ -49,9 +49,16 @@ def _imported_roots(path):
             yield (node.module or "").split(".")[0]
 
 
+#: modules of the sharding and launch layer, which the scan must reach
+LAUNCH_MODULES = ("launch/mesh.py", "launch/sharding.py", "launch/roofline.py",
+                  "launch/dryrun.py", "launch/report.py", "launch/cluster.py",
+                  "models/sharding.py", "optim/compression.py")
+
+
 def test_port_imports_neither_jax_nor_reference():
     files = _sources()
     assert len(files) > 20, "the scan found too few port modules"
+    assert {os.path.join(PORT, m) for m in LAUNCH_MODULES} <= set(files)
     bad = {os.path.relpath(p, ROOT): sorted(set(_imported_roots(p))
                                             & set(FORBIDDEN))
            for p in files}
