@@ -112,9 +112,13 @@ per source, all started together.  Phases, each printing its own lines:
      (and again with q and k scaled so the scores reach the cap), MHA at hd
      128 and float32 at a narrow width, within 2e-2 (bf16) / 2e-5 (f32) of
      the plain version's max magnitude; the RG-LRU backward bitwise at
-     B=1 and B=4 x 4,096 x 2,560; CUDA-event times of the kernels, the
-     forwards with their log-sum-exp, the plain versions and SDPA's
-     backward, each with its bound;
+     B=1 and B=4 x 4,096 x 2,560; the WKV6 backward's six gradients (dr,
+     dk, dv, dw, du, ds0) within twice ``ref.f32_bwd_error_bound`` of
+     ``ref.wkv6_bwd`` at rwkv6-7b's training shape (B=1 x 4,096, 64
+     heads of 64, bf16), B=4, a ragged S, S=1 and float32 at N=16, two
+     calls bitwise equal; CUDA-event times of the kernels, the forwards
+     (with their log-sum-exp), the plain versions and SDPA's backward,
+     each with its bound;
  15. full-width recurrentgemma-2b trains (all 26 layers, seeded bf16
      weights): step 1's loss and gradients (``loss_and_grads``, B=2 x
      4,096 in two microbatches) against its plain-pinned twin (the loss
@@ -123,7 +127,14 @@ per source, all started together.  Phases, each printing its own lines:
      AdamW steps (float32 master weights, lr 3e-4, warmup 1, total 10) on
      two alternating batches: the losses finite and step 3's below step
      1's on the same batch, the step's wall, tokens/s, peak memory,
-     launches and the kernels' share of the step;
+     launches and the kernels' share of the step; then rwkv6-7b the same
+     way at full width and 13 of its 32 layers (`RWKV_TRAIN_LAYERS`: the
+     deepest the dry run's count puts at or below 72 GB), its gradients
+     held against the twin that keeps WKV6's forward kernel and takes its
+     plain backward (`GRAD_TWIN`), its loss against the plain twin's, the
+     forward kernel's outputs at three layers of the pass against the
+     plain forward on the same inputs (`wkv6_path_check`), its steps on
+     the JAX package's AdamW schedule (warmup 100, `TRAIN_OPTS`);
  16. checkpoint resume: recurrentgemma-2b cut to 3 layers (one pattern
      triple; depth is the only cut) takes 2 steps, saves (``ckpt.save``,
      in a temporary directory, removed after), restores, and its third
@@ -2335,7 +2346,8 @@ def path_launches(cfg) -> tuple[dict, dict]:
     n = {kind: sum(m == kind for m, _ in cfg.layer_plan)
          for kind in ("attn", "local", "rglru", "rwkv")}
     step = {"flash_attention": 0, "flash_attention_bwd": 0,
-            "rglru_scan": n["rglru"], "rglru_scan_bwd": 0, "wkv6": n["rwkv"]}
+            "rglru_scan": n["rglru"], "rglru_scan_bwd": 0, "wkv6": n["rwkv"],
+            "wkv6_bwd": 0}
     return dict(step, flash_attention=n["attn"] + n["local"]), step
 
 
@@ -2663,6 +2675,13 @@ def lm_family(arch, summary: dict, lm_params: dict) -> dict:
 #: batch (TRAIN_MB microbatches), AdamW's settings and the steps taken
 TRAIN_B, TRAIN_MB, TRAIN_S, TRAIN_STEPS = 2, 2, 4096, 4
 TRAIN_OPT = dict(lr=3e-4, warmup_steps=1, total_steps=10)
+#: rwkv6-7b takes the JAX package's own AdamW schedule (its defaults: lr
+#: 3e-4 after 100 warmup steps, so 3e-6 k at step k): at full lr from the
+#: first step its loss rises on the repeated batch, 11.61 -> 33.07 ->
+#: 24.58 (scripts/train_lr_sweep.py, NVIDIA H100 80GB HBM3, 700 W, seed
+#: 88; 3e-5 rises too, 1e-5 and below fall)
+TRAIN_OPTS = {"rwkv6_7b": dict(lr=3e-4, warmup_steps=100,
+                               total_steps=10_000)}
 #: flash backward cases: (label, (B, Sq, Sk, H, KV, hd), dtype, opts); the
 #: first is recurrentgemma-2b's local layer at a training microbatch
 #: (B=1, S=4,096), then a ragged S, gemma2's GQA 8/4 at hd 256 with cap
@@ -2695,6 +2714,18 @@ FLASH_BWD_TOL = {"bfloat16": 2e-2, "float32": 2e-5}
 FLASH_LSE_TOL = 1e-4
 FLASH_BWD_QK_SCALE = {"cap_near": 4.0}
 RGLRU_BWD_CASES = (("train", 1, TRAIN_S, 2560), ("b4", 4, TRAIN_S, 2560))
+#: WKV6 backward cases: (label, (B, S, H, N), dtype, with dsT); the first is
+#: rwkv6-7b's layer at a training microbatch (B=1, S=4,096, 64 heads of
+#: 64), then B=4, an S off the kernel's 8-step chunk, S=1 and float32 at
+#: N=16.  Inputs at the model's scale (`wkv_draw`), dy unit normal in r's
+#: dtype; the training call's dsT is zero (the final state is unused)
+WKV_BWD_CASES = (
+    ("train", (1, TRAIN_S, 64, 64), "bfloat16", False),
+    ("b4", (4, TRAIN_S, 64, 64), "bfloat16", False),
+    ("ragged", (1, 1001, 64, 64), "bfloat16", True),
+    ("s1", (4, 1, 64, 64), "bfloat16", True),
+    ("f32_n16", (2, 300, 4, 16), "float32", True),
+)
 
 
 def flash_bwd_case(label, shape, dtype, opts, seed, timed=True) -> dict:
@@ -2854,6 +2885,86 @@ def rglru_bwd_case(label, B, S, D, seed, timed=True) -> dict:
                 bound_by=by)
 
 
+def wkv6_bwd_case(label, shape, dtype, with_dsT, seed, timed=True) -> dict:
+    """The backward kernel's six gradients (dr, dk, dv, dw, du, ds0) against
+    ``ref.wkv6_bwd`` on the same inputs.  Both are float32 evaluations of
+    one function (bf16 r, k, v and dy are exact in float32), so each
+    element lies within twice ``ref.f32_bwd_error_bound`` (first-order
+    float32 rounding of any summation order, float64) of the other: that
+    is the limit, no chosen number.  A second call gives the same bits (no
+    atomics).  Then (``timed``) the kernel, the forward kernel on the same
+    inputs and the plain version are timed.  Untimed, the readings are
+    returned unchecked (the mutant control reads them)."""
+    import torch
+
+    from repro_torch.kernels.rwkv6 import kernel, ref
+
+    B, S, H, N = shape
+    r, k, v, w, u, s0 = wkv_draw(shape, dtype, seed, True)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1000)
+    dy = torch.randn(shape, generator=gen, device="cuda").to(r.dtype)
+    dsT = (torch.randn((B, H, N, N), generator=gen, device="cuda")
+           if with_dsT else None)
+    args = (r, k, v, w, u, s0, dy, dsT)
+    got = kernel.wkv6_bwd(*args)
+    want = ref.wkv6_bwd(*args)
+    bound = ref.f32_bwd_error_bound(*args)
+    torch.cuda.synchronize()
+    names = ("dr", "dk", "dv", "dw", "du", "ds0")
+    errs, fracs = {}, {}
+    for name, g, w_, b in zip(names, got, want, bound):
+        d = (g.double() - w_.double()).abs()
+        errs[name] = float(d.max())
+        # where the bound is 0 (dw at the last step when dsT is 0) the two
+        # must agree exactly: a difference there reads as inf
+        fracs[name] = float(torch.where(d == 0, torch.zeros_like(d),
+                                        d / (2 * b)).max())
+    del want, bound
+    frac = max(fracs.values())
+    if not timed:
+        del args, got
+        torch.cuda.empty_cache()
+        return dict(case=label, abs_errs=errs, bound_fracs=fracs,
+                    caught=not frac <= 1.0)
+    check(all(bool(torch.isfinite(g).all()) for g in got),
+          f"wkv6_bwd {label}: non-finite gradients")
+    check(frac <= 1.0, f"wkv6_bwd {label}: kernel and plain version part by "
+                       f"{fracs} of twice the float32 bound")
+    again = kernel.wkv6_bwd(*args)
+    check(all(torch.equal(g, a) for g, a in zip(got, again)),
+          f"wkv6_bwd {label}: two calls differ")
+    del again
+    reps = 5 if S > 1000 else 20
+    ms = cuda_time_ms(lambda: kernel.wkv6_bwd(*args), reps, 1)
+    dev_ms = graph_time_ms(lambda: kernel.wkv6_bwd(*args), reps)
+    fwd_ms = cuda_time_ms(lambda: kernel.wkv6(r, k, v, w, u, s0), reps, 1)
+    plain = cuda_time_ms(lambda: ref.wkv6_bwd(*args), 1, 0)
+    # per state element and step: 3 to rebuild S (w S + k v; the
+    # forward's y is not needed), 3 for G = w G + r dy and 2 for each of
+    # the sums of dr, dk, dv and dw: 14.  Per (b, t, h) the bonus terms:
+    # v . dy and sum r u k (2 N + 3 N), dr's u k (v . dy) 3 N, dk's
+    # (r u)(v . dy) 2 N, dv's dy (sum r u k) 2 N, du's 3 N: 15 N.
+    # (`ops.MetaWKV6` charges the dry run 15 (N^2 + N), 7% more.)
+    n_ops = float(B * S * H * (14 * N * N + 15 * N))
+    b, by = bound_ms(nbytes(*[t for t in args if t is not None], *got), n_ops,
+                     F32_OPS_PER_S)
+    say("kernel", name="wkv6_bwd", case=label,
+        shape="B={},S={},H={},N={}".format(*shape), dtype=dtype,
+        dsT=with_dsT, abs_err=json.dumps({k: f"{e:.3e}" for k, e in
+                                          errs.items()}, separators=(",", ":")),
+        bound_frac=f"{frac:.3e}", repeat_bitwise=True, ms=round(ms, 6),
+        device_ms=round(dev_ms, 6), fwd_ms=round(fwd_ms, 6),
+        plain_ms=round(plain, 6), bound_ms=f"{b:.4e}", bound_by=by,
+        bound_share=round(b / dev_ms, 5))
+    del args, got, r, k, v, w, u, s0, dy, dsT
+    torch.cuda.empty_cache()
+    return dict(case=label, shape=shape, dtype=dtype, dsT=with_dsT,
+                max_abs_err=max(errs.values()), abs_errs=errs,
+                bound_fracs=fracs, ms=ms, device_ms=dev_ms, fwd_ms=fwd_ms,
+                plain_ms=plain, bound_ms=b, bound_by=by,
+                bound_share=b / dev_ms)
+
+
 def kernel_backward(report: list) -> None:
     cases = [flash_bwd_case(*c, seed=41 + i)
              for i, c in enumerate(FLASH_BWD_CASES)]
@@ -2876,6 +2987,19 @@ def kernel_backward(report: list) -> None:
         replaces_note="the backward of that kernel's function: the JAX "
                       "package differentiates its associative scan "
                       "(src/repro/models/layers.py:673) with jax.grad",
+        library_ms=None, cases=cases, **{k: cases[0][k] for k in (
+            "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
+            "bound_by")}))
+    cases = [wkv6_bwd_case(*c, seed=61 + i)
+             for i, c in enumerate(WKV_BWD_CASES)]
+    report.append(dict(
+        name="wkv6_bwd", route="cuda",
+        source="src/repro_torch/kernels/rwkv6/csrc/wkv6.cu",
+        replaces="src/repro/kernels/rwkv6/kernel.py:59",
+        replaces_note="the backward of that kernel's function: the JAX "
+                      "package has no backward kernel and differentiates "
+                      "its plain WKV (src/repro/kernels/rwkv6/ref.py:18, "
+                      "jax.checkpoint per chunk) with jax.grad",
         library_ms=None, cases=cases, **{k: cases[0][k] for k in (
             "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
             "bound_by")}))
@@ -2909,6 +3033,79 @@ def kernel_backward(report: list) -> None:
 LOSS_TOL = 0.00082
 GRAD_TOL = 0.022
 GRAD_F32_RATIO = F32_DISTANCE_RATIO
+#: rwkv6-7b's limits, by the same rule from its own readings over six
+#: seeds (scripts/train_grad_control.py --families wkv6 at
+#: `RWKV_TRAIN_LAYERS`, NVIDIA H100 80GB HBM3, 700 W, seeds 88-93;
+#: gradients against the `GRAD_TWIN` twin): the sound kernels' worst leaf
+#: 0.066362 / 0.32659 / 0.058267 / 0.11587 / 0.10017 / 0.069815 (u, wr,
+#: u, wk, u, u), loss 1.3065e-4 / 1.0881e-3 / 4.7302e-4 / 5.722e-6 /
+#: 4.9877e-4 / 3.9101e-4 from the plain twin's; the mutants: dw dropped
+#: 1.0 at every seed (w0's gradient all zero), the adjoint not decayed
+#: 124.68-175.01, dk without its bonus 1.0870-3.8146 (u): 2.0x above
+#: RWKV_GRAD_TOL at the least.  The float32 ratio reads 0.9794-1.0521
+#: sound, under `GRAD_F32_RATIO`.  None moves the loss
+RWKV_LOSS_TOL = 0.0017
+RWKV_GRAD_TOL = 0.49
+#: the twin whose step-1 gradients each model's are held against: the
+#: plain versions throughout (the default), or ("backward") the kernels
+#: but WKV6's backward, which takes its plain version (`grad_pass`).
+#: rwkv6-7b's gradients cannot be held against its plain twin: at this
+#: init its lower layers' bf16 gradients move by tens of times their size
+#: when any forward exact to float32 rounding rounds a few of its bf16
+#: outputs the other way (scripts/wkv6_grad_probe.py, NVIDIA H100 80GB
+#: HBM3, 700 W, seeds 88 / 89: the forward kernel, whose y differs from
+#: the plain forward's in 0.032% of elements with no bias, moves the worst
+#: leaf 101 / 28.9 relative and the float32 ratio to 2.84 / 1.52; the
+#: plain forward with its float32 y scaled by 1 +/- 2^-19 before the cast,
+#: 0.033% of y rounding the other way, 33.0 / 5.05 and 2.60 / 0.37; by
+#: 1 +/- 2^-22 and 2^-16, 7.36 / 66.3 and 7.54 / 87.4, ratios 1.05 / 8.59
+#: and 0.58 / 39.0; the backward kernel alone 0.278 / 0.153).  So those
+#: distances cannot tell a sound forward kernel from a broken backward;
+#: the forward kernel is held instead on the pass's own inputs
+#: (`wkv6_path_check`), and its loss against the plain twin's
+GRAD_TWIN = {RWKV_ARCH: "backward"}
+#: rwkv6-7b trains at full width cut to this depth: the deepest that the
+#: dry run's count (``launch/dryrun.py`` ``count_cell`` at phase 15's shape
+#: on a (1, 1) mesh) puts at or below `TRAIN_PEAK_LIMIT` (checked in
+#: `rwkv_train_depth`); all 32 layers need 151.5 GB at 20 bytes a parameter
+RWKV_TRAIN_LAYERS = 13
+TRAIN_PEAK_LIMIT = 72e9
+
+
+def train_limits(arch: str) -> tuple[float, float]:
+    """(loss limit, per-leaf gradient limit) of ``arch``'s step-1 checks."""
+    if arch == RWKV_ARCH:
+        return RWKV_LOSS_TOL, RWKV_GRAD_TOL
+    return LOSS_TOL, GRAD_TOL
+
+
+def rwkv_train_depth() -> int:
+    """`RWKV_TRAIN_LAYERS`, checked against the dry run's count: its peak
+    at or below `TRAIN_PEAK_LIMIT`, one layer more above it."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import AbstractMesh
+
+    cfg = configs.get(RWKV_ARCH)
+    peaks = {}
+    for n in (RWKV_TRAIN_LAYERS, RWKV_TRAIN_LAYERS + 1):
+        rec = dryrun.count_cell(dataclasses.replace(cfg, n_layers=n), "train",
+                                TRAIN_B, TRAIN_S,
+                                AbstractMesh((1, 1), ("data", "model")),
+                                microbatches=TRAIN_MB)
+        peaks[n] = rec["memory"]["peak_live_bytes"]
+    say("lm:train_depth", arch=RWKV_ARCH, full_layers=cfg.n_layers,
+        layers=RWKV_TRAIN_LAYERS, limit_gb=TRAIN_PEAK_LIMIT / 1e9,
+        est_peak_gb=json.dumps({n: round(b / 1e9, 3) for n, b in
+                                peaks.items()}, separators=(",", ":")))
+    check(peaks[RWKV_TRAIN_LAYERS] <= TRAIN_PEAK_LIMIT
+          < peaks[RWKV_TRAIN_LAYERS + 1],
+          f"{RWKV_ARCH}: {RWKV_TRAIN_LAYERS} layers is not the deepest cut "
+          f"the dry run puts at or below {TRAIN_PEAK_LIMIT:.0f} bytes "
+          f"({peaks})")
+    return RWKV_TRAIN_LAYERS
 
 
 def train_batches(cfg):
@@ -2929,7 +3126,8 @@ def train_launches(cfg, steps: int) -> dict:
     flash = n["attn"] + n["local"]
     return {"flash_attention": 2 * flash * per, "flash_attention_bwd":
             flash * per, "rglru_scan": 2 * n["rglru"] * per,
-            "rglru_scan_bwd": n["rglru"] * per, "wkv6": 0}
+            "rglru_scan_bwd": n["rglru"] * per,
+            "wkv6": 2 * n["rwkv"] * per, "wkv6_bwd": n["rwkv"] * per}
 
 
 def grad_distances(a: list, b: list) -> tuple[list, float]:
@@ -2952,14 +3150,42 @@ def grad_distances(a: list, b: list) -> tuple[list, float]:
     return per, (num / den) ** 0.5
 
 
-def grad_pass(cfg, params, batch, plain: bool, microbatches: int = TRAIN_MB):
-    """(loss, grads, seconds) of one gradient pass (`loss_and_grads`), the
-    kernels or (``plain``) the plain versions."""
+def twin_loss(cfg, params, batch, microbatches: int = TRAIN_MB) -> float:
+    """The plain twin's step-1 loss without its gradients: the forward of
+    each microbatch through the plain versions under no_grad, averaged as
+    `loss_and_grads` averages them."""
     import torch
 
+    from repro_torch.models import model as M
+
+    mb = batch["tokens"].shape[0] // microbatches
+    set_pin(True)
+    try:
+        with torch.no_grad():
+            lsum = torch.zeros((), dtype=torch.float32, device="cuda")
+            for i in range(microbatches):
+                part = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
+                lsum = lsum + M.loss_fn(params, cfg, part)
+            return float(lsum / microbatches)
+    finally:
+        set_pin(False)
+
+
+def grad_pass(cfg, params, batch, plain, microbatches: int = TRAIN_MB):
+    """(loss, grads, seconds) of one gradient pass (`loss_and_grads`), the
+    kernels, the plain versions (``plain`` True) or the kernels but WKV6's
+    backward, which takes its plain version (``plain`` "backward": this
+    module swaps ``ops._impl`` of WKV6 for the pass)."""
+    import torch
+
+    from repro_torch.kernels.rwkv6 import ops as wops
+    from repro_torch.kernels.rwkv6 import ref as wref
     from repro_torch.train import loss_and_grads
 
-    set_pin(plain)
+    impl = wops._impl
+    if plain == "backward":
+        wops._impl = lambda r: (impl(r)[0], wref.wkv6_bwd)
+    set_pin(plain is True)
     try:
         torch.cuda.synchronize()
         t = time.perf_counter()
@@ -2968,29 +3194,116 @@ def grad_pass(cfg, params, batch, plain: bool, microbatches: int = TRAIN_MB):
         secs = time.perf_counter() - t
     finally:
         set_pin(False)
+        wops._impl = impl
     return float(loss), grads, secs
 
 
-def lm_train(summary: dict, kernel_ms: dict) -> dict:
-    """Phase 15.  Returns the launches of the kernel path's runs."""
+def keep_wkv6_calls(picks) -> tuple[list, object]:
+    """Swap WKV6's route for one that keeps the operands and outputs of
+    its forward calls numbered in ``picks`` (counted from 0); returns the
+    list they go to and a function that restores the route."""
+    from repro_torch.kernels.rwkv6 import ops as wops
+
+    impl, seen, n = wops._impl, [], [0]
+
+    def route(r):
+        fwd, bwd = impl(r)
+
+        def keep(*a):
+            out = fwd(*a)
+            if n[0] in picks:
+                seen.append((n[0], tuple(t.detach() for t in a),
+                             tuple(t.detach() for t in out)))
+            n[0] += 1
+            return out
+        return keep, bwd
+    wops._impl = route
+    return seen, lambda: setattr(wops, "_impl", impl)
+
+
+def half_ulp(x):
+    """Half a unit in the last place of ``x``'s dtype at |x| (float64)."""
+    import torch
+
+    _, e = torch.frexp(x.double())
+    return torch.finfo(x.dtype).eps * torch.ldexp(
+        torch.ones_like(x, dtype=torch.float64), e - 2)
+
+
+def wkv6_path_check(seen) -> list:
+    """The forward kernel's outputs on the training path's own inputs
+    (`keep_wkv6_calls`) against the plain forward on the same inputs: y
+    within twice ``ref.f32_error_bound`` (two float32 evaluations) plus
+    half a unit in the last place of each (each rounds to y's dtype), the
+    final state within twice the bound."""
+    import torch
+
+    from repro_torch.kernels.rwkv6 import ref
+
+    rows = []
+    for i, a, (y, sT) in seen:
+        yp, sp = ref.wkv6(*a)
+        yb, sb = ref.f32_error_bound(*(t.float() for t in a[:3]), *a[3:])
+        dy = (y.double() - yp.double()).abs()
+        y_frac = float((dy / (2 * yb + half_ulp(y) + half_ulp(yp))).max())
+        ds = (sT.double() - sp.double()).abs()
+        s_frac = float(torch.where(ds == 0, torch.zeros_like(ds),
+                                   ds / (2 * sb)).max())
+        rows.append(dict(call=i, y_bound_frac=y_frac, state_bound_frac=s_frac,
+                         y_differs=float((y != yp).float().mean())))
+        del yp, sp, yb, sb, dy, ds
+    return rows
+
+
+def lm_train(summary: dict, kernel_ms: dict, arch: str = LM_ARCH,
+             n_layers: int | None = None) -> dict:
+    """Phase 15 for ``arch`` at full width (cut to ``n_layers`` layers when
+    given).  Returns the launches of the kernel path's runs."""
     import torch
 
     from repro_torch.optim import AdamWConfig, init_state, tree_map
     from repro_torch.train import TrainConfig, make_train_step
 
-    cfg, params, n_params = full_model(LM_ARCH)
+    cfg, params, n_params = full_model(arch, n_layers)
+    loss_tol, grad_tol = train_limits(arch)
+    key = "" if arch == LM_ARCH else f"_{arch}"
     names = _leaf_names(params)
     batches = train_batches(cfg)
+    twin = GRAD_TWIN.get(arch, True)
     lm_reset()
-    # step 1's gradients: kernels, the plain twin, the float32 yardstick
-    loss_k, g_k, secs_k = grad_pass(cfg, params, batches[0], plain=False)
+    # step 1's gradients: kernels, the twin (`GRAD_TWIN`), the float32
+    # yardstick; the loss against the plain twin's
+    # rwkv6: the forward kernel's first, middle and last layer's calls of
+    # the first microbatch are kept for `wkv6_path_check`
+    picks = ({0, cfg.n_layers // 2, cfg.n_layers - 1} if arch == RWKV_ARCH
+             else set())
+    seen, restore = keep_wkv6_calls(picks)
+    try:
+        loss_k, g_k, secs_k = grad_pass(cfg, params, batches[0],
+                                        plain=False)
+    finally:
+        restore()
     grad_launches = lm_launches()
     want = train_launches(cfg, 1)
     check(grad_launches == want,
-          f"train gradient pass launches {grad_launches}, expected {want}")
-    loss_p, g_p, secs_p = grad_pass(cfg, params, batches[0], plain=True)
-    check(lm_launches() == grad_launches,
-          "the plain-pinned twin launched kernels")
+          f"{arch} train gradient pass launches {grad_launches}, expected "
+          f"{want}")
+    lm_reset()
+    loss_g, g_p, secs_p = grad_pass(cfg, params, batches[0], plain=twin)
+    want = {k: 0 if twin is True or k.endswith("_bwd") else n
+            for k, n in grad_launches.items()}
+    check(lm_launches() == want,
+          f"{arch}: the twin launched {lm_launches()}, expected {want}")
+    fwd_rows = wkv6_path_check(seen)
+    del seen
+    for row in fwd_rows:
+        say("lm:train_wkv6_fwd", arch=arch,
+            **{k: (f"{v:.6g}" if isinstance(v, float) else v)
+               for k, v in row.items()})
+        check(row["y_bound_frac"] <= 1.0 and row["state_bound_frac"] <= 1.0,
+              f"{arch} train: the forward kernel's call {row['call']} parts "
+              f"from the plain forward on its inputs by {row} of the bound")
+    loss_p = loss_g if twin is True else twin_loss(cfg, params, batches[0])
     per_twin, all_twin = grad_distances(g_k, g_p)
     p32 = tree_map(lambda t: t.float(), params)
     loss_f, g_f, secs_f = grad_pass(cfg, p32, batches[0], plain=True,
@@ -3004,38 +3317,41 @@ def lm_train(summary: dict, kernel_ms: dict) -> dict:
     ratios = [k / p if p > 0 else 1.0 for k, p in zip(per_k32, per_p32)]
     worst_ratio = max(range(len(ratios)), key=lambda i: ratios[i])
     grads_line = dict(
+        grad_twin="plain" if twin is True else "wkv6_plain_backward",
         loss=loss_k, twin_loss=loss_p, f32_loss=loss_f,
-        loss_diff=abs(loss_k - loss_p), loss_tol=LOSS_TOL,
+        loss_diff=abs(loss_k - loss_p), loss_tol=loss_tol,
         grad_rel_err_max=per_twin[worst], grad_rel_err_max_leaf=names[worst],
-        grad_rel_err_all=all_twin, grad_tol=GRAD_TOL,
+        grad_rel_err_all=all_twin, grad_tol=grad_tol,
         f32_dist_kernels=all_k32, f32_dist_twin=all_p32,
         f32_ratio=all_k32 / all_p32, f32_ratio_tol=GRAD_F32_RATIO,
         f32_leaf_ratio_max=ratios[worst_ratio],
         f32_leaf_ratio_max_leaf=names[worst_ratio],
         grad_pass_s=secs_k, twin_grad_pass_s=secs_p, f32_grad_pass_s=secs_f)
-    say("lm:train_grads", arch=LM_ARCH, B=TRAIN_B, S=TRAIN_S,
-        microbatches=TRAIN_MB, **{k: (f"{v:.6g}" if isinstance(v, float)
-                                      else v) for k, v in grads_line.items()})
-    summary["train_grads"] = dict(
-        grads_line, per_leaf={n: dict(twin=a, k32=b, p32=c) for n, a, b, c
+    say("lm:train_grads", arch=arch, layers=cfg.n_layers, B=TRAIN_B,
+        S=TRAIN_S, microbatches=TRAIN_MB,
+        **{k: (f"{v:.6g}" if isinstance(v, float) else v)
+           for k, v in grads_line.items()})
+    summary["train_grads" + key] = dict(
+        grads_line, wkv6_fwd=fwd_rows, per_leaf={n: dict(twin=a, k32=b, p32=c) for n, a, b, c
                               in zip(names, per_twin, per_k32, per_p32)})
-    check(abs(loss_k - loss_p) <= LOSS_TOL,
-          f"train step-1 loss {loss_k} against the twin's {loss_p}")
-    check(per_twin[worst] <= GRAD_TOL,
-          f"train grads: {names[worst]} differs from the twin by "
-          f"{per_twin[worst]} relative (limit {GRAD_TOL})")
+    check(abs(loss_k - loss_p) <= loss_tol,
+          f"{arch} train step-1 loss {loss_k} against the twin's {loss_p}")
+    check(per_twin[worst] <= grad_tol,
+          f"{arch} train grads: {names[worst]} differs from the twin by "
+          f"{per_twin[worst]} relative (limit {grad_tol})")
     check(all_k32 <= GRAD_F32_RATIO * all_p32,
-          f"train grads: the kernel path is {all_k32} from float32, the twin "
-          f"{all_p32} (limit {GRAD_F32_RATIO}x)")
+          f"{arch} train grads: the kernel path is {all_k32} from float32, "
+          f"the twin {all_p32} (limit {GRAD_F32_RATIO}x)")
     del g_k
     torch.cuda.empty_cache()
 
     # four steps of AdamW on the alternating batches
-    tcfg = TrainConfig(optimizer=AdamWConfig(**TRAIN_OPT),
-                       microbatches=TRAIN_MB)
+    opt_cfg = AdamWConfig(**TRAIN_OPTS.get(arch, TRAIN_OPT))
+    tcfg = TrainConfig(optimizer=opt_cfg, microbatches=TRAIN_MB)
     step = make_train_step(cfg, tcfg, device="cuda")
     opt = init_state(tcfg.optimizer, params)
     torch.cuda.reset_peak_memory_stats()
+    lm_reset()
     losses, step_ms = [], []
     for i in range(TRAIN_STEPS):
         start = torch.cuda.Event(enable_timing=True)
@@ -3047,13 +3363,14 @@ def lm_train(summary: dict, kernel_ms: dict) -> dict:
         step_ms.append(start.elapsed_time(end))
         losses.append(float(m["loss"]))
     peak = torch.cuda.max_memory_allocated()
-    launches = lm_launches()
+    # the gradient pass's and the steps' (the twins' runs are comparisons)
+    launches = {k: n + grad_launches[k] for k, n in lm_launches().items()}
     want = train_launches(cfg, 1 + TRAIN_STEPS)
     tokens = TRAIN_B * TRAIN_S
     mean_ms = sum(step_ms[1:]) / (TRAIN_STEPS - 1)
     per_step = train_launches(cfg, 1)
     kern_ms = {k: per_step[k] * kernel_ms[k] for k in kernel_ms}
-    say("lm:train", arch=LM_ARCH, layers=cfg.n_layers, params=n_params,
+    say("lm:train", arch=arch, layers=cfg.n_layers, params=n_params,
         B=TRAIN_B, S=TRAIN_S, microbatches=TRAIN_MB, steps=TRAIN_STEPS,
         losses=",".join(f"{x:.6f}" for x in losses),
         step1_loss_equals_grad_pass=losses[0] == loss_k,
@@ -3065,15 +3382,17 @@ def lm_train(summary: dict, kernel_ms: dict) -> dict:
             {k: round(v, 3) for k, v in kern_ms.items()},
             separators=(",", ":")),
         kernels_share=round(sum(kern_ms.values()) / mean_ms, 4))
-    summary["train"] = dict(losses=losses, step_ms=step_ms, peak_bytes=peak,
-                            tokens_per_s=tokens / (mean_ms / 1e3),
-                            launches=launches, kernels_ms_per_step=kern_ms,
-                            kernels_share=sum(kern_ms.values()) / mean_ms)
+    summary["train" + key] = dict(
+        layers=cfg.n_layers, losses=losses, step_ms=step_ms, peak_bytes=peak,
+        tokens_per_s=tokens / (mean_ms / 1e3), launches=launches,
+        kernels_ms_per_step=kern_ms,
+        kernels_share=sum(kern_ms.values()) / mean_ms)
     check(all(x == x and abs(x) < float("inf") for x in losses),
-          f"train losses not finite: {losses}")
+          f"{arch} train losses not finite: {losses}")
     check(losses[2] < losses[0],
-          f"train loss did not fall on the repeated batch: {losses}")
-    check(launches == want, f"train launches {launches}, expected {want}")
+          f"{arch} train loss did not fall on the repeated batch: {losses}")
+    check(launches == want,
+          f"{arch} train launches {launches}, expected {want}")
     check(int(opt["step"]) == TRAIN_STEPS, "AdamW step count")
     del params, opt, batches
     torch.cuda.empty_cache()
@@ -3536,10 +3855,13 @@ def main() -> int:
     # each kernel's ms a call at a training microbatch (phase 14's first
     # cases: the backward and the forward with its log-sum-exp)
     kernel_ms = {}
-    for r in report[-2:]:
-        kernel_ms[r["name"]] = r["ms"]
-        kernel_ms[r["name"][:-len("_bwd")]] = r["cases"][0]["fwd_ms"]
-    train_runs = [lm_train(summary, kernel_ms), ckpt_resume(summary)]
+    for r in report:
+        if r["name"].endswith("_bwd"):
+            kernel_ms[r["name"]] = r["ms"]
+            kernel_ms[r["name"][:-len("_bwd")]] = r["cases"][0]["fwd_ms"]
+    train_runs = [lm_train(summary, kernel_ms),
+                  lm_train(summary, kernel_ms, RWKV_ARCH, rwkv_train_depth()),
+                  ckpt_resume(summary)]
     for k in lm_launches():
         launches[k] += sum(run[k] for run in train_runs)
     lm_walls["train"] = time.perf_counter() - t

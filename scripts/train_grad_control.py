@@ -14,19 +14,29 @@ checkout, and swapped in as the library its wrapper launches:
   * ``group_not_summed``: dK and dV of a KV head from the first query head
     of its group only;
   * ``cap_derivative_dropped``: no (1 - tanh^2) factor under a soft-cap;
-  * ``rglru_shifted``: the RG-LRU backward's da_t = g_t h_t, not h_{t-1}.
+  * ``rglru_shifted``: the RG-LRU backward's da_t = g_t h_t, not h_{t-1};
+  * ``wkv6_dw_dropped``: the WKV6 backward writes dw = 0;
+  * ``wkv6_adjoint_undecayed``: G_{t-1} = G_t + r dy^T (no diag(w_t));
+  * ``wkv6_dk_no_bonus``: dk without its bonus term r u (v . dy).
 
 recurrentgemma-2b at full width (seed ``--seed``, 88 by default, as the
 smoke's weights and batch) takes phase 15's step-1 gradient pass (B=2 x
-4,096 tokens, two microbatches) through each variant, read against its
-plain-pinned twin (loss difference, per-leaf relative gradient error) and
-the float32 yardstick (the ratio of the distances), as phase 15 reads it.
-recurrentgemma has no attention soft-cap, so the cap mutant is read on
-gemma2-2b (attention cap 50) at full width as well, with the sound
-variant beside it.
+4,096 tokens, two microbatches) through each flash and RG-LRU variant,
+read against its plain-pinned twin (loss difference, per-leaf relative
+gradient error) and the float32 yardstick (the ratio of the distances),
+as phase 15 reads it.  recurrentgemma has no attention soft-cap, so the
+cap mutant is read on gemma2-2b (attention cap 50) at full width as well,
+with the sound variant beside it.  The WKV6 variants are read the same way
+on rwkv6-7b at full width and phase 15's depth (``RWKV_TRAIN_LAYERS``),
+but with its gradients against the twin that keeps WKV6's forward kernel
+and takes its plain backward (``GRAD_TWIN``; the loss still against the
+plain twin's).
+``--families`` limits a run to some of the three kernel families (each
+family's variants, the sound one, and the models they are read on).
 
-Every variant is also read on phase 14's kernel checks (dq, dk, dv
-against the plain version on each case, RG-LRU bitwise).
+Every variant is also read on phase 14's kernel checks of its family (dq,
+dk, dv against the plain version on each case, RG-LRU bitwise, WKV6's six
+gradients within twice the float32 bound); the sound variant on all.
 
 It prints one line per (model, variant) and writes every reading to
 ``chiprun_out/train_grad_control_seed<N>.json``.  It exits non-zero if the
@@ -63,10 +73,29 @@ MUTANTS = {
     # da_t = g_t h_t instead of g_t h_{t-1}: the saved state one step late
     "rglru_shifted": ("rglru", r"const int shift = 1;",
                       "const int shift = 0;", 1),
+    # the WKV6 backward without dw
+    "wkv6_dw_dropped": ("wkv6", r"dwg\[o\] = pw\[0\];", "dwg[o] = 0.f;", 1),
+    # the adjoint carried back without its decay: G += r dy^T
+    "wkv6_adjoint_undecayed": (
+        "wkv6", r"g\[i\]\[cc\] = fmaf\(ww\[i\], g\[i\]\[cc\], "
+                r"rr\[i\] \* dd\[cc\]\);",
+        "g[i][cc] += rr[i] * dd[cc];", 1),
+    # dk without the bonus's share r_i u_i (v . dy)
+    "wkv6_dk_no_bonus": ("wkv6", r"dkg\[o\] = pk\[0\] \+ r_i \* u_row \* a;",
+                         "dkg[o] = pk[0];", 1),
 }
-#: the models each variant is read on: every variant on recurrentgemma-2b;
-#: the sound one and the cap mutant on gemma2-2b too
+#: the models each variant is read on: the flash and RG-LRU variants on
+#: recurrentgemma-2b; the sound one and the cap mutant on gemma2-2b too;
+#: the WKV6 variants and the sound one on rwkv6-7b
 CAP_ARCH = "gemma2_2b"
+FAMILIES = ("flash", "rglru", "wkv6")
+
+
+def read_arch(name: str, smoke) -> str:
+    """The model a mutant is judged on."""
+    if name == "cap_derivative_dropped":
+        return CAP_ARCH
+    return smoke.RWKV_ARCH if MUTANTS[name][0] == "wkv6" else smoke.LM_ARCH
 
 
 def mutate(src: str, pattern: str, repl: str, count: int) -> str:
@@ -85,16 +114,24 @@ def use_variant(name, libs, fams) -> None:
         kern.lib = libs[(fam, name if mutated else "sound")].lib
 
 
-def read_kernels(smoke, libs, fams) -> dict:
-    """Every variant on phase 14's kernel checks (untimed): flash's dq, dk,
-    dv against the plain version on each case, RG-LRU's bitwise."""
+def read_kernels(smoke, libs, fams, mutants) -> dict:
+    """Each variant on phase 14's kernel checks of the families it touches
+    (the sound one on every family read; untimed): flash's dq, dk, dv
+    against the plain version on each case, RG-LRU's bitwise, WKV6's six
+    gradients within twice ``ref.f32_bwd_error_bound``."""
     out = {}
-    for name in ["sound", *MUTANTS]:
+    for name in ["sound", *mutants]:
         use_variant(name, libs, fams)
-        cases = [smoke.flash_bwd_case(*c, seed=41 + i, timed=False)
-                 for i, c in enumerate(smoke.FLASH_BWD_CASES)]
-        cases += [smoke.rglru_bwd_case(*c, seed=51 + i, timed=False)
-                  for i, c in enumerate(smoke.RGLRU_BWD_CASES)]
+        touched = set(fams) if name == "sound" else {MUTANTS[name][0]}
+        cases = []
+        if touched & {"flash", "rglru"}:
+            cases += [smoke.flash_bwd_case(*c, seed=41 + i, timed=False)
+                      for i, c in enumerate(smoke.FLASH_BWD_CASES)]
+            cases += [smoke.rglru_bwd_case(*c, seed=51 + i, timed=False)
+                      for i, c in enumerate(smoke.RGLRU_BWD_CASES)]
+        if "wkv6" in touched:
+            cases += [smoke.wkv6_bwd_case(*c, seed=61 + i, timed=False)
+                      for i, c in enumerate(smoke.WKV_BWD_CASES)]
         out[name] = dict(cases=cases, caught=any(c["caught"] for c in cases))
         print(f"[control] kernels variant={name} caught_by="
               + ",".join(c["case"] for c in cases if c["caught"]), flush=True)
@@ -102,16 +139,27 @@ def read_kernels(smoke, libs, fams) -> dict:
 
 
 def read_model(smoke, arch, libs, variants, fams) -> dict:
-    """Every variant's step-1 gradient pass on ``arch`` at full width,
-    read against the plain twin and the float32 yardstick."""
+    """Every variant's step-1 gradient pass on ``arch`` at full width (at
+    phase 15's depth), read as phase 15 reads it: the loss against the
+    plain twin's, the gradients against the twin of `GRAD_TWIN` and the
+    float32 yardstick, the launches against phase 15's count."""
     import torch
 
     from repro_torch.optim import tree_map
 
-    cfg, params, _ = smoke.full_model(arch)
+    cfg, params, _ = smoke.full_model(
+        arch, smoke.RWKV_TRAIN_LAYERS if arch == smoke.RWKV_ARCH else None)
+    loss_tol, grad_tol = smoke.train_limits(arch)
+    want = smoke.train_launches(cfg, 1)
     batch = smoke.train_batches(cfg)[0]
     names = smoke._leaf_names(params)
-    loss_p, g_p, _ = smoke.grad_pass(cfg, params, batch, plain=True)
+    # the gradient twin (`GRAD_TWIN`: rwkv6's takes the forward kernels)
+    # and the plain twin's loss
+    twin = smoke.GRAD_TWIN.get(arch, True)
+    use_variant("sound", libs, fams)
+    loss_p, g_p, _ = smoke.grad_pass(cfg, params, batch, plain=twin)
+    if twin is not True:
+        loss_p = smoke.twin_loss(cfg, params, batch)
     p32 = tree_map(lambda t: t.float(), params)
     _, g_f, _ = smoke.grad_pass(cfg, p32, batch, plain=True, microbatches=1)
     del p32
@@ -128,13 +176,14 @@ def read_model(smoke, arch, libs, variants, fams) -> dict:
         del g_k
         torch.cuda.empty_cache()
         worst = max(range(len(per)), key=lambda i: per[i])
-        got = dict(loss_diff=abs(loss_k - loss_p), grad_rel_err_max=per[worst],
+        got = dict(layers=cfg.n_layers, loss_diff=abs(loss_k - loss_p),
+                   grad_rel_err_max=per[worst],
                    grad_rel_err_max_leaf=names[worst],
                    grad_rel_err_all=all_twin, f32_ratio=all_k32 / all_p32,
-                   launches=launches, grad_pass_s=secs,
-                   per_leaf=dict(zip(names, per)))
-        got["caught"] = not (got["loss_diff"] <= smoke.LOSS_TOL
-                             and got["grad_rel_err_max"] <= smoke.GRAD_TOL
+                   launches=launches, launches_expected=launches == want,
+                   grad_pass_s=secs, per_leaf=dict(zip(names, per)))
+        got["caught"] = not (got["loss_diff"] <= loss_tol
+                             and got["grad_rel_err_max"] <= grad_tol
                              and got["f32_ratio"] <= smoke.GRAD_F32_RATIO)
         out[name] = got
         print(f"[control] arch={arch} variant={name} "
@@ -163,18 +212,27 @@ def main(argv) -> int:
     import chip_smoke as smoke
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=smoke.SEED)
+    ap.add_argument("--families", default=",".join(FAMILIES),
+                    help="kernel families whose variants are read")
     args = ap.parse_args(argv)
     smoke.SEED = args.seed                   # weights and batches follow it
+    chosen = [f for f in args.families.split(",") if f]
+    if not chosen or set(chosen) - set(FAMILIES):
+        ap.error(f"--families takes some of {FAMILIES}")
     from repro_torch.kernels import build as B
     from repro_torch.kernels.flash_attention import kernel as fk
     from repro_torch.kernels.rg_lru import kernel as rk
+    from repro_torch.kernels.rwkv6 import kernel as wk
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    fams = {"flash": fk, "rglru": rk}
+    fams = {f: k for f, k in (("flash", fk), ("rglru", rk), ("wkv6", wk))
+            if f in chosen}
+    mutants = [k for k, v in MUTANTS.items() if v[0] in fams]
     srcs = {fam: k._SRC.read_text() for fam, k in fams.items()}
     texts = {(fam, "sound"): src for fam, src in srcs.items()}
-    for name, (fam, *m) in MUTANTS.items():
+    for name in mutants:
+        fam, *m = MUTANTS[name]
         texts[(fam, name)] = mutate(srcs[fam], *m)
     readings: dict = {}
     with tempfile.TemporaryDirectory() as tmp:
@@ -190,24 +248,28 @@ def main(argv) -> int:
             list(pool.map(lambda lib: lib.build(), libs.values()))
         print(f"[control] built {len(libs)} variants in "
               f"{time.perf_counter() - t0:.3f} s", flush=True)
-        kernels = read_kernels(smoke, libs, fams)
-        readings[smoke.LM_ARCH] = read_model(
-            smoke, smoke.LM_ARCH, libs, ["sound", *MUTANTS], fams)
-        readings[CAP_ARCH] = read_model(
-            smoke, CAP_ARCH, libs, ["sound", "cap_derivative_dropped"], fams)
+        kernels = read_kernels(smoke, libs, fams, mutants)
+        archs: dict = {}
+        for name in mutants:
+            archs.setdefault(read_arch(name, smoke), ["sound"]).append(name)
+        for arch, variants in archs.items():
+            readings[arch] = read_model(smoke, arch, libs, variants, fams)
         os.environ.pop(B.BUILD_DIR_ENV, None)
     smi = os.popen("nvidia-smi --query-gpu=name,power.limit "
                    "--format=csv,noheader").read().strip()
     print(smi, flush=True)
     out = dict(device=torch.cuda.get_device_name(0), nvidia_smi=smi,
-               seed=args.seed, limits=dict(
-                   loss_tol=smoke.LOSS_TOL, grad_tol=smoke.GRAD_TOL,
-                   f32_ratio=smoke.GRAD_F32_RATIO),
-               mutants={k: v[:3] for k, v in MUTANTS.items()},
+               seed=args.seed, families=list(fams),
+               limits={a: dict(zip(("loss_tol", "grad_tol"),
+                                   smoke.train_limits(a)),
+                               f32_ratio=smoke.GRAD_F32_RATIO)
+                       for a in readings},
+               mutants={k: MUTANTS[k][:3] for k in mutants},
                readings=readings, kernels=kernels)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
-    (out_dir / f"train_grad_control_seed{args.seed}.json").write_text(
+    tag = "" if len(fams) == len(FAMILIES) else "_" + "_".join(fams)
+    (out_dir / f"train_grad_control_seed{args.seed}{tag}.json").write_text(
         json.dumps(out, indent=1))
     caught = {a: {k: v["caught"] for k, v in r.items()}
               for a, r in readings.items()}
@@ -217,23 +279,20 @@ def main(argv) -> int:
         print("train_grad_control: the sound kernels fail a check",
               file=sys.stderr)
         rc = 1
-    missed = [k for k in MUTANTS
-              if not caught[CAP_ARCH if k == "cap_derivative_dropped"
-                            else smoke.LM_ARCH][k]]
+    missed = [k for k in mutants if not caught[read_arch(k, smoke)][k]]
     if missed:
         print(f"train_grad_control: mutants inside the gradient limits: "
               f"{missed}", file=sys.stderr)
         rc = int(any(k != "cap_derivative_dropped" for k in missed))
     if kernels["sound"]["caught"] or not all(
-            kernels[k]["caught"] for k in MUTANTS):
+            kernels[k]["caught"] for k in mutants):
         print("train_grad_control: the kernel checks misjudge a variant",
               file=sys.stderr)
         rc = 1
-    if not all(v["launches"]["flash_attention_bwd"] > 0
-               and (a == CAP_ARCH or v["launches"]["rglru_scan_bwd"] > 0)
-               for a, r in readings.items() for v in r.values()):
-        print("train_grad_control: a variant never launched",
-              file=sys.stderr)
+    if not all(v["launches_expected"] for r in readings.values()
+               for v in r.values()):
+        print("train_grad_control: a variant's launches are not phase 15's "
+              "count", file=sys.stderr)
         rc = 1
     return rc
 

@@ -52,6 +52,8 @@
 #include <stddef.h>
 #include <stdint.h>
 
+#include <atomic>
+
 // the state tile of a thread at N = 64: WKV_ROWS rows x WKV_COLS columns
 #ifndef WKV_ROWS
 #define WKV_ROWS 16
@@ -346,4 +348,408 @@ extern "C" int wkv6_fwd(const void* r, const void* k, const void* v,
     return launch<__nv_bfloat16>(r, k, v, w, u, s0, y, sT, B, S, H, N,
                                  stream);
   return launch<float>(r, k, v, w, u, s0, y, sT, B, S, H, N, stream);
+}
+
+// ----------------------------------------------------------------------
+// The backward: the gradients of the recurrence above by the reverse
+// recurrence.  Per (b, h), G_t = dL/dS_t (G after the last step is dsT,
+// or 0), S_{t-1} the state before step t:
+//
+//   dr_t[i] = sum_j S_{t-1}[i][j] dy_t[j] + u[i] k_t[i] (v_t . dy_t)
+//   dk_t[i] = sum_j G_t[i][j] v_t[j]      + r_t[i] u[i] (v_t . dy_t)
+//   dv_t[j] = sum_i G_t[i][j] k_t[i]      + dy_t[j] sum_i r_t[i] u[i] k_t[i]
+//   dw_t[i] = sum_j G_t[i][j] S_{t-1}[i][j]
+//   du[i]   = sum_{b,t} r_t[i] k_t[i] (v_t . dy_t)
+//   G_{t-1} = diag(w_t) G_t + r_t dy_t^T,        ds0 = G_0
+//
+// The TPU kernel has no backward: the JAX package differentiates its plain
+// WKV (src/repro/kernels/rwkv6/ref.py:18, jax.checkpoint per chunk).
+//
+// What bounds it on an H100: at a training microbatch (B=1, S=4096, H=64,
+// N=64) the function needs 14 float32 operations per state element and
+// step (3 to rebuild S, 3 for G's update, 2 for each of the four sums)
+// and 15 N per (b, t, h) for the bonus terms: 15.3 GFLOP, 0.228 ms at
+// 67 TFLOP/s, against 0.11 ms for its bytes, so operations bound it.
+//
+// Design (simple first; its Hopper redesign waits for a benchmark).  Column
+// j of S evolves with w, k and v[j] alone, column j of G with w, r and
+// dy[j] alone, so a thread owns the same R-row x CC-column tile of both
+// chains.  One block per (b, h); lanes of a warp split the columns (LC = 16
+// lanes of CC = N / 16 columns) and two row groups of R = 8 rows, warps
+// the remaining rows.  dr, dk and dw sum across columns: inside the
+// thread, then a shuffle tree over the LC lanes that also scatters the R
+// rows, one row to a lane.  dv sums across rows: inside the thread, a
+// shuffle over the two row groups, then per-warp partials in shared memory
+// added in warp order once a chunk.  du sums over t in each (b, h) block,
+// then a second launch adds the B partials of each head in order.  No
+// atomics: every output element has one writer, so two calls agree
+// bitwise.
+//
+// S_{t-1} is never recovered by dividing by w (w = exp(-exp(x)) underflows
+// towards 0): a first pass stores every kBwdChunk-th state to a scratch
+// (S / kBwdChunk states a (b, h)); then each chunk, last first, rebuilds
+// its kBwdChunk states into shared memory from the one stored at its start
+// and walks back through them.  r, k, v, w and dy of the chunk are staged
+// in shared memory as f32, with each step's v . dy and sum_i r u k.
+
+namespace {
+
+constexpr int kBwdChunk = 8;           // states rebuilt at a time
+
+template <int N>
+struct BwdTile {
+  static constexpr int R = 8;              // rows a thread holds
+  static constexpr int LC = 16;            // lanes across the columns
+  static constexpr int LR = 32 / LC;       // row groups in a warp
+  static constexpr int CC = N / LC;        // columns a thread holds
+  static constexpr int W = N / (R * LR);   // warps
+  static constexpr int NT = 32 * W;        // threads per (b, h)
+  static constexpr int RC = R * CC;        // tile elements
+  static constexpr int SCR = log2i(R) < log2i(LC) ? log2i(R) : log2i(LC);
+  static constexpr int SCC = log2i(CC) < log2i(LR) ? log2i(CC) : log2i(LR);
+  // shared floats: the rebuilt states, r/k/w/v/dy staged, u, each step's
+  // bonus and v . dy, per-warp dv partials
+  static constexpr int KN = kBwdChunk * N;
+  static constexpr size_t SMEM =
+      sizeof(float) * ((size_t)kBwdChunk * N * N + 5 * KN + N +
+                       2 * kBwdChunk + (size_t)W * KN);
+  static_assert(CC * LC == N && W * R * LR == N && W >= 1, "bwd tile");
+  static_assert(KN % 4 == 0 && N % 4 == 0, "float4 carving");
+};
+
+// levels of a tree over L lanes, and those that scatter V values
+template <int V, int L>
+struct Scatter {
+  static constexpr int LV = log2i(L);
+  static constexpr int SC = log2i(V) < LV ? log2i(V) : LV;
+};
+
+// a[0..V) summed over the L lanes idx ^ (1 << l) (lane stride STRIDE);
+// while a lane holds more than one value it keeps half of them and hands
+// the other half to its partner, so it ends with V >> SC totals: those
+// of indices scatter_off(idx) .. + (V >> SC)
+template <int V, int L, int STRIDE>
+__device__ __forceinline__ void reduce_scatter(float* a, int idx) {
+  constexpr int LV = Scatter<V, L>::LV, SC = Scatter<V, L>::SC;
+#pragma unroll
+  for (int l = 0; l < LV; ++l) {
+    const int o = STRIDE << l;
+    if (l < SC) {
+      const int half = V >> (l + 1);
+      const bool hi = (idx >> l) & 1;
+#pragma unroll
+      for (int q = 0; q < (V + 1) / 2; ++q) {
+        if (q < half) {
+          const float send = hi ? a[q] : a[q + half];
+          const float keep = hi ? a[q + half] : a[q];
+          a[q] = keep + __shfl_xor_sync(kFull, send, o);
+        }
+      }
+    } else {
+      a[0] += __shfl_xor_sync(kFull, a[0], o);
+    }
+  }
+}
+template <int V, int L>
+__device__ __forceinline__ int scatter_off(int idx) {
+  constexpr int SC = Scatter<V, L>::SC;
+  int off = 0;
+#pragma unroll
+  for (int l = 0; l < SC; ++l) off += ((idx >> l) & 1) ? (V >> (l + 1)) : 0;
+  return off;
+}
+
+template <typename T>
+__device__ __forceinline__ float to_f32(T x);
+template <>
+__device__ __forceinline__ float to_f32<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+template <typename T, int N>
+__global__ void __launch_bounds__(BwdTile<N>::NT)
+    wkv6_bwd_kernel(const T* __restrict__ r, const T* __restrict__ k,
+                    const T* __restrict__ v, const float* __restrict__ w,
+                    const float* __restrict__ u, const float* __restrict__ s0,
+                    const T* __restrict__ dy, const float* __restrict__ dsT,
+                    float* __restrict__ drg, float* __restrict__ dkg,
+                    float* __restrict__ dvg, float* __restrict__ dwg,
+                    float* __restrict__ du_part, float* __restrict__ ds0,
+                    float* __restrict__ ckpt, int S, int H) {
+  using G = BwdTile<N>;
+  constexpr int R = G::R, CC = G::CC, LC = G::LC, NT = G::NT, RC = G::RC;
+  constexpr int K = kBwdChunk, KN = G::KN;
+  extern __shared__ float4 smem4[];
+  float* const stash = reinterpret_cast<float*>(smem4);  // [K][RC][NT]
+  float* const rs = stash + (size_t)K * N * N;           // [K][N] each
+  float* const ks = rs + KN;
+  float* const ws = ks + KN;
+  float* const vs = ws + KN;
+  float* const ds = vs + KN;
+  float* const us = ds + KN;                             // [N]
+  float* const bonus = us + N;                           // [K]
+  float* const vdy = bonus + K;                          // [K]
+  float* const dvp = vdy + K;                            // [W][K][N]
+
+  const int bh = blockIdx.x;
+  const int b = bh / H, h = bh % H;
+  const int tid = threadIdx.x, wi = tid >> 5, lane = tid & 31;
+  const int lc = lane % LC, lr = lane / LC;
+  const int i0 = (wi * G::LR + lr) * R;          // first row of the tile
+  const int j0 = lc * CC;                        // first column
+  const int roff = scatter_off<R, LC>(lc);       // the row a lane sums
+  const bool rwriter = (lc >> G::SCR) == 0;
+  const int row = i0 + roff;
+  const int voff = scatter_off<CC, G::LR>(lr);   // the columns it sums
+  const bool vwriter = (lr >> G::SCC) == 0;
+
+  for (int e = tid; e < N; e += NT) us[e] = u[(size_t)h * N + e];
+  __syncthreads();
+  const int n_chunks = (S + K - 1) / K;
+  const size_t row_stride = (size_t)H * N;               // one timestep
+  const size_t base = ((size_t)b * S * H + h) * N;       // (b, 0, h, 0)
+  float* const my_ckpt = ckpt + (size_t)bh * n_chunks * RC * NT + tid;
+
+  // chunk t0's n steps of the given inputs into shared memory as f32
+  // (steps past S as 0)
+  auto stage = [&](int t0, bool all) {
+    for (int e = tid; e < KN; e += NT) {
+      const int t = t0 + e / N;
+      const size_t off = base + (size_t)t * row_stride + e % N;
+      const bool in = t < S;
+      ks[e] = in ? to_f32<T>(k[off]) : 0.f;
+      vs[e] = in ? to_f32<T>(v[off]) : 0.f;
+      ws[e] = in ? w[off] : 0.f;
+      if (all) {
+        rs[e] = in ? to_f32<T>(r[off]) : 0.f;
+        ds[e] = in ? to_f32<T>(dy[off]) : 0.f;
+      }
+    }
+  };
+  // one forward step on the tile: S = w S + k v
+  auto advance = [&](float (&st)[R][CC], int m) {
+    float kk[R], ww[R], vv[CC];
+#pragma unroll
+    for (int i = 0; i < R; i += 4) {
+      load_cols<4>(&ks[m * N + i0 + i], kk + i);
+      load_cols<4>(&ws[m * N + i0 + i], ww + i);
+    }
+    load_cols<CC>(&vs[m * N + j0], vv);
+#pragma unroll
+    for (int i = 0; i < R; ++i)
+#pragma unroll
+      for (int c = 0; c < CC; ++c) st[i][c] = fmaf(ww[i], st[i][c], kk[i] * vv[c]);
+  };
+
+  // pass 1: the state at the start of every chunk, into the scratch
+  float st[R][CC];
+  const size_t sbase = (size_t)bh * N * N + (size_t)i0 * N + j0;
+#pragma unroll
+  for (int i = 0; i < R; ++i) load_cols<CC>(s0 + sbase + (size_t)i * N, st[i]);
+  for (int c = 0; c < n_chunks; ++c) {
+#pragma unroll
+    for (int i = 0; i < R; ++i)
+#pragma unroll
+      for (int cc = 0; cc < CC; ++cc)
+        my_ckpt[((size_t)c * RC + i * CC + cc) * NT] = st[i][cc];
+    if (c + 1 == n_chunks) break;     // the last chunk's steps are not needed
+    stage(c * K, false);
+    __syncthreads();
+#pragma unroll 1
+    for (int m = 0; m < K; ++m) advance(st, m);
+    __syncthreads();
+  }
+
+  // pass 2: each chunk, last first, rebuilt and walked back
+  float g[R][CC];
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    if (dsT != nullptr) {
+      load_cols<CC>(dsT + sbase + (size_t)i * N, g[i]);
+    } else {
+#pragma unroll
+      for (int cc = 0; cc < CC; ++cc) g[i][cc] = 0.f;
+    }
+  }
+  const float u_row = us[row];
+  float du_acc = 0.f;
+  for (int c = n_chunks - 1; c >= 0; --c) {
+    const int t0 = c * K, n = min(K, S - t0);
+#pragma unroll
+    for (int i = 0; i < R; ++i)
+#pragma unroll
+      for (int cc = 0; cc < CC; ++cc)
+        st[i][cc] = my_ckpt[((size_t)c * RC + i * CC + cc) * NT];
+    stage(t0, true);
+    __syncthreads();
+    if (tid < n) {       // step tid's v . dy and sum_i r u k, in order
+      float a = 0.f, bo = 0.f;
+      for (int j = 0; j < N; ++j) a = fmaf(vs[tid * N + j], ds[tid * N + j], a);
+      for (int i = 0; i < N; ++i)
+        bo = fmaf(rs[tid * N + i] * us[i], ks[tid * N + i], bo);
+      vdy[tid] = a;
+      bonus[tid] = bo;
+    }
+#pragma unroll 1
+    for (int m = 0; m < n; ++m) {     // stash[m] = S before step t0 + m
+#pragma unroll
+      for (int i = 0; i < R; ++i)
+#pragma unroll
+        for (int cc = 0; cc < CC; ++cc)
+          stash[((size_t)m * RC + i * CC + cc) * NT + tid] = st[i][cc];
+      if (m + 1 < n) advance(st, m);
+    }
+    __syncthreads();
+#pragma unroll 1
+    for (int m = n - 1; m >= 0; --m) {
+      float rr[R], kk[R], ww[R], vv[CC], dd[CC];
+#pragma unroll
+      for (int i = 0; i < R; i += 4) {
+        load_cols<4>(&rs[m * N + i0 + i], rr + i);
+        load_cols<4>(&ks[m * N + i0 + i], kk + i);
+        load_cols<4>(&ws[m * N + i0 + i], ww + i);
+      }
+      load_cols<CC>(&vs[m * N + j0], vv);
+      load_cols<CC>(&ds[m * N + j0], dd);
+      float pr[R], pk[R], pw[R], pv[CC];
+#pragma unroll
+      for (int cc = 0; cc < CC; ++cc) pv[cc] = 0.f;
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        pr[i] = pk[i] = pw[i] = 0.f;
+#pragma unroll
+        for (int cc = 0; cc < CC; ++cc) {
+          const float sp = stash[((size_t)m * RC + i * CC + cc) * NT + tid];
+          pr[i] = fmaf(sp, dd[cc], pr[i]);
+          pk[i] = fmaf(g[i][cc], vv[cc], pk[i]);
+          pw[i] = fmaf(g[i][cc], sp, pw[i]);
+          pv[cc] = fmaf(g[i][cc], kk[i], pv[cc]);
+          g[i][cc] = fmaf(ww[i], g[i][cc], rr[i] * dd[cc]);
+        }
+      }
+      reduce_scatter<R, LC, 1>(pr, lc);
+      reduce_scatter<R, LC, 1>(pk, lc);
+      reduce_scatter<R, LC, 1>(pw, lc);
+      reduce_scatter<CC, G::LR, LC>(pv, lr);
+      const int t = t0 + m;
+      const float a = vdy[m];
+      if (rwriter) {
+        const size_t o = base + (size_t)t * row_stride + row;
+        const float r_i = rs[m * N + row], k_i = ks[m * N + row];
+        drg[o] = pr[0] + u_row * k_i * a;
+        dkg[o] = pk[0] + r_i * u_row * a;
+        dwg[o] = pw[0];
+        du_acc = fmaf(r_i * k_i, a, du_acc);
+      }
+      if (vwriter) {
+#pragma unroll
+        for (int q = 0; q < (CC >> G::SCC); ++q)
+          dvp[(wi * K + m) * N + j0 + voff + q] = pv[q];
+      }
+    }
+    __syncthreads();
+    // dv: the warps' partials in order, then dy_j times the step's bonus
+    for (int e = tid; e < n * N; e += NT) {
+      const int m = e / N, j = e % N;
+      float a = dvp[m * N + j];
+      for (int x = 1; x < G::W; ++x) a += dvp[(x * K + m) * N + j];
+      dvg[base + (size_t)(t0 + m) * row_stride + j] =
+          fmaf(ds[m * N + j], bonus[m], a);
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int i = 0; i < R; ++i) store_cols<CC>(ds0 + sbase + (size_t)i * N, g[i]);
+  if (rwriter) du_part[(size_t)bh * N + row] = du_acc;
+}
+
+// du[h][i] = sum_b du_part[b][h][i], b in order
+__global__ void wkv6_du_kernel(const float* __restrict__ du_part,
+                               float* __restrict__ du, int B, int H, int N) {
+  const int h = blockIdx.x, i = threadIdx.x;
+  float a = 0.f;
+  for (int b = 0; b < B; ++b) a += du_part[((size_t)b * H + h) * N + i];
+  du[(size_t)h * N + i] = a;
+}
+
+template <typename T, int N>
+int launch_bwd(const void* r, const void* k, const void* v, const float* w,
+               const float* u, const float* s0, const void* dy,
+               const float* dsT, float* dr, float* dk, float* dv, float* dw,
+               float* du, float* ds0, float* ckpt, float* du_part, int B,
+               int S, int H, cudaStream_t stream) {
+  using G = BwdTile<N>;
+  // more than 48 KB of dynamic shared memory, allowed once per device: a
+  // launch inside a CUDA graph's capture then sets no attribute
+  static std::atomic<unsigned> allowed{0u};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  const unsigned bit = dev < 32 ? 1u << dev : 0u;
+  if (!(allowed.load() & bit)) {
+    e = cudaFuncSetAttribute(wkv6_bwd_kernel<T, N>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)G::SMEM);
+    if (e != cudaSuccess) return (int)e;
+    allowed.fetch_or(bit);
+  }
+  wkv6_bwd_kernel<T, N><<<B * H, G::NT, G::SMEM, stream>>>(
+      static_cast<const T*>(r), static_cast<const T*>(k),
+      static_cast<const T*>(v), w, u, s0, static_cast<const T*>(dy), dsT, dr,
+      dk, dv, dw, du_part, ds0, ckpt, S, H);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  wkv6_du_kernel<<<H, N, 0, stream>>>(du_part, du, B, H, N);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_bwd_n(const void* r, const void* k, const void* v, const float* w,
+                 const float* u, const float* s0, const void* dy,
+                 const float* dsT, float* dr, float* dk, float* dv, float* dw,
+                 float* du, float* ds0, float* ckpt, float* du_part, int B,
+                 int S, int H, int N, cudaStream_t stream) {
+  switch (N) {
+    case 16:
+      return launch_bwd<T, 16>(r, k, v, w, u, s0, dy, dsT, dr, dk, dv, dw, du,
+                               ds0, ckpt, du_part, B, S, H, stream);
+    case 32:
+      return launch_bwd<T, 32>(r, k, v, w, u, s0, dy, dsT, dr, dk, dv, dw, du,
+                               ds0, ckpt, du_part, B, S, H, stream);
+    case 64:
+      return launch_bwd<T, 64>(r, k, v, w, u, s0, dy, dsT, dr, dk, dv, dw, du,
+                               ds0, ckpt, du_part, B, S, H, stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace
+
+// The scratch ``ckpt`` holds B * H * ceil(S / 8) * N * N floats (the
+// states stored by the first pass, wkv6_bwd_ckpt_floats), ``du_part`` B * H
+// * N.  r, k, v, dy: (B, S, H, N) bf16 (is_bf16 = 1) or f32; w (B, S, H, N),
+// u (H, N), s0 and dsT (B, H, N, N; dsT may be null for 0) f32; dr, dk, dv,
+// dw (B, S, H, N), du (H, N), ds0 (B, H, N, N) f32.  All contiguous and
+// 16-byte aligned; S >= 1.  Returns cudaGetLastError() after the launches.
+extern "C" long long wkv6_bwd_ckpt_floats(int B, int S, int H, int N) {
+  return (long long)B * H * ((S + kBwdChunk - 1) / kBwdChunk) * N * N;
+}
+
+extern "C" int wkv6_bwd(const void* r, const void* k, const void* v,
+                        const float* w, const float* u, const float* s0,
+                        const void* dy, const float* dsT, float* dr,
+                        float* dk, float* dv, float* dw, float* du,
+                        float* ds0, float* ckpt, float* du_part, int B, int S,
+                        int H, int N, int is_bf16, cudaStream_t stream) {
+  if ((long long)B * H > 0x7fffffffLL || S < 1)
+    return (int)cudaErrorInvalidConfiguration;
+  if (is_bf16)
+    return launch_bwd_n<__nv_bfloat16>(r, k, v, w, u, s0, dy, dsT, dr, dk, dv,
+                                       dw, du, ds0, ckpt, du_part, B, S, H, N,
+                                       stream);
+  return launch_bwd_n<float>(r, k, v, w, u, s0, dy, dsT, dr, dk, dv, dw, du,
+                             ds0, ckpt, du_part, B, S, H, N, stream);
 }

@@ -1,4 +1,5 @@
-"""Build, bind and launch the WKV6 kernel (``csrc/wkv6.cu``).
+"""Build, bind and launch the WKV6 kernels (``csrc/wkv6.cu``): the forward
+and its backward (the reverse recurrence).
 
 The wrapper checks device, dtype, shape and contiguity, launches on
 PyTorch's current stream, raises if ``cudaGetLastError`` reports a refused
@@ -20,11 +21,12 @@ _SRC = Path(__file__).resolve().parent / "csrc" / "wkv6.cu"
 HEAD_SIZES = (16, 32, 64)
 
 #: launches since the last `reset_launches` (the wrapper is the only writer)
-LAUNCHES = {"wkv6": 0}
+LAUNCHES = {"wkv6": 0, "wkv6_bwd": 0}
 
 
 def reset_launches() -> None:
-    LAUNCHES["wkv6"] = 0
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
 
 
 def launch_counts() -> dict[str, int]:
@@ -35,6 +37,10 @@ def _bind(handle: ctypes.CDLL) -> None:
     vp, i = ctypes.c_void_p, ctypes.c_int
     handle.wkv6_fwd.argtypes = [vp] * 8 + [i] * 5 + [vp]
     handle.wkv6_fwd.restype = ctypes.c_int
+    handle.wkv6_bwd.argtypes = [vp] * 16 + [i] * 5 + [vp]
+    handle.wkv6_bwd.restype = ctypes.c_int
+    handle.wkv6_bwd_ckpt_floats.argtypes = [i] * 4
+    handle.wkv6_bwd_ckpt_floats.restype = ctypes.c_longlong
 
 
 #: the sum over i runs in another order than the plain version's, so FMA
@@ -44,11 +50,9 @@ build = LIBRARY.build
 lib = LIBRARY.lib
 
 
-def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
-         u: torch.Tensor, state: torch.Tensor):
-    """Same contract as ``ref.wkv6``.  r, k, v (B, S, H, N), all bfloat16 or
-    all float32; w (B, S, H, N), u (H, N) and state (B, H, N, N) float32;
-    N in `HEAD_SIZES`; any S >= 1."""
+def _check(r, k, v, w, u, state):
+    """The operands' contract, shared by the forward and the backward:
+    returns (B, S, H, N)."""
     if r.dim() != 4:
         raise ValueError(f"r must be (B, S, H, N), got {tuple(r.shape)}")
     B, S, H, N = r.shape
@@ -66,10 +70,23 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
     need(w, "w", torch.float32, (B, S, H, N), dev)
     need(u, "u", torch.float32, (H, N), dev)
     need(state, "state", torch.float32, (B, H, N, N), dev)
-    # the kernel reads 16-byte units: a view that starts off that grain
-    # (a rare storage offset) is copied to a fresh, aligned tensor
-    r, k, v, w, state = (t if t.data_ptr() % 16 == 0 else t.clone()
-                         for t in (r, k, v, w, state))
+    return B, S, H, N
+
+
+def _aligned(*ts):
+    """The kernels read 16-byte units: a view that starts off that grain
+    (a rare storage offset) is copied to a fresh, aligned tensor."""
+    return tuple(t if t is None or t.data_ptr() % 16 == 0 else t.clone()
+                 for t in ts)
+
+
+def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
+         u: torch.Tensor, state: torch.Tensor):
+    """Same contract as ``ref.wkv6``.  r, k, v (B, S, H, N), all bfloat16 or
+    all float32; w (B, S, H, N), u (H, N) and state (B, H, N, N) float32;
+    N in `HEAD_SIZES`; any S >= 1."""
+    B, S, H, N = _check(r, k, v, w, u, state)
+    r, k, v, w, state = _aligned(r, k, v, w, state)
     y = torch.empty_like(r)
     sT = torch.empty_like(state)
     if B == 0 or H == 0:
@@ -80,3 +97,35 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
     check_launch(err, "wkv6")
     LAUNCHES["wkv6"] += 1
     return y, sT
+
+
+def wkv6_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             w: torch.Tensor, u: torch.Tensor, state: torch.Tensor,
+             dy: torch.Tensor, dsT: torch.Tensor | None = None):
+    """Same contract as ``ref.wkv6_bwd``: the forward's operands (as
+    `wkv6` takes them), dy (B, S, H, N) in r's dtype and dsT (B, H, N, N)
+    float32 or None -> (dr, dk, dv, dw (B, S, H, N), du (H, N), ds0 (B, H,
+    N, N)), all float32, within float32 rounding of the plain version
+    (``ref.f32_bwd_error_bound``); two calls agree bitwise.  Scratch:
+    every eighth state of the forward pass, B H ceil(S / 8) N^2 floats."""
+    B, S, H, N = _check(r, k, v, w, u, state)
+    need(dy, "dy", r.dtype, (B, S, H, N), r.device)
+    if dsT is not None:
+        need(dsT, "dsT", torch.float32, (B, H, N, N), r.device)
+    r, k, v, w, state, dy, dsT = _aligned(r, k, v, w, state, dy, dsT)
+    f32 = dict(dtype=torch.float32, device=r.device)
+    dr, dk, dv, dw = (torch.empty((B, S, H, N), **f32) for _ in range(4))
+    du = torch.zeros((H, N), **f32)
+    ds0 = torch.empty((B, H, N, N), **f32)
+    if B == 0 or H == 0:
+        return dr, dk, dv, dw, du, ds0
+    ckpt = torch.empty(lib().wkv6_bwd_ckpt_floats(B, S, H, N), **f32)
+    du_part = torch.empty((B, H, N), **f32)
+    err = lib().wkv6_bwd(ptr(r), ptr(k), ptr(v), ptr(w), ptr(u), ptr(state),
+                         ptr(dy), ptr(dsT) if dsT is not None else None,
+                         ptr(dr), ptr(dk), ptr(dv), ptr(dw), ptr(du),
+                         ptr(ds0), ptr(ckpt), ptr(du_part), B, S, H, N,
+                         int(r.dtype == torch.bfloat16), stream(r))
+    check_launch(err, "wkv6_bwd")
+    LAUNCHES["wkv6_bwd"] += 1
+    return dr, dk, dv, dw, du, ds0

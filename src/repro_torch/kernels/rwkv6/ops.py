@@ -5,10 +5,11 @@ launches the hand-written kernel (``kernel.py``) or raises, unless
 ``REPRO_LM_KERNELS`` pins the op to its plain version (``kernels/pin.py``).
 There is no fallback from the kernel to the plain version.
 
-The kernel has no backward yet (ROADMAP queue 1 item 8): under autograd
-on a CUDA tensor the op raises ``NotImplementedError``.  On a CPU tensor
-(or under the pin) autograd runs through the plain version, as the
-reference's training differentiates its plain WKV.
+When an operand requires grad (and grad mode is on) the call goes through
+`WKV6`, an autograd Function whose backward is the backward kernel
+(``kernel.wkv6_bwd``) on a CUDA tensor and ``ref.wkv6_bwd`` on a CPU
+tensor (or under the pin); it saves the operands, the initial state among
+them, and the backward rebuilds the states from them.
 
 A meta tensor takes the shape-only route (`pin.py`, `MetaWKV6`, an
 autograd Function so that gradients reach r, k, v, w, u and the state),
@@ -17,7 +18,9 @@ element and step plus 5 N per (b, t, h) for the bonus (the count of
 ``chip_smoke.py``'s ``wkv_case``), each operand and result moved once;
 backward, the reverse recurrence: the forward's 5 to rebuild each state
 element, and 10 more for dS = w dS + r dy and the four rank-one sums of
-dr, dk, dv and dw, so 15 (N^2 + N) per (b, t, h).
+dr, dk, dv and dw, so 15 (N^2 + N) per (b, t, h).  That is 7% above the
+function's least work (the rebuild needs no y: 14 N^2 + 15 N, the count
+of ``chip_smoke.py``'s ``wkv6_bwd_case``).
 """
 
 from __future__ import annotations
@@ -51,17 +54,41 @@ class MetaWKV6(torch.autograd.Function):
         return grads
 
 
+def _impl(r):
+    if pin.use_kernel("wkv6", r):
+        from . import kernel
+        return kernel.wkv6, kernel.wkv6_bwd
+    return ref.wkv6, ref.wkv6_bwd
+
+
+class WKV6(torch.autograd.Function):
+    """The recurrence with its hand-written backward (the reverse
+    recurrence over states rebuilt from the saved operands)."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u, state):
+        fwd, _ = _impl(r)
+        y, sT = fwd(r, k, v, w, u, state)
+        ctx.save_for_backward(r, k, v, w, u, state)
+        return y, sT
+
+    @staticmethod
+    def backward(ctx, dy, dsT):
+        saved = ctx.saved_tensors
+        r = saved[0]
+        _, bwd = _impl(r)
+        grads = bwd(*saved, dy.to(r.dtype).contiguous(),
+                    None if dsT is None else dsT.float().contiguous())
+        return tuple(g.to(t.dtype) for g, t in zip(grads, saved))
+
+
 def wkv6(r, k, v, w, u, state):
     """r, k, v, w (B, S, H, N); u (H, N); state (B, H, N, N) f32 ->
     (y (B, S, H, N) in r's dtype, final state f32)."""
     if r.device.type == "meta":
         return MetaWKV6.apply(r, k, v, w, u, state)
-    if pin.use_kernel("wkv6", r):
-        if torch.is_grad_enabled() and any(
-                t.requires_grad for t in (r, k, v, w, u, state)):
-            raise NotImplementedError(
-                "wkv6 has no backward kernel yet (ROADMAP queue 1 item 8, "
-                "WKV6's backward): rwkv6 cannot train on the card")
-        from . import kernel
-        return kernel.wkv6(r, k, v, w, u, state)
-    return ref.wkv6(r, k, v, w, u, state)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (r, k, v, w, u, state)):
+        return WKV6.apply(r, k, v, w, u, state)
+    fwd, _ = _impl(r)
+    return fwd(r, k, v, w, u, state)

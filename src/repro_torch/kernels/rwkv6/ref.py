@@ -7,8 +7,10 @@ Per (batch, head), with key and value width N:
 
 all in float32, the arithmetic of ``repro.kernels.rwkv6.ref``.  The
 reference's ``chunk=`` argument only places ``jax.checkpoint`` around
-chunks of the scan for the backward pass; it does not change the result,
-so this forward-only port has none until training is ported.
+chunks of the scan for the backward pass; it does not change the result.
+Here the backward is written out (`wkv6_bwd`, the reverse recurrence),
+and its ``chunk=`` plays that part: the states are rebuilt, a chunk at a
+time, from every chunk-th state of one forward pass.
 """
 
 from __future__ import annotations
@@ -120,3 +122,139 @@ def f32_error_bound(r, k, v, w, u, state):
         mag = wf[:, t, :, :, None] * mag + kv
         err = wf[:, t, :, :, None] * err + 3 * F32_EPS * mag
     return yb, err
+
+
+#: steps between the stored states of `wkv6_bwd`'s forward pass: memory
+#: holds S / CHUNK states and two chunks' worth, O(sqrt S) at 4,096
+CHUNK = 64
+
+
+def _chunks(step, s0, S: int, chunk: int):
+    """(t0, states) for each chunk of ``chunk`` steps, last first, where
+    states[m] is s_{t0 + m}, the state before step t0 + m (s_0 = s0, s_{t+1}
+    = step(t, s_t)): one forward pass keeps every ``chunk``-th state, then
+    each chunk rebuilds its states from the one kept at its start."""
+    kept, s = [s0], s0
+    for t in range((S - 1) // chunk * chunk):    # up to the last chunk
+        s = step(t, s)
+        if (t + 1) % chunk == 0:
+            kept.append(s)
+    for c in range(len(kept) - 1, -1, -1):
+        t0 = c * chunk
+        states = [kept[c]]
+        for t in range(t0, min(t0 + chunk, S) - 1):
+            states.append(step(t, states[-1]))
+        yield t0, states
+
+
+def wkv6_bwd(r, k, v, w, u, state, dy, dsT=None, chunk: int = CHUNK):
+    """The gradients of `wkv6` by the reverse recurrence, all float32.
+
+    r, k, v, w, dy (B, S, H, N); u (H, N); state and dsT (or None) (B, H,
+    N, N) -> (dr, dk, dv, dw (B, S, H, N), du (H, N), ds0 (B, H, N, N)).
+    With G_t = dL/dS_t (G_S = dsT, or zeros), per (b, h), i the key row
+    and j the value column, S_{t-1} the state before step t:
+
+        dr_t[i] = sum_j S_{t-1}[i, j] dy_t[j] + u_i k_t[i] (v_t . dy_t)
+        dk_t[i] = sum_j G_t[i, j] v_t[j] + r_t[i] u_i (v_t . dy_t)
+        dv_t[j] = sum_i G_t[i, j] k_t[i] + dy_t[j] sum_i r_t[i] u_i k_t[i]
+        dw_t[i] = sum_j G_t[i, j] S_{t-1}[i, j]
+        du[h, i] = sum_{b, t} r_t[i] k_t[i] (v_t . dy_t)
+        G_{t-1} = diag(w_t) G_t + r_t dy_t^T,   ds0 = G_0
+
+    S_{t-1} comes from `_chunks` (states rebuilt from every ``chunk``-th
+    one), never from dividing by w, which underflows towards 0.  Within a
+    chunk the two recurrences run step by step and the sums for all of
+    its steps at once."""
+    B, S, H, N = r.shape
+    rf, kf, vf, wf, dyf = (x.float() for x in (r, k, v, w, dy))
+    uf = u.float()
+    f32 = dict(dtype=torch.float32, device=rf.device)
+    dr, dk, dv, dw = (torch.empty((B, S, H, N), **f32) for _ in range(4))
+    du = torch.zeros((H, N), **f32)
+    g = (torch.zeros((B, H, N, N), **f32) if dsT is None
+         else dsT.float().clone())
+
+    def step(t, s):
+        return (wf[:, t, :, :, None] * s
+                + kf[:, t, :, :, None] * vf[:, t, :, None, :])
+    for t0, states in _chunks(step, state.float(), S, chunk):
+        n = len(states)
+        gs = [None] * n                   # gs[m] = G_{t0 + m}
+        for m in range(n - 1, -1, -1):
+            gs[m] = g
+            t = t0 + m
+            g = (wf[:, t, :, :, None] * g
+                 + rf[:, t, :, :, None] * dyf[:, t, :, None, :])
+        sp, gg = torch.stack(states, 1), torch.stack(gs, 1)  # (B, n, H, N, N)
+        sl = slice(t0, t0 + n)
+        rc, kc, vc, dyc = (x[:, sl] for x in (rf, kf, vf, dyf))
+        vdy = (vc * dyc).sum(-1, keepdim=True)
+        dr[:, sl] = torch.einsum("bthij,bthj->bthi", sp, dyc) + uf * kc * vdy
+        dk[:, sl] = torch.einsum("bthij,bthj->bthi", gg, vc) + rc * uf * vdy
+        dv[:, sl] = (torch.einsum("bthij,bthi->bthj", gg, kc)
+                     + dyc * (rc * uf * kc).sum(-1, keepdim=True))
+        dw[:, sl] = (gg * sp).sum(-1)
+        du += (rc * kc * vdy).sum((0, 1))
+    return dr, dk, dv, dw, du, g
+
+
+def f32_bwd_error_bound(r, k, v, w, u, state, dy, dsT=None,
+                        chunk: int = CHUNK):
+    """How far a float32 evaluation of `wkv6_bwd` may lie from the exact
+    gradients, to first order in ``F32_EPS``, whatever its summation order
+    and with or without FMAs: bounds of (dr, dk, dv, dw, du, ds0), float64,
+    in `wkv6_bwd`'s shapes.  Two float32 evaluations part by at most twice
+    it.  The inputs are exact in float32 (bfloat16 r, k, v, dy are).
+
+    The state's magnitude M and error D follow `f32_error_bound`; the
+    adjoint's, Gm and E, follow the same rule backwards (Gm <- w Gm +
+    |r dy|, E <- w E + 3 eps Gm, from |dsT| and 0).  Each gradient is a sum
+    of at most N products plus a bonus term itself a sum of N products,
+    each term rounded at most N + 4 times; a term a x with x carrying the
+    error e adds |a| e.  du sums B S such terms, so its factor is B S + N
+    + 4."""
+    B, S, H, N = r.shape
+    rf, kf, vf, wf, dyf = (x.double().abs() for x in (r, k, v, w, dy))
+    ua = u.double().abs()
+    e = F32_EPS
+    f64 = dict(dtype=torch.float64, device=rf.device)
+    br, bk, bv, bw = (torch.empty((B, S, H, N), **f64) for _ in range(4))
+    bu = torch.zeros((H, N), **f64)
+    gm = (torch.zeros((B, H, N, N), **f64) if dsT is None
+          else dsT.double().abs())
+    ge = torch.zeros_like(gm)
+    c = (N + 4) * e
+
+    def step(t, md):
+        mag, err = md
+        kv = kf[:, t, :, :, None] * vf[:, t, :, None, :]
+        mag = wf[:, t, :, :, None] * mag + kv
+        return mag, wf[:, t, :, :, None] * err + 3 * e * mag
+    s0 = state.double().abs()
+    mv = torch.einsum
+    for t0, states in _chunks(step, (s0, torch.zeros_like(s0)), S, chunk):
+        n = len(states)
+        gms, ges = [None] * n, [None] * n
+        for m in range(n - 1, -1, -1):
+            gms[m], ges[m] = gm, ge
+            t = t0 + m
+            gm = (wf[:, t, :, :, None] * gm
+                  + rf[:, t, :, :, None] * dyf[:, t, :, None, :])
+            ge = wf[:, t, :, :, None] * ge + 3 * e * gm
+        mag = torch.stack([x[0] for x in states], 1)
+        err = torch.stack([x[1] for x in states], 1)
+        G, E = torch.stack(gms, 1), torch.stack(ges, 1)
+        sl = slice(t0, t0 + n)
+        rc, kc, vc, dyc = (x[:, sl] for x in (rf, kf, vf, dyf))
+        vdy = (vc * dyc).sum(-1, keepdim=True)
+        ruk = (rc * ua * kc).sum(-1, keepdim=True)
+        br[:, sl] = (c * (mv("bthij,bthj->bthi", mag, dyc) + ua * kc * vdy)
+                     + mv("bthij,bthj->bthi", err, dyc))
+        bk[:, sl] = (c * (mv("bthij,bthj->bthi", G, vc) + rc * ua * vdy)
+                     + mv("bthij,bthj->bthi", E, vc))
+        bv[:, sl] = (c * (mv("bthij,bthi->bthj", G, kc) + dyc * ruk)
+                     + mv("bthij,bthi->bthj", E, kc))
+        bw[:, sl] = c * (G * mag).sum(-1) + (E * mag + G * err).sum(-1)
+        bu += (B * S + N + 4) * e * (rc * kc * vdy).sum((0, 1))
+    return br, bk, bv, bw, bu, ge

@@ -21,7 +21,9 @@ kernels, against torch autograd and the JAX reference, on the CPU.
     dk and dv summed over each KV group, ``None`` for the non-tensor
     arguments and the operands' dtypes kept; with no operand requiring
     grad the op is the plain forward, Function-free;
-  * ``wkv6`` under autograd on the CPU runs through its plain version;
+  * ``wkv6`` under autograd on the CPU runs through its `WKV6` Function,
+    whose backward is the plain reverse recurrence ``ref.wkv6_bwd``: its
+    gradients within 1e-5 of autograd through the plain forward loop;
   * ``model.loss_fn`` against the reference's for a vision model (the
     patch positions sliced off) and a codebook model (tokens counted K
     times), and its chunking (S = 24 in chunks of 8) against one chunk.
@@ -281,6 +283,10 @@ def test_rglru_function_equals_plain_autograd():
 
 
 def test_wkv6_autograd_on_cpu_runs_the_plain_version():
+    """On CPU tensors the op's Function runs the plain versions: the
+    forward loop, then ``ref.wkv6_bwd`` (its gradients bitwise), which
+    agrees with autograd through the forward loop within 1e-5 of each
+    gradient's largest element (float32 sums in another order)."""
     rng = np.random.default_rng(2)
     B, S, H, N = 1, 6, 2, 16
     r, k, v = (torch.from_numpy(rng.standard_normal((B, S, H, N)).astype(
@@ -290,11 +296,16 @@ def test_wkv6_autograd_on_cpu_runs_the_plain_version():
     u = torch.from_numpy(rng.standard_normal((H, N)).astype(np.float32))
     s0 = torch.zeros(B, H, N, N)
     y, _ = wops.wkv6(r, k, v, w, u, s0)
+    assert type(y.grad_fn).__name__ == "WKV6Backward"
     g1 = torch.autograd.grad(y.sum(), [r, k, v])
+    want = wref.wkv6_bwd(r.detach(), k.detach(), v.detach(), w, u, s0,
+                         torch.ones_like(y), torch.zeros_like(s0))
+    for a, b in zip(g1, want):
+        assert torch.equal(a, b)
     y2, _ = wref.wkv6(r, k, v, w, u, s0)
     g2 = torch.autograd.grad(y2.sum(), [r, k, v])
     for a, b in zip(g1, g2):
-        assert torch.equal(a, b)
+        _close(a, b, 1e-5)
 
 
 @pytest.mark.parametrize("arch", ["qwen2_vl_7b", "musicgen_large"])

@@ -32,9 +32,11 @@ within 1e-4.  The backward kernels: flash's dq, dk, dv within 2e-2 (bf16)
 log-sum-exp against the plain one's, two calls bitwise equal (no
 atomics), a bf16 hd-40 call raising as the forward does, its autograd
 Function against the same Function pinned to the plain versions, the
-RG-LRU backward bitwise;
-``wkv6`` raising under autograd; and four smoke models' train step on the
-card against the CPU's.  The sharding and launch layer: an NCCL process
+RG-LRU backward bitwise; the WKV6 backward's six gradients within twice
+``ref.f32_bwd_error_bound`` of ``ref.wkv6_bwd`` (every head size, S=1,
+S off the 8-step chunk, with and without dsT), two calls bitwise equal,
+and ``ops.wkv6`` under autograd launching it; and five smoke models'
+train step (rwkv6 among them) on the card against the CPU's.  The sharding and launch layer: an NCCL process
 group of world size 1 (a FileStore, no network) under the (1, 1) debug
 mesh, ``distribute_tree`` on it, ``compressed_psum_tree`` bitwise
 ``dequantize(quantize_int8(g))``, ``logical`` leaving a replicated DTensor
@@ -1439,14 +1441,102 @@ def test_rglru_backward_kernel_bitwise_equal_to_plain(lm_kernels, shape):
             assert torch.equal(g, w)
 
 
-def test_wkv6_under_autograd_on_the_card_raises(lm_kernels):
+WKV_BWD_CARD_CASES = [
+    # (B, S, H, N), dtype, with dsT: each head size, S=1, S off the 8-step
+    # chunk and the 16-step staging, bf16 at the training width
+    ((2, 40, 3, 64), "bfloat16", True),
+    ((1, 1, 2, 64), "bfloat16", False),
+    ((2, 37, 2, 16), "float32", True),
+    ((1, 100, 2, 32), "bfloat16", True),
+    ((3, 9, 4, 32), "float32", False),
+    ((2, 8, 5, 16), "bfloat16", True),
+    ((1, 1000, 4, 64), "bfloat16", True),
+]
+
+
+@pytest.mark.parametrize("shape,dtype,with_dsT", WKV_BWD_CARD_CASES)
+def test_wkv6_bwd_kernel_matches_plain(lm_kernels, shape, dtype, with_dsT):
+    """The backward kernel's six gradients against ``ref.wkv6_bwd``: two
+    float32 evaluations of the same function (bf16 r, k, v, dy are exact
+    in float32), so within twice ``ref.f32_bwd_error_bound``; one launch
+    counted; a second call bitwise equal (no atomics)."""
+    from repro_torch.kernels.rwkv6 import ref as wref
+    wk = lm_kernels[2]
+    args = _wkv_inputs(*shape, dtype, sum(shape) + 7)
+    rng = np.random.default_rng(sum(shape))
+    B, S, H, N = shape
+    dy = torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)).to("cuda", args[0].dtype)
+    dsT = (torch.from_numpy(rng.standard_normal((B, H, N, N)).astype(
+        np.float32)).cuda() if with_dsT else None)
+    before = wk.LAUNCHES["wkv6_bwd"]
+    got = wk.wkv6_bwd(*args, dy, dsT)
+    torch.cuda.synchronize()
+    assert wk.LAUNCHES["wkv6_bwd"] == before + 1
+    want = wref.wkv6_bwd(*args, dy, dsT)
+    bound = wref.f32_bwd_error_bound(*args, dy, dsT)
+    for name, g, w_, b in zip(("dr", "dk", "dv", "dw", "du", "ds0"), got,
+                              want, bound):
+        assert g.dtype == torch.float32 and g.shape == w_.shape, name
+        assert bool(torch.isfinite(g).all()), name
+        assert bool(((g.double() - w_.double()).abs() <= 2 * b).all()), name
+    again = wk.wkv6_bwd(*args, dy, dsT)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_wkv6_bwd_kernel_refuses_what_it_does_not_take(lm_kernels):
+    wk = lm_kernels[2]
+    args = _wkv_inputs(1, 8, 2, 64, "bfloat16", 0)
+    dy = torch.zeros_like(args[0])
+    with pytest.raises(TypeError):            # dy in another dtype than r
+        wk.wkv6_bwd(*args, dy.float())
+    with pytest.raises(ValueError):           # dsT of another shape
+        wk.wkv6_bwd(*args, dy, args[5][:, :1])
+    with pytest.raises(ValueError):           # a head size it has no form for
+        wk.wkv6_bwd(*_wkv_inputs(1, 8, 2, 48, "float32", 0),
+                    torch.zeros(1, 8, 2, 48, device="cuda"))
+
+
+def test_wkv6_under_autograd_on_the_card_runs_the_backward_kernel(
+        lm_kernels, monkeypatch):
+    """``ops.wkv6`` under autograd on a CUDA tensor goes through the `WKV6`
+    Function: the forward kernel, then the backward kernel, whose
+    gradients (in each operand's dtype) agree with the same Function
+    pinned to the plain versions within twice ``ref.f32_bwd_error_bound``;
+    under no_grad it is the forward alone."""
+    from repro_torch.kernels import pin
     from repro_torch.kernels.rwkv6 import ops as wops
-    r, k, v, w, u, s0 = _wkv_inputs(1, 8, 2, 16, "float32", 3)
-    r.requires_grad_()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        wops.wkv6(r, k, v, w, u, s0)
+    from repro_torch.kernels.rwkv6 import ref as wref
+    wk = lm_kernels[2]
+    base = _wkv_inputs(1, 24, 2, 16, "float32", 3)
+    dy = torch.randn(1, 24, 2, 16, device="cuda",
+                     generator=torch.Generator("cuda").manual_seed(1))
+    out = {}
+    for plain in (False, True):
+        if plain:
+            monkeypatch.setenv(pin.PIN_ENV, "plain")
+        else:
+            monkeypatch.delenv(pin.PIN_ENV, raising=False)
+        leaves = [t.clone().requires_grad_() for t in base]
+        before = dict(wk.LAUNCHES)
+        y, sT = wops.wkv6(*leaves)
+        assert type(y.grad_fn).__name__ == "WKV6Backward"
+        ((y * dy).sum() + sT.sum()).backward()
+        torch.cuda.synchronize()
+        out[plain] = ([t.grad for t in leaves],
+                      {k: wk.LAUNCHES[k] - before[k] for k in before})
+    monkeypatch.delenv(pin.PIN_ENV, raising=False)
+    assert out[False][1] == {"wkv6": 1, "wkv6_bwd": 1}
+    assert out[True][1] == {"wkv6": 0, "wkv6_bwd": 0}
+    bound = wref.f32_bwd_error_bound(*base, dy, torch.ones_like(base[5]))
+    for g, p, b in zip(out[False][0], out[True][0], bound):
+        assert g.dtype == p.dtype == torch.float32
+        assert bool(((g.double() - p.double()).abs() <= 2 * b).all())
     with torch.no_grad():
-        wops.wkv6(r, k, v, w, u, s0)
+        before = dict(wk.LAUNCHES)
+        wops.wkv6(*[t.clone().requires_grad_() for t in base])
+        assert wk.LAUNCHES == {"wkv6": before["wkv6"] + 1,
+                               "wkv6_bwd": before["wkv6_bwd"]}
 
 
 # ----------------------------------------------------------------------
@@ -1454,7 +1544,8 @@ def test_wkv6_under_autograd_on_the_card_raises(lm_kernels):
 # ----------------------------------------------------------------------
 
 @pytest.mark.parametrize("arch", ["recurrentgemma_2b", "gemma2_2b",
-                                  "deepseek_moe_16b", "qwen2_vl_7b"])
+                                  "deepseek_moe_16b", "qwen2_vl_7b",
+                                  "rwkv6_7b"])
 def test_train_step_on_the_card_matches_cpu(lm_kernels, arch):
     """A smoke model's train step in float32 (two microbatches, then AdamW)
     from the same weights and batch: on the card through the forward and
@@ -1475,7 +1566,7 @@ def test_train_step_on_the_card_matches_cpu(lm_kernels, arch):
     from repro_torch.optim import (AdamWConfig, apply_updates, init_state,
                                    tree_leaves, tree_map)
     from repro_torch.train import loss_and_grads
-    fk, rk, _ = lm_kernels
+    fk, rk, wk = lm_kernels
     cfg = configs.get_smoke(arch)
     ocfg = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=10)
     base = M.init_params(cfg, torch.Generator().manual_seed(3),
@@ -1485,11 +1576,11 @@ def test_train_step_on_the_card_matches_cpu(lm_kernels, arch):
         params = tree_map(lambda t: t.clone().to(dev), base)
         opt = init_state(ocfg, params)
         batch = make_batch(cfg, DataConfig(seed=4), 0, 4, 40, device=dev)
-        before = {**fk.LAUNCHES, **rk.LAUNCHES}
+        before = {**fk.LAUNCHES, **rk.LAUNCHES, **wk.LAUNCHES}
         loss, grads = loss_and_grads(params, cfg, batch, microbatches=2)
         params, opt, m = apply_updates(ocfg, params, grads, opt)
         torch.cuda.synchronize()
-        after = {**fk.LAUNCHES, **rk.LAUNCHES}
+        after = {**fk.LAUNCHES, **rk.LAUNCHES, **wk.LAUNCHES}
         out[dev] = (dict(loss=float(loss), lr=float(m["lr"]),
                          grad_norm=float(m["grad_norm"])),
                     [g.cpu() for g in grads],
@@ -1501,10 +1592,12 @@ def test_train_step_on_the_card_matches_cpu(lm_kernels, arch):
     (mc, gc, sc, _), (mg, gg, sg, launched) = out["cpu"], out["cuda"]
     n_attn = sum(mx in ("attn", "local") for mx, _ in cfg.layer_plan)
     n_rec = sum(mx == "rglru" for mx, _ in cfg.layer_plan)
+    n_rwkv = sum(mx == "rwkv" for mx, _ in cfg.layer_plan)
     # remat: each layer's forward twice a microbatch, its backward once
     assert launched == {"flash_attention": 4 * n_attn,
                         "flash_attention_bwd": 2 * n_attn,
-                        "rglru_scan": 4 * n_rec, "rglru_scan_bwd": 2 * n_rec}
+                        "rglru_scan": 4 * n_rec, "rglru_scan_bwd": 2 * n_rec,
+                        "wkv6": 4 * n_rwkv, "wkv6_bwd": 2 * n_rwkv}
     assert abs(mg["loss"] - mc["loss"]) <= 1e-5 * abs(mc["loss"])
     assert abs(mg["grad_norm"] - mc["grad_norm"]) <= 1e-4 * mc["grad_norm"]
     assert mg["lr"] == mc["lr"]

@@ -159,6 +159,21 @@ def test_plain_pin_parses_and_rejects(monkeypatch):
     assert not pin.use_kernel("flash_attention", torch.zeros(1))
 
 
+def test_wkv6_route_on_cpu_is_plain_both_ways(monkeypatch):
+    """On a CPU tensor WKV6's route is the plain forward and the plain
+    backward, pinned or not; the pin takes no value that would split
+    them."""
+    from repro_torch.kernels.rwkv6 import ops as wops
+    from repro_torch.kernels.rwkv6 import ref as wref
+    monkeypatch.delenv(pin.PIN_ENV, raising=False)
+    assert wops._impl(torch.zeros(1)) == (wref.wkv6, wref.wkv6_bwd)
+    monkeypatch.setenv(pin.PIN_ENV, "plain")
+    assert wops._impl(torch.zeros(1)) == (wref.wkv6, wref.wkv6_bwd)
+    monkeypatch.setenv(pin.PIN_ENV, "plain_backward")
+    with pytest.raises(ValueError):
+        pin.pinned_plain()
+
+
 # ----------------------------------------------------------------------
 # configs and parameters
 # ----------------------------------------------------------------------

@@ -58,6 +58,8 @@ def _decisions(res):
      dict(n_machines=10, interarrival=8.0, seed=3)),
     ("prod_tetris", "production", 6, "tez+tetris",
      dict(n_machines=10, interarrival=6.0, seed=5)),
+    ("tpcds_drf", "tpcds", 6, "tez+drf",
+     dict(n_machines=8, interarrival=10.0, seed=21, n_groups=2)),
     ("prod_churn", "production", 5, "dagps",
      dict(n_machines=10, interarrival=5.0, seed=9, failure_rate=1 / 150.0,
           repair_time=60.0, straggle_prob=0.08, straggle_factor=(4.0, 8.0))),
