@@ -2716,7 +2716,7 @@ FLASH_BWD_QK_SCALE = {"cap_near": 4.0}
 RGLRU_BWD_CASES = (("train", 1, TRAIN_S, 2560), ("b4", 4, TRAIN_S, 2560))
 #: WKV6 backward cases: (label, (B, S, H, N), dtype, with dsT); the first is
 #: rwkv6-7b's layer at a training microbatch (B=1, S=4,096, 64 heads of
-#: 64), then B=4, an S off the kernel's 8-step chunk, S=1 and float32 at
+#: 64), then B=4, an S off the kernel's 16-step chunk, S=1 and float32 at
 #: N=16.  Inputs at the model's scale (`wkv_draw`), dy unit normal in r's
 #: dtype; the training call's dsT is zero (the final state is unused)
 WKV_BWD_CASES = (
@@ -2944,7 +2944,8 @@ def wkv6_bwd_case(label, shape, dtype, with_dsT, seed, timed=True) -> dict:
     # the sums of dr, dk, dv and dw: 14.  Per (b, t, h) the bonus terms:
     # v . dy and sum r u k (2 N + 3 N), dr's u k (v . dy) 3 N, dk's
     # (r u)(v . dy) 2 N, dv's dy (sum r u k) 2 N, du's 3 N: 15 N.
-    # (`ops.MetaWKV6` charges the dry run 15 (N^2 + N), 7% more.)
+    # (`ops.MetaWKV6` charges the dry run the kernel's own count, which
+    # rebuilds S 2.375 times a step: (145 N^2 + 120 N) / 8, 29% more.)
     n_ops = float(B * S * H * (14 * N * N + 15 * N))
     b, by = bound_ms(nbytes(*[t for t in args if t is not None], *got), n_ops,
                      F32_OPS_PER_S)

@@ -74,15 +74,15 @@ MUTANTS = {
     "rglru_shifted": ("rglru", r"const int shift = 1;",
                       "const int shift = 0;", 1),
     # the WKV6 backward without dw
-    "wkv6_dw_dropped": ("wkv6", r"dwg\[o\] = pw\[0\];", "dwg[o] = 0.f;", 1),
+    "wkv6_dw_dropped": ("wkv6", r"dwg\[o\] = a\[2\];", "dwg[o] = 0.f;", 1),
     # the adjoint carried back without its decay: G += r dy^T
     "wkv6_adjoint_undecayed": (
-        "wkv6", r"g\[i\]\[cc\] = fmaf\(ww\[i\], g\[i\]\[cc\], "
-                r"rr\[i\] \* dd\[cc\]\);",
-        "g[i][cc] += rr[i] * dd[cc];", 1),
+        "wkv6", r"g\[i\]\[x\] = fmaf\(o\.w\[i\], g\[i\]\[x\], "
+                r"o\.r\[i\] \* o\.d\[x\]\);",
+        "g[i][x] += o.r[i] * o.d[x];", 1),
     # dk without the bonus's share r_i u_i (v . dy)
-    "wkv6_dk_no_bonus": ("wkv6", r"dkg\[o\] = pk\[0\] \+ r_i \* u_row \* a;",
-                         "dkg[o] = pk[0];", 1),
+    "wkv6_dk_no_bonus": ("wkv6", r"dkg\[o\] = a\[1\] \+ r_i \* u_i \* vd;",
+                         "dkg[o] = a[1];", 1),
 }
 #: the models each variant is read on: the flash and RG-LRU variants on
 #: recurrentgemma-2b; the sound one and the cap mutant on gemma2-2b too;

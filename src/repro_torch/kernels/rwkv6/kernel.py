@@ -106,8 +106,11 @@ def wkv6_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     `wkv6` takes them), dy (B, S, H, N) in r's dtype and dsT (B, H, N, N)
     float32 or None -> (dr, dk, dv, dw (B, S, H, N), du (H, N), ds0 (B, H,
     N, N)), all float32, within float32 rounding of the plain version
-    (``ref.f32_bwd_error_bound``); two calls agree bitwise.  Scratch:
-    every eighth state of the forward pass, B H ceil(S / 8) N^2 floats."""
+    (``ref.f32_bwd_error_bound``; its summation order is
+    ``ref.wkv6_bwd_tiled``'s); two calls agree bitwise.  Each (b, h) runs
+    as a thread-block cluster of N / 32 CTAs (one below N = 64).  Scratch:
+    every sixteenth state of the forward pass, B H ceil(S / 16) N^2
+    floats."""
     B, S, H, N = _check(r, k, v, w, u, state)
     need(dy, "dy", r.dtype, (B, S, H, N), r.device)
     if dsT is not None:

@@ -16,11 +16,13 @@ autograd Function so that gradients reach r, k, v, w, u and the state),
 each call charged with the kernel's work: forward, 5 operations per state
 element and step plus 5 N per (b, t, h) for the bonus (the count of
 ``chip_smoke.py``'s ``wkv_case``), each operand and result moved once;
-backward, the reverse recurrence: the forward's 5 to rebuild each state
-element, and 10 more for dS = w dS + r dy and the four rank-one sums of
-dr, dk, dv and dw, so 15 (N^2 + N) per (b, t, h).  That is 7% above the
-function's least work (the rebuild needs no y: 14 N^2 + 15 N, the count
-of ``chip_smoke.py``'s ``wkv6_bwd_case``).
+backward, the kernel's reverse recurrence: S = w S + k v (3 operations)
+once in the first pass and 22 times in every 16 steps of the second (each
+half chunk rebuilt from the chunk's checkpoint), 3 for G = w G + r dy, 2
+for each of the four sums of dr, dk, dv and dw, so 18.125 per state
+element and step, and 15 N per (b, t, h) for the bonus terms: (145 N^2 +
+120 N) / 8 per (b, t, h).  That is 29% above the function's least work
+(14 N^2 + 15 N, the count of ``chip_smoke.py``'s ``wkv6_bwd_case``).
 """
 
 from __future__ import annotations
@@ -49,7 +51,7 @@ class MetaWKV6(torch.autograd.Function):
         r, k, v, w, u, state = ctx.saved_tensors
         B, S, H, N = r.shape
         grads = tuple(torch.empty_like(t) for t in (r, k, v, w, u, state))
-        pin.charge("wkv6_bwd", 15.0 * B * S * H * (N * N + N),
+        pin.charge("wkv6_bwd", B * S * H * (145.0 * N * N + 120.0 * N) / 8,
                    pin.nbytes(r, k, v, w, u, state, dy, dsT, *grads))
         return grads
 

@@ -258,3 +258,104 @@ def f32_bwd_error_bound(r, k, v, w, u, state, dy, dsT=None,
         bw[:, sl] = c * (G * mag).sum(-1) + (E * mag + G * err).sum(-1)
         bu += (B * S + N + 4) * e * (rc * kc * vdy).sum((0, 1))
     return br, bk, bv, bw, bu, ge
+
+
+#: steps a chunk of the backward kernel (``csrc/wkv6.cu`` ``kBwdK``): its
+#: checkpoint stride and the depth of the states each chunk rebuilds
+BWD_CHUNK = 16
+#: columns of the state one CTA of the backward kernel owns
+#: (``WKV_BWD_COLS``): a (b, h) is a cluster of N / BWD_COLS CTAs
+BWD_COLS = 32
+
+
+def _tree(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the last dimension (a power of two) in a pairwise tree,
+    neighbours first: the order of a reduction over lanes by
+    ``__shfl_xor`` at offsets 1, 2, 4, ..."""
+    while x.shape[-1] > 1:
+        x = x[..., 0::2] + x[..., 1::2]
+    return x[..., 0]
+
+
+def _fold(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the last dimension in order, left to right."""
+    out = x[..., 0]
+    for a in range(1, x.shape[-1]):
+        out = out + x[..., a]
+    return out
+
+
+def wkv6_bwd_tiled(r, k, v, w, u, state, dy, dsT=None,
+                   cols: int = BWD_COLS):
+    """`wkv6_bwd` summed in the backward kernel's order, in float32 without
+    FMAs.  Same arguments and results as `wkv6_bwd`.
+
+    The kernel splits each (b, h) over a cluster of N / ``cols`` CTAs, one
+    group of ``cols`` columns each; a thread holds 2 rows x 4 columns of
+    S and G.  Per step:
+
+      * dr, dk, dw (sums over columns): the thread's 4 columns in order,
+        a pairwise tree over the ``cols`` / 4 lanes of the CTA's columns,
+        the CTAs' totals in rank order, then the bonus term;
+      * dv (a sum over rows): the thread's 2 rows, a pairwise tree over
+        the row groups of a warp (32 / (``cols`` / 4) groups), the warps
+        in order, then dy times the bonus;
+      * v . dy and sum_i (r_i u_i) k_i: 8 elements in order, then a
+        pairwise tree over the N / 8 groups;
+      * du: each (b, h)'s steps split over N / 8 slots (slot x takes steps
+        t0 + x, t0 + x + N / 8, ... of each chunk, chunks last first), the
+        slots in order, then the batch in order.
+
+    The states come from every `BWD_CHUNK`-th one (`_chunks`), as the
+    kernel's checkpoints.  Every sum stays a sum of the same terms, so the
+    result lies within `f32_bwd_error_bound` of the exact gradients."""
+    B, S, H, N = r.shape
+    nc = min(cols, N)
+    cl, lc = N // nc, nc // 4
+    rgw = 32 // lc
+    nw = N // (2 * rgw)
+    P = N // 8
+    rf, kf, vf, wf, dyf = (x.float() for x in (r, k, v, w, dy))
+    uf = u.float()
+    f32 = dict(dtype=torch.float32, device=rf.device)
+    dr, dk, dv, dw = (torch.empty((B, S, H, N), **f32) for _ in range(4))
+    du_slots = torch.zeros((B, H, P, N), **f32)
+    g = (torch.zeros((B, H, N, N), **f32) if dsT is None
+         else dsT.float().clone())
+
+    def over_cols(x):   # (B, H, N, N) products -> (B, H, N) row sums
+        x = x.reshape(B, H, N, cl, lc, 4)
+        return _fold(_tree(_fold(x)))
+
+    def over_rows(x):   # (B, H, N, N) products -> (B, H, N) column sums
+        x = x.reshape(B, H, nw, rgw, 2, N)
+        x = x[:, :, :, :, 0] + x[:, :, :, :, 1]           # (B, H, nw, rgw, N)
+        return _fold(_tree(x.movedim(3, -1)).movedim(2, -1))
+
+    def dot8(x):        # (B, H, N) products -> (B, H)
+        return _tree(_fold(x.reshape(B, H, P, 8)))
+
+    def step(t, s):
+        return (wf[:, t, :, :, None] * s
+                + kf[:, t, :, :, None] * vf[:, t, :, None, :])
+    for t0, states in _chunks(step, state.float(), S, BWD_CHUNK):
+        n = len(states)
+        rk_vdy = torch.empty((B, n, H, N), **f32)
+        for m in range(n - 1, -1, -1):
+            t = t0 + m
+            sp = states[m]
+            rt, kt, vt, wt, dyt = (x[:, t] for x in (rf, kf, vf, wf, dyf))
+            vdy = dot8(vt * dyt)[..., None]
+            bonus = dot8((rt * uf) * kt)[..., None]
+            dr[:, t] = over_cols(sp * dyt[:, :, None, :]) + uf * kt * vdy
+            dk[:, t] = over_cols(g * vt[:, :, None, :]) + rt * uf * vdy
+            dw[:, t] = over_cols(g * sp)
+            dv[:, t] = over_rows(g * kt[:, :, :, None]) + dyt * bonus
+            rk_vdy[:, m] = (rt * kt) * vdy
+            g = wt[..., :, None] * g + rt[..., :, None] * dyt[..., None, :]
+        for j in range(0, BWD_CHUNK, P):       # slot x takes step j + x
+            idx = [m for m in range(j, j + P) if m < n]
+            if idx:
+                du_slots[:, :, :len(idx)] += rk_vdy[:, idx].movedim(1, 2)
+    du = _fold(_fold(du_slots.movedim(2, -1)).movedim(0, -1))
+    return dr, dk, dv, dw, du, g

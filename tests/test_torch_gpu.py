@@ -34,8 +34,9 @@ atomics), a bf16 hd-40 call raising as the forward does, its autograd
 Function against the same Function pinned to the plain versions, the
 RG-LRU backward bitwise; the WKV6 backward's six gradients within twice
 ``ref.f32_bwd_error_bound`` of ``ref.wkv6_bwd`` (every head size, S=1,
-S off the 8-step chunk, with and without dsT), two calls bitwise equal,
-and ``ops.wkv6`` under autograd launching it; and five smoke models'
+S off the 16-step chunk, with and without dsT) and of its order twin
+``ref.wkv6_bwd_tiled``, two calls bitwise equal, and ``ops.wkv6`` under
+autograd launching it; and five smoke models'
 train step (rwkv6 among them) on the card against the CPU's.  The sharding and launch layer: an NCCL process
 group of world size 1 (a FileStore, no network) under the (1, 1) debug
 mesh, ``distribute_tree`` on it, ``compressed_psum_tree`` bitwise
@@ -1442,8 +1443,9 @@ def test_rglru_backward_kernel_bitwise_equal_to_plain(lm_kernels, shape):
 
 
 WKV_BWD_CARD_CASES = [
-    # (B, S, H, N), dtype, with dsT: each head size, S=1, S off the 8-step
-    # chunk and the 16-step staging, bf16 at the training width
+    # (B, S, H, N), dtype, with dsT: each head size (clusters of 4, 2 and 1
+    # CTAs), S=1, S off the 16-step chunk and on it, bf16 at the training
+    # width, float32 at N=64
     ((2, 40, 3, 64), "bfloat16", True),
     ((1, 1, 2, 64), "bfloat16", False),
     ((2, 37, 2, 16), "float32", True),
@@ -1451,6 +1453,7 @@ WKV_BWD_CARD_CASES = [
     ((3, 9, 4, 32), "float32", False),
     ((2, 8, 5, 16), "bfloat16", True),
     ((1, 1000, 4, 64), "bfloat16", True),
+    ((2, 48, 3, 64), "float32", False),
 ]
 
 
@@ -1482,6 +1485,30 @@ def test_wkv6_bwd_kernel_matches_plain(lm_kernels, shape, dtype, with_dsT):
         assert bool(((g.double() - w_.double()).abs() <= 2 * b).all()), name
     again = wk.wkv6_bwd(*args, dy, dsT)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_wkv6_bwd_kernel_near_its_order_twin(lm_kernels):
+    """The backward kernel and `ref.wkv6_bwd_tiled` (its summation order:
+    column groups of 16 added in rank order, the 16-step chunks; without
+    FMAs) in float32 at the model's scale: within twice the first-order
+    bound, as any two float32 evaluations, at every head size."""
+    from repro_torch.kernels.rwkv6 import ref as wref
+    wk = lm_kernels[2]
+    for shape in ((2, 64, 3, 16), (2, 45, 2, 32), (1, 80, 2, 64)):
+        args = _wkv_inputs(*shape, "float32", sum(shape), model=True)
+        B, S, H, N = shape
+        rng = np.random.default_rng(sum(shape) + 1)
+        dy = torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).cuda()
+        dsT = torch.from_numpy(rng.standard_normal((B, H, N, N)).astype(
+            np.float32)).cuda()
+        got = wk.wkv6_bwd(*args, dy, dsT)
+        want = wref.wkv6_bwd_tiled(*args, dy, dsT)
+        bound = wref.f32_bwd_error_bound(*args, dy, dsT)
+        for name, g, w_, b in zip(("dr", "dk", "dv", "dw", "du", "ds0"),
+                                  got, want, bound):
+            assert bool(((g.double() - w_.double()).abs() <= 2 * b).all()), (
+                shape, name)
 
 
 def test_wkv6_bwd_kernel_refuses_what_it_does_not_take(lm_kernels):

@@ -498,6 +498,15 @@ def test_dry_run_counts_the_smoke_configs(arch, kind):
         if kind == "train":
             bwd = "wkv6_bwd" if op == "wkv6" else op + "_bwd"
             assert ops.get(bwd, {}).get("calls", 0) == layers, bwd
+    if n["wkv6"] and kind != "decode":
+        # WKV6's charges per (b, t, h): the forward's 5 (N^2 + N); the
+        # backward kernel's (145 N^2 + 120 N) / 8 (``ops.py``)
+        bsh, N = 8 * 64 * cfg.n_heads, cfg.head_dim
+        assert ops["wkv6"]["flops"] == passes * n["wkv6"] * 5 * bsh * (
+            N * N + N)
+        if kind == "train":
+            assert ops["wkv6_bwd"]["flops"] == n["wkv6"] * bsh * (
+                145 * N * N + 120 * N) / 8
     assert rec["model_flops"] > 0 and rec["n_params"] == cfg.n_params()
 
 

@@ -14,10 +14,15 @@ differentiates the plain recurrence (``repro.kernels.rwkv6.ref.wkv6``,
   * that bound itself against a float64 autograd of the recurrence: the
     plain backward lies within it, and it is small against the gradients;
   * ``ops.wkv6`` under autograd on CPU tensors: the `WKV6` Function, its
-    gradients ``ref.wkv6_bwd``'s bitwise, cast to each operand's dtype.
+    gradients ``ref.wkv6_bwd``'s bitwise, cast to each operand's dtype;
+  * ``ref.wkv6_bwd_tiled`` (the backward kernel's summation order: column
+    groups of a cluster added in rank order, 16-step chunks) against
+    ``jax.vjp`` and against ``ref.wkv6_bwd`` at N = 16, 32 and 64, S = 1,
+    ragged and several chunks, with and without dsT: within twice
+    ``ref.f32_bwd_error_bound``.
 
 Inputs are made with numpy from a seed at small sizes (B <= 2, S <= 40,
-H <= 2, N = 16), at the model's scale (unit r, k, v; decays w = exp(-exp(
+H <= 2, N = 16; the order twin up to N = 64), at the model's scale (unit r, k, v; decays w = exp(-exp(
 w0)) with w0 in (-6, -5)).
 """
 
@@ -153,3 +158,64 @@ def test_wkv6_function_on_cpu_is_the_plain_backward(dtype):
         assert torch.equal(leaf.grad, g.to(leaf.dtype)), name
     y2, _ = twk.wkv6(r, k, v, w, u, s0)
     assert y2.grad_fn is None and torch.equal(y2, y.detach())
+
+
+#: (B, S, H, N), with dsT, the twin's columns a CTA: each head size, S = 1,
+#: S ragged against the 16-step chunk and several whole chunks
+TILED_CASES = [
+    ((2, 40, 2, 16), True, 16),
+    ((1, 1, 2, 16), False, 16),
+    ((1, 37, 2, 32), True, 16),
+    ((2, 32, 1, 32), False, 32),
+    ((1, 48, 1, 64), True, 16),
+    ((1, 21, 2, 64), False, 16),
+    ((2, 1, 1, 64), True, 32),
+]
+
+
+@pytest.mark.parametrize("shape,with_dsT,cols", TILED_CASES)
+def test_wkv6_bwd_tiled_matches_plain(shape, with_dsT, cols):
+    """The kernel's summation order against the plain backward: the same
+    states and adjoint (ds0 bitwise), every gradient within twice the
+    float32 bound."""
+    arrays = _draw(*shape, seed=sum(shape) + cols)
+    ts = [torch.from_numpy(a) for a in arrays]
+    if not with_dsT:
+        ts[7] = None
+    got = twr.wkv6_bwd_tiled(*ts, cols=cols)
+    want = twr.wkv6_bwd(*ts)
+    bound = twr.f32_bwd_error_bound(*ts)
+    assert torch.equal(got[5], want[5])
+    for name, g, w, b in zip(NAMES, got, want, bound):
+        assert g.dtype == torch.float32 and g.shape == w.shape, name
+        assert ((g.double() - w.double()).abs() <= 2 * b).all(), name
+
+
+@pytest.mark.parametrize("shape,with_dsT", [((2, 40, 2, 16), True),
+                                            ((1, 35, 1, 64), False)])
+def test_wkv6_bwd_tiled_matches_jax_vjp(shape, with_dsT):
+    """The kernel's summation order against ``jax.vjp`` of the reference's
+    plain recurrence (S off the 16-step chunk)."""
+    arrays = _draw(*shape, seed=sum(shape) + 2)
+    if not with_dsT:
+        arrays[7] = np.zeros_like(arrays[7])
+    want = _jax_grads(arrays, None)
+    ts = [torch.from_numpy(a) for a in arrays]
+    if not with_dsT:
+        ts[7] = None
+    got = twr.wkv6_bwd_tiled(*ts)
+    bound = twr.f32_bwd_error_bound(*ts)
+    for name, g, w, b in zip(NAMES, got, want, bound):
+        diff = np.abs(g.double().numpy() - w.astype(np.float64))
+        assert (diff <= 2 * b.numpy()).all(), (name, float(diff.max()))
+
+
+def test_wkv6_bwd_tiled_order_differs_from_the_plain_sums():
+    """The twin is no copy of the plain backward: at N = 64 its grouped
+    sums round differently in some element of dr, dk, dv and dw (within
+    the bound, as the other tests hold)."""
+    ts = [torch.from_numpy(a) for a in _draw(1, 20, 2, 64, seed=9)]
+    got = twr.wkv6_bwd_tiled(*ts)
+    want = twr.wkv6_bwd(*ts)
+    for name, g, w in zip(NAMES[:4], got, want):
+        assert not torch.equal(g, w), name
