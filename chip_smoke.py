@@ -153,7 +153,21 @@ per source, all started together.  Phases, each printing its own lines:
      ``compressed_psum_tree`` of a gradient tree of its shapes, each leaf
      bitwise ``dequantize(quantize_int8(g))``; the dry run's count at
      phase 15's shape beside phase 15's measured peak memory (within a
-     factor of 2) and step wall (achieved TFLOP/s).
+     factor of 2) and step wall (achieved TFLOP/s);
+ 18. the sharded programs on the same (1, 1) mesh, where every placement
+     is ``Replicate()``: full-width gemma2-2b (all 26 layers, seeded bf16
+     weights) distributed on it (``distribute_tree``, ``distribute_batch``)
+     and called inside ``activation_sharding``: prefill of 4 x 4,096
+     (last position) and ``greedy_generate`` of 32 new tokens, step 1's
+     gradient pass (B=2 x 4,096, two microbatches) and 2 AdamW steps,
+     each against the same call on plain tensors from the same weights:
+     logits, tokens, loss, every gradient leaf and the parameters after
+     the steps bitwise equal; the step's wall beside the plain step's (the
+     difference is DTensor's host cost), the peak memory beside the dry
+     run's count (which must put both runs' steps under 72 GB), the
+     flash launches inside the kernel regions; then one gradient pass of
+     recurrentgemma-2b (3 layers) and rwkv6-7b (2 layers) at full width,
+     bitwise, so RG-LRU and WKV6 run forward and backward in their regions.
 
 Any failed phase exits non-zero before the result line.  The last line is
 ``{"ok": true, "device": {...}}``; the line before it lists every kernel
@@ -164,6 +178,7 @@ output directory named in ``main``.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -3608,65 +3623,71 @@ def schedule_dryrun_jobs(jobs: list, summary: dict) -> dict:
     return launches
 
 
-def nccl_mesh_psum(summary: dict) -> None:
-    """An NCCL process group of world size 1 on a FileStore, the (1, 1)
-    debug mesh, full-width recurrentgemma-2b distributed on it, and
-    `compressed_psum_tree` over "data" on a float32 gradient tree of the
-    same shapes drawn from `SEED`: each leaf bitwise
-    ``dequantize(quantize_int8(g))``, which world size 1 must give."""
+@contextlib.contextmanager
+def nccl_mesh():
+    """Phases 17 and 18's NCCL process group of world size 1 on a
+    FileStore and its (1, 1) debug mesh, both torn down on leaving."""
     import shutil
     import tempfile
 
-    import torch
     import torch.distributed as dist
-    from torch.distributed.tensor import DTensor, Replicate
 
     from repro_torch.launch.mesh import make_debug_mesh
-    from repro_torch.launch.sharding import distribute_tree
-    from repro_torch.optim import (compressed_psum_tree, dequantize,
-                                   quantize_int8, tree_leaves, tree_map)
 
     tmp = tempfile.mkdtemp(prefix="repro_nccl_")
     try:
         store = dist.FileStore(os.path.join(tmp, "store"), 1)
         dist.init_process_group("nccl", store=store, rank=0, world_size=1)
         try:
-            mesh = make_debug_mesh(1, 1, device_type="cuda")
-            cfg, params, n_params = full_model(LM_ARCH)
-            t = time.perf_counter()
-            dtree = distribute_tree(params, mesh, cfg)
-            torch.cuda.synchronize()
-            dist_s = time.perf_counter() - t
-            leaves = tree_leaves(dtree)
-            check(all(isinstance(x, DTensor) and tuple(x.placements)
-                      == (Replicate(), Replicate()) for x in leaves),
-                  "distribute_tree: a leaf is not replicated on the mesh")
-            check(all(torch.equal(x.to_local(), y) for x, y in
-                      zip(leaves, tree_leaves(params))),
-                  "distribute_tree: a local part differs from its leaf")
-            del dtree, leaves
-            gen = torch.Generator(device="cuda").manual_seed(SEED)
-            grads = tree_map(lambda p: torch.randn(
-                p.shape, generator=gen, device="cuda") * 1e-3, params)
-            del params
-            torch.cuda.synchronize()
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            out = compressed_psum_tree(grads, "data", mesh)
-            end.record()
-            torch.cuda.synchronize()
-            psum_ms = start.elapsed_time(end)
-            same = [torch.equal(o, dequantize(*quantize_int8(g)).to(g.dtype))
-                    for o, g in zip(tree_leaves(out), tree_leaves(grads))]
-            n_bytes = sum(g.numel() * g.element_size()
-                          for g in tree_leaves(grads))
-            del grads, out
-            torch.cuda.empty_cache()
+            yield make_debug_mesh(1, 1, device_type="cuda")
         finally:
             dist.destroy_process_group()
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+def nccl_mesh_psum(summary: dict, mesh) -> None:
+    """Full-width recurrentgemma-2b distributed on the (1, 1) NCCL mesh, and
+    `compressed_psum_tree` over "data" on a float32 gradient tree of the
+    same shapes drawn from `SEED`: each leaf bitwise
+    ``dequantize(quantize_int8(g))``, which world size 1 must give."""
+    import torch
+    from torch.distributed.tensor import DTensor, Replicate
+
+    from repro_torch.launch.sharding import distribute_tree
+    from repro_torch.optim import (compressed_psum_tree, dequantize,
+                                   quantize_int8, tree_leaves, tree_map)
+
+    cfg, params, n_params = full_model(LM_ARCH)
+    t = time.perf_counter()
+    dtree = distribute_tree(params, mesh, cfg)
+    torch.cuda.synchronize()
+    dist_s = time.perf_counter() - t
+    leaves = tree_leaves(dtree)
+    check(all(isinstance(x, DTensor) and tuple(x.placements)
+              == (Replicate(), Replicate()) for x in leaves),
+          "distribute_tree: a leaf is not replicated on the mesh")
+    check(all(torch.equal(x.to_local(), y) for x, y in
+              zip(leaves, tree_leaves(params))),
+          "distribute_tree: a local part differs from its leaf")
+    del dtree, leaves
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    grads = tree_map(lambda p: torch.randn(
+        p.shape, generator=gen, device="cuda") * 1e-3, params)
+    del params
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = compressed_psum_tree(grads, "data", mesh)
+    end.record()
+    torch.cuda.synchronize()
+    psum_ms = start.elapsed_time(end)
+    same = [torch.equal(o, dequantize(*quantize_int8(g)).to(g.dtype))
+            for o, g in zip(tree_leaves(out), tree_leaves(grads))]
+    n_bytes = sum(g.numel() * g.element_size() for g in tree_leaves(grads))
+    del grads, out
+    torch.cuda.empty_cache()
     say("launch:nccl", backend="nccl", world_size=1, mesh="data=1,model=1",
         arch=LM_ARCH, params=n_params, distribute_s=round(dist_s, 3),
         psum_leaves=len(same), psum_bitwise=f"{sum(same)}/{len(same)}",
@@ -3716,8 +3737,9 @@ def dryrun_calibration(summary: dict) -> None:
           f"the measured {measured}")
 
 
-def launch_phase(summary: dict) -> dict:
-    """Phase 17.  Returns the schedule runs' kernel launches."""
+def launch_phase(summary: dict, mesh) -> dict:
+    """Phase 17 (``mesh``: `nccl_mesh`'s).  Returns the schedule runs'
+    kernel launches."""
     import torch
 
     torch.cuda.empty_cache()
@@ -3725,9 +3747,296 @@ def launch_phase(summary: dict) -> dict:
     out_dir = os.path.join(ROOT, "chiprun_out", "dryrun")
     recs = dryrun_records(out_dir)
     launches = schedule_dryrun_jobs(dryrun_jobs(recs, out_dir), summary)
-    nccl_mesh_psum(summary)
+    nccl_mesh_psum(summary, mesh)
     dryrun_calibration(summary)
     say("lm:phase", arch="launch", wall_s=round(time.perf_counter() - t, 3))
+    return launches
+
+
+# ----------------------------------------------------------------------
+# phase 18: the sharded programs on the (1, 1) NCCL mesh
+# ----------------------------------------------------------------------
+
+#: phase 18 serves and trains gemma2-2b whole (26 layers) on the mesh;
+#: the earlier paths' models take one gradient pass there at full width,
+#: cut to these depths (recurrentgemma-2b: one pattern triple)
+SHARDED_ARCH = "gemma2_2b"
+SHARDED_CUTS = (("recurrentgemma_2b", 3), ("rwkv6_7b", 2))
+SHARDED_STEPS = 2
+
+
+def local(x):
+    """A DTensor's local part (on a (1, 1) mesh, the whole tensor)."""
+    from torch.distributed.tensor import DTensor
+    return x.to_local() if isinstance(x, DTensor) else x
+
+
+def on_mesh(mesh, cfg, B: int):
+    """The activation rules of ``cfg`` at batch ``B`` on ``mesh``."""
+    from repro_torch.launch.sharding import activation_rules
+    from repro_torch.models.sharding import activation_sharding
+    return activation_sharding(mesh, activation_rules(mesh, B,
+                                                      n_kv=cfg.n_kv_heads))
+
+
+def synced(fn):
+    """(fn(), seconds on the host clock, the card synchronized)."""
+    import torch
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t
+
+
+def first_unequal(a: list, b: list, names: list):
+    """The name of the first leaf where ``a`` and ``b`` differ, or None."""
+    import torch
+    for x, y, n in zip(a, b, names):
+        if (x is None) != (y is None) or (x is not None
+                                          and not torch.equal(x, y)):
+            return n
+    return None
+
+
+def sharded_serve(mesh, summary: dict) -> dict:
+    """gemma2-2b: prefill (last position) of B=GEN_B x GEN_S and
+    ``greedy_generate`` of GEN_NEW tokens with the parameters and prompt
+    distributed on the mesh, then the same calls on plain tensors: the
+    logits and tokens bitwise equal.  Returns the mesh run's launches."""
+    import torch
+
+    from repro_torch.launch.sharding import distribute_batch, distribute_tree
+    from repro_torch.models import model as M
+    from repro_torch.serve import greedy_generate
+
+    cfg, params, n_params = full_model(SHARDED_ARCH)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    prompt = torch.randint(0, cfg.vocab, (GEN_B, GEN_S), generator=gen,
+                           device="cuda")
+    dparams = distribute_tree(params, mesh, cfg, fsdp=False)
+    dprompt = distribute_batch({"tokens": prompt}, mesh)["tokens"]
+    lm_reset()
+    with on_mesh(mesh, cfg, GEN_B):
+        (logits_d, _), pre_d = synced(lambda: M.prefill(
+            dparams, cfg, {"tokens": dprompt}, last_only=True))
+        toks_d, gen_d = synced(lambda: greedy_generate(
+            dparams, cfg, dprompt, GEN_NEW, device="cuda"))
+    launches = lm_launches()
+    pre, step = path_launches(cfg)
+    want = {k: 2 * pre[k] + GEN_NEW * step[k] for k in pre}
+    check(launches == want,
+          f"sharded serve launches {launches}, expected {want}")
+    logits_d, toks_d = local(logits_d), local(toks_d)
+    lm_reset()
+    (logits_p, _), pre_p = synced(lambda: M.prefill(
+        params, cfg, {"tokens": prompt}, last_only=True))
+    toks_p, gen_p = synced(lambda: greedy_generate(
+        params, cfg, prompt, GEN_NEW, device="cuda"))
+    twin = lm_launches()
+    same_logits = bool(torch.equal(logits_d, logits_p))
+    same_tokens = bool(torch.equal(toks_d, toks_p))
+    line = dict(prefill_s=pre_d, plain_prefill_s=pre_p, generate_s=gen_d,
+                plain_generate_s=gen_p, logits_bitwise=same_logits,
+                tokens_identical=same_tokens)
+    say("sharded:serve", arch=SHARDED_ARCH, layers=cfg.n_layers,
+        params=n_params, B=GEN_B, S0=GEN_S, n_new=GEN_NEW,
+        **{k: (round(v, 3) if isinstance(v, float) else v)
+           for k, v in line.items()},
+        launches=json.dumps(launches, separators=(",", ":")),
+        plain_launches=json.dumps(twin, separators=(",", ":")))
+    summary["sharded_serve"] = dict(line, launches=launches,
+                                    plain_launches=twin)
+    check(bool(torch.isfinite(logits_d).all()), "sharded prefill: non-finite")
+    check(same_logits, f"{SHARDED_ARCH}: the sharded prefill's last-position "
+                       "logits differ from the plain-tensor call's")
+    check(same_tokens, f"{SHARDED_ARCH}: greedy_generate's tokens on the mesh "
+                       "differ from the plain-tensor call's")
+    del params, dparams, logits_d, logits_p
+    torch.cuda.empty_cache()
+    return launches
+
+
+def sharded_grads(mesh, cfg, params, batch, arch: str,
+                  summary: dict) -> dict:
+    """One gradient pass (`loss_and_grads`, TRAIN_MB microbatches) with the
+    parameters and batch distributed on the mesh, then on plain tensors:
+    the loss and every gradient leaf bitwise equal.  Returns the mesh
+    pass's launches."""
+    import torch
+
+    from repro_torch.launch.sharding import distribute_batch, distribute_tree
+    from repro_torch.train import loss_and_grads
+
+    names = _leaf_names(params)
+    dparams = distribute_tree(params, mesh, cfg)
+    dbatch = distribute_batch(batch, mesh)
+    lm_reset()
+    with on_mesh(mesh, cfg, TRAIN_B):
+        (loss_d, g_d), secs_d = synced(lambda: loss_and_grads(
+            dparams, cfg, dbatch, TRAIN_MB))
+    launches = lm_launches()
+    want = train_launches(cfg, 1)
+    check(launches == want,
+          f"{arch} sharded gradient pass launches {launches}, expected "
+          f"{want}")
+    loss_d = local(loss_d)
+    g_d = [None if g is None else local(g) for g in g_d]
+    del dparams, dbatch
+    lm_reset()
+    (loss_p, g_p), secs_p = synced(lambda: loss_and_grads(
+        params, cfg, batch, TRAIN_MB))
+    same_loss = bool(torch.equal(loss_d, loss_p))
+    bad = first_unequal(g_d, g_p, names)
+    line = dict(loss=float(loss_d), plain_loss=float(loss_p),
+                loss_bitwise=same_loss, grads_bitwise=bad is None,
+                first_unequal_leaf=bad, leaves=len(names),
+                grad_pass_s=secs_d, plain_grad_pass_s=secs_p)
+    say("sharded:grads", arch=arch, layers=cfg.n_layers, B=TRAIN_B,
+        S=TRAIN_S, microbatches=TRAIN_MB,
+        **{k: (round(v, 3) if isinstance(v, float) and k.endswith("_s")
+               else v) for k, v in line.items()},
+        launches=json.dumps(launches, separators=(",", ":")))
+    summary["sharded_grads_" + arch] = dict(line, launches=launches)
+    check(same_loss, f"{arch}: the sharded pass's loss {float(loss_d)} is "
+                     f"not the plain-tensor pass's {float(loss_p)} bitwise")
+    check(bad is None, f"{arch}: the sharded pass's gradient of {bad} "
+                       "differs from the plain-tensor pass's")
+    del g_d, g_p
+    torch.cuda.empty_cache()
+    return launches
+
+
+def sharded_pair_bytes(cfg) -> tuple[float, float]:
+    """(the dry run's peak of gemma2-2b's step at phase 15's shape on a
+    (1, 1) mesh, plus the parameters kept from the mesh's steps while the
+    plain-tensor steps run; the step's own peak)."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import AbstractMesh
+
+    rec = dryrun.count_cell(cfg, "train", TRAIN_B, TRAIN_S,
+                            AbstractMesh((1, 1), ("data", "model")),
+                            microbatches=TRAIN_MB)
+    mem = rec["memory"]
+    return mem["peak_live_bytes"] + mem["param_bytes"], mem["peak_live_bytes"]
+
+
+def sharded_train(mesh, summary: dict) -> dict:
+    """gemma2-2b whole: step 1's gradient pass bitwise against plain tensors
+    (`sharded_grads`), then SHARDED_STEPS AdamW steps on the mesh and the
+    same steps on plain tensors from the same weights (run after, not
+    beside): losses and parameters bitwise equal; each side's step wall
+    on the host clock, the mesh's peak memory.  Returns the mesh runs'
+    launches."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.launch.sharding import distribute_batch, distribute_tree
+    from repro_torch.optim import AdamWConfig, init_state, tree_leaves
+    from repro_torch.train import TrainConfig, make_train_step
+
+    pair, step_peak = sharded_pair_bytes(configs.get(SHARDED_ARCH))
+    say("sharded:memory", arch=SHARDED_ARCH, est_step_peak_gb=round(
+        step_peak / 1e9, 3), est_pair_gb=round(pair / 1e9, 3),
+        limit_gb=TRAIN_PEAK_LIMIT / 1e9)
+    check(pair <= TRAIN_PEAK_LIMIT,
+          f"{SHARDED_ARCH}: the dry run puts the mesh and plain steps at "
+          f"{pair / 1e9:.1f} GB, above {TRAIN_PEAK_LIMIT / 1e9:.0f}: cut "
+          "the depth")
+    cfg, params, n_params = full_model(SHARDED_ARCH)
+    batches = train_batches(cfg)
+    launches = sharded_grads(mesh, cfg, params, batches[0], SHARDED_ARCH,
+                             summary)
+    tcfg = TrainConfig(optimizer=AdamWConfig(**TRAIN_OPT),
+                       microbatches=TRAIN_MB)
+    step = make_train_step(cfg, tcfg, device="cuda")
+
+    def steps(p, opt, batch_list):
+        losses, walls = [], []
+        for i in range(SHARDED_STEPS):
+            (p, opt, m), secs = synced(lambda: step(p, opt, batch_list[i % 2]))
+            losses.append(local(m["loss"]))
+            walls.append(secs)
+        return p, losses, walls
+
+    # the mesh's steps update ``params`` in place (their local parts)
+    dparams = distribute_tree(params, mesh, cfg)
+    dopt = distribute_tree(init_state(tcfg.optimizer, params), mesh, cfg)
+    dbatches = [distribute_batch(b, mesh) for b in batches]
+    torch.cuda.reset_peak_memory_stats()
+    lm_reset()
+    with on_mesh(mesh, cfg, TRAIN_B):
+        _, losses_d, walls_d = steps(dparams, dopt, dbatches)
+    peak = torch.cuda.max_memory_allocated()
+    step_launches = lm_launches()
+    want = train_launches(cfg, SHARDED_STEPS)
+    check(step_launches == want,
+          f"{SHARDED_ARCH} sharded steps launch {step_launches}, expected "
+          f"{want}")
+    del dparams, dopt, dbatches
+    torch.cuda.empty_cache()
+    _, p0, _ = full_model(SHARDED_ARCH)
+    opt = init_state(tcfg.optimizer, p0)
+    lm_reset()
+    p0, losses_p, walls_p = steps(p0, opt, batches)
+    del opt
+    same_losses = all(bool(torch.equal(a, b))
+                      for a, b in zip(losses_d, losses_p))
+    bad = first_unequal(tree_leaves(params), tree_leaves(p0),
+                        _leaf_names(params))
+    line = dict(losses=",".join(f"{float(x):.6f}" for x in losses_d),
+                losses_bitwise=same_losses, params_bitwise=bad is None,
+                first_unequal_leaf=bad,
+                step_s=",".join(f"{x:.3f}" for x in walls_d),
+                plain_step_s=",".join(f"{x:.3f}" for x in walls_p),
+                host_cost_s=round(walls_d[-1] - walls_p[-1], 3),
+                peak_gb=round(peak / 1e9, 3))
+    say("sharded:train", arch=SHARDED_ARCH, layers=cfg.n_layers,
+        params=n_params, B=TRAIN_B, S=TRAIN_S, microbatches=TRAIN_MB,
+        steps=SHARDED_STEPS, **line,
+        flash_attention=step_launches["flash_attention"]
+        + launches["flash_attention"],
+        flash_attention_bwd=step_launches["flash_attention_bwd"]
+        + launches["flash_attention_bwd"])
+    summary["sharded_train"] = dict(line, step_walls=walls_d,
+                                    plain_step_walls=walls_p,
+                                    peak_bytes=peak, launches=step_launches)
+    check(same_losses, f"{SHARDED_ARCH}: the sharded steps' losses differ "
+                       "from the plain-tensor steps'")
+    check(bad is None, f"{SHARDED_ARCH}: after the steps {bad} differs "
+                       "between the mesh and plain tensors")
+    del params, p0, batches
+    torch.cuda.empty_cache()
+    return {k: launches[k] + step_launches[k] for k in launches}
+
+
+def sharded_phase(summary: dict, mesh) -> dict:
+    """Phase 18: the sharded programs (prefill, decode, the train step) on
+    the (1, 1) mesh of `nccl_mesh`, every placement ``Replicate()``, each
+    held bitwise against the same call on plain tensors.  Returns the mesh
+    runs' launches (the plain-tensor twins' are comparisons)."""
+    import torch
+
+    t = time.perf_counter()
+    say("sharded:mesh", backend="nccl", world_size=1, mesh="data=1,model=1",
+        families=",".join((SHARDED_ARCH,) + tuple(a for a, _ in
+                                                  SHARDED_CUTS)))
+    torch.cuda.empty_cache()
+    launches = sharded_serve(mesh, summary)
+    for k, v in sharded_train(mesh, summary).items():
+        launches[k] += v
+    for arch, n_layers in SHARDED_CUTS:
+        cfg, params, _ = full_model(arch, n_layers)
+        batch = train_batches(cfg)[0]
+        for k, v in sharded_grads(mesh, cfg, params, batch, arch,
+                                  summary).items():
+            launches[k] += v
+        del params, batch
+        torch.cuda.empty_cache()
+    wall = time.perf_counter() - t
+    say("lm:phase", arch="sharded", wall_s=round(wall, 3),
+        launches=json.dumps(launches, separators=(",", ":")))
+    summary["sharded_launches"] = launches
     return launches
 
 
@@ -3867,11 +4176,17 @@ def main() -> int:
         launches[k] += sum(run[k] for run in train_runs)
     lm_walls["train"] = time.perf_counter() - t
     say("lm:phase", arch="train", wall_s=round(lm_walls["train"], 3))
-    # phase 17: the dry run, its jobs scheduled on the card, the NCCL mesh
-    t = time.perf_counter()
-    for k, v in launch_phase(summary).items():
-        launches[k] += v
-    lm_walls["launch"] = time.perf_counter() - t
+    with nccl_mesh() as mesh:
+        # phase 17: the dry run, its jobs scheduled on the card, the mesh
+        t = time.perf_counter()
+        for k, v in launch_phase(summary, mesh).items():
+            launches[k] += v
+        lm_walls["launch"] = time.perf_counter() - t
+        # phase 18: the sharded programs on the mesh
+        t = time.perf_counter()
+        for k, v in sharded_phase(summary, mesh).items():
+            launches[k] += v
+        lm_walls["sharded"] = time.perf_counter() - t
     for r in report:
         r["launches"] = launches[r["name"]]
         check(r["launches"] > 0, f"{r['name']} never launched on the path")

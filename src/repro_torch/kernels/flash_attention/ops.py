@@ -3,7 +3,8 @@
 A CPU tensor takes the plain PyTorch version (``ref.py``); a CUDA tensor
 launches the hand-written kernel (``kernel.py``) or raises, unless
 ``REPRO_LM_KERNELS`` pins the op to its plain version (``kernels/pin.py``).
-There is no fallback from the kernel to the plain version.
+There is no fallback from the kernel to the plain version, and a DTensor
+raises (`pin.refuse_dtensor`).
 
 When an operand requires grad (and grad mode is on) the call goes through
 `FlashAttention`, an autograd Function: its forward also keeps each row's
@@ -92,6 +93,7 @@ class FlashAttention(torch.autograd.Function):
 def flash_attention(q, k, v, *, causal: bool = True, window=None, cap=None,
                     scale=None):
     """q (B, Sq, H, hd); k, v (B, Sk, KV, hd) -> (B, Sq, H, hd) in q's dtype."""
+    pin.refuse_dtensor("flash_attention", q, k, v)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         return FlashAttention.apply(q, k, v, causal, window, cap, scale)

@@ -12,12 +12,17 @@ a shape-only route (outputs of the right shapes and dtypes, under autograd
 too), and each call charges the operations and bytes its kernel would do
 to the meters that `meta_charges` opened; the dry run
 (``launch/dryrun.py``) counts a step that way.
+
+A DTensor is refused (`refuse_dtensor`): a sharded program reaches the
+ops through its kernel regions (``models.sharding.local_region``), which
+hand them local shards; nothing gathers a whole tensor for a kernel.
 """
 
 from __future__ import annotations
 
 import contextlib
 import os
+import sys
 import threading
 
 PIN_ENV = "REPRO_LM_KERNELS"
@@ -30,6 +35,15 @@ def pinned_plain() -> bool:
     if raw not in ("", "plain"):
         raise ValueError(f"{PIN_ENV} must be 'plain' or unset, got {raw!r}")
     return raw == "plain"
+
+
+def refuse_dtensor(op: str, *ts) -> None:
+    """Raise if any of ``ts`` is a DTensor: the ops take plain tensors."""
+    dt = sys.modules.get("torch.distributed.tensor")
+    if dt is not None and any(isinstance(t, dt.DTensor) for t in ts):
+        raise TypeError(f"{op} takes plain tensors, got a DTensor: a sharded "
+                        "program calls it on local shards through its kernel "
+                        "region (models.sharding.local_region)")
 
 
 def use_kernel(op: str, t) -> bool:

@@ -3,7 +3,8 @@
 A CPU tensor takes the plain PyTorch version (``ref.py``); a CUDA tensor
 launches the hand-written kernel (``kernel.py``) or raises, unless
 ``REPRO_LM_KERNELS`` pins the op to its plain version (``kernels/pin.py``).
-There is no fallback from the kernel to the plain version.
+There is no fallback from the kernel to the plain version, and a DTensor
+raises (`pin.refuse_dtensor`).
 
 When an operand requires grad (and grad mode is on) the call goes through
 `RGLRUScan`, an autograd Function whose backward is the backward kernel on
@@ -71,6 +72,7 @@ class RGLRUScan(torch.autograd.Function):
 
 def rglru_scan(x, a, h0):
     """x, a (B, S, D); h0 (B, D) f32 -> (h (B, S, D), hT (B, D) f32)."""
+    pin.refuse_dtensor("rglru_scan", x, a, h0)
     if torch.is_grad_enabled() and (x.requires_grad or a.requires_grad
                                     or h0.requires_grad):
         return RGLRUScan.apply(x, a, h0)

@@ -3,7 +3,8 @@
 A CPU tensor takes the plain PyTorch version (``ref.py``); a CUDA tensor
 launches the hand-written kernel (``kernel.py``) or raises, unless
 ``REPRO_LM_KERNELS`` pins the op to its plain version (``kernels/pin.py``).
-There is no fallback from the kernel to the plain version.
+There is no fallback from the kernel to the plain version, and a DTensor
+raises (`pin.refuse_dtensor`).
 
 When an operand requires grad (and grad mode is on) the call goes through
 `WKV6`, an autograd Function whose backward is the backward kernel
@@ -87,6 +88,7 @@ class WKV6(torch.autograd.Function):
 def wkv6(r, k, v, w, u, state):
     """r, k, v, w (B, S, H, N); u (H, N); state (B, H, N, N) f32 ->
     (y (B, S, H, N) in r's dtype, final state f32)."""
+    pin.refuse_dtensor("wkv6", r, k, v, w, u, state)
     if r.device.type == "meta":
         return MetaWKV6.apply(r, k, v, w, u, state)
     if torch.is_grad_enabled() and any(

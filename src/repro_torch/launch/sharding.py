@@ -23,8 +23,12 @@ per layer where the reference stacks its body with a leading (G, ...) dim:
 given the stack (``stack=(G,)``, as `tree_shardings` does with the
 model's config), a leaf's spec is the reference's spec of the stacked leaf
 with the stack's entries dropped.  On top of the specs, `placements` maps
-a spec to DTensor placements on a `DeviceMesh` and `distribute_tree`
-distributes a tree leaf by leaf.
+a spec to DTensor placements on a `DeviceMesh`; the boundary of a sharded
+program distributes its inputs by them, as the reference's ``jax.jit``
+takes ``in_shardings``: `distribute_tree` the parameters and the AdamW
+state (its ``m``/``v``/``master`` take the parameters' specs),
+`distribute_batch` a batch and `distribute_state` a decode state.  A
+leaf already a DTensor is redistributed to its spec.
 """
 
 from __future__ import annotations
@@ -254,17 +258,29 @@ def placements(spec, mesh) -> list:
     return out
 
 
-def distribute_tree(tree: Any, mesh, cfg, fsdp: bool = True) -> Any:
-    """``tree`` (of the model ``cfg``) with every leaf a DTensor on
-    ``mesh`` (``distribute_tensor`` with the placements of its spec)."""
-    from torch.distributed.tensor import distribute_tensor
+def _place(x, mesh, spec):
+    """``x`` as a DTensor on ``mesh`` with the placements of ``spec``: a
+    plain tensor distributed, a DTensor redistributed."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
 
-    specs = tree_shardings(tree, mesh, cfg, fsdp)
+    want = placements(spec, mesh)
+    if not isinstance(x, DTensor):
+        return distribute_tensor(x, mesh, want)
+    return x if tuple(x.placements) == tuple(want) else x.redistribute(
+        mesh, want)
+
+
+def _distribute_by(tree: Any, specs: Any, mesh) -> Any:
     flat = dict(tree_items(specs))
+    return _map_with_path(lambda path, leaf: _place(leaf, mesh, flat[path]),
+                          tree)
 
-    def f(path, leaf):
-        return distribute_tensor(leaf, mesh, placements(flat[path], mesh))
-    return _map_with_path(f, tree)
+
+def distribute_tree(tree: Any, mesh, cfg, fsdp: bool = True) -> Any:
+    """``tree`` (of the model ``cfg``: its parameters, or its AdamW state)
+    with every leaf a DTensor on ``mesh`` with the placements of its spec
+    (`tree_shardings`)."""
+    return _distribute_by(tree, tree_shardings(tree, mesh, cfg, fsdp), mesh)
 
 
 def local_shape(shape: tuple[int, ...], spec, mesh) -> tuple[int, ...]:
@@ -292,6 +308,12 @@ def batch_shardings(specs: dict, mesh) -> dict:
         spec = (dp,) + (None,) * (len(shape) - 1)
         out[k] = _guard(spec, shape, mesh)
     return out
+
+
+def distribute_batch(batch: dict, mesh) -> dict:
+    """A batch of tensors as DTensors on ``mesh`` by `batch_shardings`."""
+    specs = batch_shardings(batch, mesh)
+    return {k: _place(v, mesh, specs[k]) for k, v in batch.items()}
 
 
 def decode_state_spec(path: tuple, shape: tuple[int, ...], mesh,
@@ -330,6 +352,12 @@ def state_shardings(state_tree: Any, mesh, batch: int) -> Any:
     return _map_with_path(
         lambda path, leaf: decode_state_spec(path, tuple(leaf.shape), mesh,
                                              batch), state_tree)
+
+
+def distribute_state(state: Any, mesh, batch: int) -> Any:
+    """A decode state (``init_decode_state``, or a prefill's state, padded
+    or not) as DTensors on ``mesh`` by `state_shardings`."""
+    return _distribute_by(state, state_shardings(state, mesh, batch), mesh)
 
 
 def activation_rules(mesh, batch: int, n_kv: int | None = None,

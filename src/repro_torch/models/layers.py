@@ -23,7 +23,11 @@ outside any kernel.  The reference's ``logical(...)`` sharding annotations
 stand where it has them (`models.sharding`: the identity outside a mesh);
 under a mesh's rules the MoE's dispatch groups tile the device grid as the
 reference's do (`_moe_groups`), each group dispatched on its own as its
-``shard_map`` does.  The initializers also take ``device="meta"``, whose
+``shard_map`` does.  On DTensors (a sharded program) the three kernel ops
+and the decode cache's write run on local shards (`models.sharding.
+local_region`): flash with batch on "data" and heads on the TP axes,
+RG-LRU with batch and channels, WKV6 with batch and heads, the sequence
+whole in each.  The initializers also take ``device="meta"``, whose
 tensors hold no data: the dry run counts a step on them.
 """
 
@@ -39,7 +43,9 @@ from ..core.engine.kernels import check_device
 from ..kernels.flash_attention import ops as flash_ops
 from ..kernels.rg_lru import ops as rglru_ops
 from ..kernels.rwkv6 import ops as rwkv6_ops
-from .sharding import axis_prod, current_mesh, current_rules, logical
+from .sharding import (axis_coord, axis_prod, current_mesh, current_rules,
+                       is_dtensor, layout, local_region, logical,
+                       replicated_like)
 
 Params = dict
 
@@ -90,7 +96,7 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     """x: (B, S, H, hd); positions: (B, S), or (3, B, S) for M-RoPE.
     Half-split rotation."""
     hd = x.shape[-1]
-    freqs = rope_freqs(hd, theta, x.device)
+    freqs = replicated_like(rope_freqs(hd, theta, x.device), positions)
     if mrope_sections is None:
         angles = positions[..., None].float() * freqs      # (B, S, hd/2)
     else:
@@ -121,10 +127,11 @@ def sinusoidal_positions(S: int, d: int, offset: int = 0,
 
 def _sinusoid(pos: torch.Tensor, d: int) -> torch.Tensor:
     """(N, d) float32 position embedding of the float32 positions ``pos``."""
-    dim = torch.arange(0, d, 2, dtype=torch.float32, device=pos.device)
+    dim = replicated_like(
+        torch.arange(0, d, 2, dtype=torch.float32, device=pos.device), pos)
     angle = pos[:, None] / torch.pow(10000.0, dim / d)[None, :]
-    pe = torch.zeros((pos.shape[0], d), dtype=torch.float32,
-                     device=pos.device)
+    pe = replicated_like(torch.zeros((pos.shape[0], d), dtype=torch.float32,
+                                     device=pos.device), pos)
     pe[:, 0::2] = torch.sin(angle)
     pe[:, 1::2] = torch.cos(angle)
     return pe
@@ -142,15 +149,49 @@ def _repeat_kv(k: torch.Tensor, n_rep: int) -> torch.Tensor:
         B, S, KV * n_rep, hd)
 
 
+#: (B, S, heads, hd), the sequence whole
+_HEADS = ("batch", None, "heads", None)
+
+
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               causal: bool = True, window: int | None = None,
               cap: float | None = None) -> torch.Tensor:
     """Full-sequence attention through the flash op: q (B, Sq, H, hd),
     k/v (B, Sk, KV, hd); query and key positions both start at 0, scale
-    1/sqrt(hd)."""
-    return flash_ops.flash_attention(
-        q.contiguous(), k.contiguous(), v.contiguous(), causal=causal,
-        window=window, cap=cap)
+    1/sqrt(hd).  On DTensors, on local shards (`_flash_plan`)."""
+    def run(q, k, v):
+        return flash_ops.flash_attention(
+            q.contiguous(), k.contiguous(), v.contiguous(), causal=causal,
+            window=window, cap=cap)
+    q_names, body = _flash_plan(run, q, k)
+    return local_region(body, (q, k, v), (q_names, _HEADS, _HEADS), (0,))
+
+
+def _flash_plan(run, q, k):
+    """(q's dim names, the body) of flash's region: batch on "data", query
+    heads on the TP axes in contiguous blocks, KV heads too where they
+    divide the axes (else whole), the sequence whole (a sequence-sharded
+    input is gathered by the region's redistribution).  Where the KV heads
+    stay whole and more than one, each shard takes the one KV head its
+    block of query heads reads (GQA's h // (H / KV) map); where no single
+    head serves a block, the query heads stay whole too.  On plain tensors
+    the names go unread."""
+    if not is_dtensor(q):
+        return _HEADS, run
+    H, KV = q.shape[2], k.shape[2]
+    mesh, ax = q.device_mesh, current_rules()["heads"]
+    split = layout(q, *_HEADS) != layout(q, "batch")
+    n = axis_prod(mesh, ax) if split else 1
+    sliced = n > 1 and layout(k, *_HEADS) == layout(k, "batch") and KV > 1
+    if not sliced:
+        return _HEADS, run
+    if (H // KV) % (H // n):
+        return ("batch",), run
+    lo = axis_coord(mesh, ax) * (H // n) // (H // KV)
+
+    def body(q, k, v):
+        return run(q, k[:, :, lo:lo + 1], v[:, :, lo:lo + 1])
+    return _HEADS, body
 
 
 @dataclasses.dataclass
@@ -224,13 +265,50 @@ def _write_slot(c: torch.Tensor, rows: torch.Tensor, slot: torch.Tensor,
 
 def _write_slot_or_drop(c: torch.Tensor, rows: torch.Tensor,
                         slot: torch.Tensor, new: torch.Tensor) -> None:
-    """Like `_write_slot`, but a write past the end of the cache is dropped,
-    as the reference's scatter drops out-of-range updates (the row then
-    attends to the cache as it stands).  Only a plain cache needs it: a
-    ring's slots are taken mod its length."""
-    fits = (slot < c.shape[1])[:, None, None]
-    slot = torch.clamp(slot, max=c.shape[1] - 1)
+    """Like `_write_slot`, but a write outside the cache is dropped, as the
+    reference's scatter drops out-of-range updates (the row then attends
+    to the cache as it stands).  Only a plain cache needs it, or a shard
+    of one cut by slot: a ring's slots are taken mod its length."""
+    fits = ((slot >= 0) & (slot < c.shape[1]))[:, None, None]
+    slot = torch.clamp(slot, 0, c.shape[1] - 1)
     c[rows, slot] = torch.where(fits, new.to(c.dtype), c[rows, slot])
+
+
+#: a decode cache (B, S, KV, hd): slots on "kv_seq" where its heads do not
+#: divide the TP axes
+_CACHE = ("batch", "kv_seq", "heads", None)
+
+
+def _slot_offset(c) -> int | None:
+    """The first slot the local shard of the DTensor cache ``c`` holds,
+    where the rules shard it by slot; else None."""
+    if not is_dtensor(c) or (layout(c, *_CACHE) ==
+                             layout(c, "batch", None, "heads", None)):
+        return None
+    mesh, ax = c.device_mesh, current_rules()["kv_seq"]
+    return axis_coord(mesh, ax) * (c.shape[1] // axis_prod(mesh, ax))
+
+
+def _write_cache(cache: Params, wpos, k, v, write) -> Params:
+    """The decode write of one (KV, hd) slot a row, ``k``/``v`` (B, KV,
+    hd).  On DTensors on local shards: batch on "data", and the cache's
+    heads (or its slots) as the state's rules shard them.  Rows are local;
+    a cache sharded by slot writes on the shard that holds the slot and
+    drops elsewhere, so the drop past the end holds per shard as whole."""
+    off = _slot_offset(cache["k"])
+
+    def body(ck, cv, wpos, k, v):
+        rows = torch.arange(ck.shape[0], device=ck.device)
+        for c, new in ((ck, k), (cv, v)):
+            if off is None:
+                write(c, rows, wpos, new)
+            else:
+                _write_slot_or_drop(c, rows, wpos - off, new)
+        return ck, cv
+    ck, cv = local_region(body, (cache["k"], cache["v"], wpos, k, v),
+                          (_CACHE, _CACHE, ("batch",), ("batch", "heads"),
+                           ("batch", "heads")), (0, 1))
+    return {"k": ck, "v": cv}
 
 
 def attn_decode(p: Params, x: torch.Tensor, cfg: AttnConfig, cache: Params,
@@ -251,11 +329,9 @@ def attn_decode(p: Params, x: torch.Tensor, cfg: AttnConfig, cache: Params,
     S = cache["k"].shape[1]
     ring = cfg.window is not None and S <= cfg.window
     wpos = pos % S if ring else pos
-    rows = torch.arange(cache["k"].shape[0], device=x.device)
     write = _write_slot if ring else _write_slot_or_drop
-    for name, new in (("k", k), ("v", v)):
-        write(cache[name], rows, wpos, new[:, 0])
-    kpos = torch.arange(S, device=x.device)
+    cache = _write_cache(cache, wpos, k[:, 0], v[:, 0], write)
+    kpos = replicated_like(torch.arange(S, device=x.device), pos)
     H, KV = cfg.n_heads, cfg.n_kv_heads
     kf = logical(_repeat_kv(cache["k"], H // KV), "batch", "kv_seq", "heads",
                  None)
@@ -507,9 +583,14 @@ def rglru_init(gen: torch.Generator, cfg: RGLRUConfig, dtype=torch.bfloat16,
 
 def rglru_scan(x: torch.Tensor, a: torch.Tensor, h0: torch.Tensor):
     """h_t = a_t * h_{t-1} + x_t over S through the rg_lru op.  x, a:
-    (B, S, D) f32; h0 (B, D) f32 -> (h (B, S, D), hT (B, D))."""
-    return rglru_ops.rglru_scan(x.contiguous(), a.contiguous(),
-                                h0.contiguous())
+    (B, S, D) f32; h0 (B, D) f32 -> (h (B, S, D), hT (B, D)).  On
+    DTensors, on local shards: batch on "data", channels on "model", the
+    sequence whole."""
+    def run(x, a, h0):
+        return rglru_ops.rglru_scan(x.contiguous(), a.contiguous(),
+                                    h0.contiguous())
+    xn = ("batch", None, "ffn")
+    return local_region(run, (x, a, h0), (xn, xn, ("batch", "ffn")), (0, 2))
 
 
 def rglru_block(p: Params, x: torch.Tensor, cfg: RGLRUConfig,
@@ -525,8 +606,10 @@ def rglru_block(p: Params, x: torch.Tensor, cfg: RGLRUConfig,
     u = x @ p["w_in_x"]
     W = cfg.conv_width
     if state is None:
-        conv_carry = torch.zeros((B, W - 1, dr), dtype=u.dtype, device=u.device)
-        h0 = torch.zeros((B, dr), dtype=torch.float32, device=u.device)
+        conv_carry = replicated_like(
+            torch.zeros((B, W - 1, dr), dtype=u.dtype, device=u.device), u)
+        h0 = replicated_like(
+            torch.zeros((B, dr), dtype=torch.float32, device=u.device), u)
     else:
         conv_carry, h0 = state
     upad = torch.cat([conv_carry, u], dim=1)              # (B, S+W-1, dr)
@@ -611,8 +694,9 @@ def _token_shift(x: torch.Tensor, x_carry: torch.Tensor | None):
     """x shifted right by one along S, the carry (or zeros) in front; the
     concatenation promotes a bf16 carry against f32 x, as jnp's does."""
     if x_carry is None:
-        x_carry = torch.zeros((x.shape[0], x.shape[2]), dtype=x.dtype,
-                              device=x.device)
+        x_carry = replicated_like(torch.zeros((x.shape[0], x.shape[2]),
+                                              dtype=x.dtype, device=x.device),
+                                  x)
     return torch.cat([x_carry[:, None, :], x[:, :-1, :]], dim=1)
 
 
@@ -650,16 +734,17 @@ def rwkv_time_mix(p: Params, x: torch.Tensor, cfg: RWKVConfig,
     w = torch.exp(-torch.exp(wlog)).reshape(B, S, H, N)   # decay in (0, 1)
     u = p["u"].reshape(H, N)
     if state is None:
-        state = torch.zeros((B, H, N, N), dtype=torch.float32,
-                            device=x.device)
+        state = replicated_like(torch.zeros((B, H, N, N), dtype=torch.float32,
+                                            device=x.device), x)
     r = logical(r, "batch", None, "heads", None)
     k = logical(k, "batch", None, "heads", None)
     v = logical(v, "batch", None, "heads", None)
     w = logical(w, "batch", None, "heads", None)
     state = logical(state, "batch", "heads", None, None)
-    y, new_state = rwkv6_ops.wkv6(r.contiguous(), k.contiguous(),
-                                  v.contiguous(), w.contiguous(),
-                                  u.contiguous(), state.contiguous())
+    y, new_state = local_region(
+        lambda *ts: rwkv6_ops.wkv6(*(t.contiguous() for t in ts)),
+        (r, k, v, w, u, state),
+        (_HEADS,) * 4 + (("heads",), ("batch", "heads")), (0, 5))
     # per-head group norm
     y = rms_norm(y.reshape(B, S, H, N), p["ln_w"].reshape(H, N), eps=1e-5)
     y = y.reshape(B, S, d) * g

@@ -44,7 +44,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..core.engine.kernels import check_device
 from . import layers as L
-from .sharding import logical
+from .sharding import logical, replicated_like, under_current_rules
 
 Params = dict
 
@@ -340,7 +340,9 @@ def _apply_block(bp: Params, x: torch.Tensor, cfg: ArchConfig, mixer: str,
     else:
         raise _unknown(mixer)
     if cfg.post_norm:
-        a = _norm(a, bp["pln1"], cfg)
+        # on a mesh the sublayer's partial sums are reduced into the
+        # residual's layout before the norm, not whole
+        a = _norm(logical(a, "batch", "seq", "embed"), bp["pln1"], cfg)
     x = x + a
     h = _norm(x, bp["ln2"], cfg)
     if ffn == "moe":
@@ -355,7 +357,7 @@ def _apply_block(bp: Params, x: torch.Tensor, cfg: ArchConfig, mixer: str,
     else:
         raise _unknown(ffn)
     if cfg.post_norm:
-        f = _norm(f, bp["pln2"], cfg)
+        f = _norm(logical(f, "batch", "seq", "embed"), bp["pln2"], cfg)
     return logical(x + f, "batch", "seq", "embed"), new_state
 
 
@@ -382,13 +384,14 @@ def _embed(params: Params, cfg: ArchConfig, batch: dict):
         S = x.shape[1]
     if cfg.embed_scale:
         # the scale is rounded to the activation dtype before the multiply
-        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype,
-                             device=x.device)
+        x = x * replicated_like(torch.tensor(math.sqrt(cfg.d_model),
+                                             dtype=x.dtype, device=x.device),
+                                x)
     if cfg.pos_embedding == "sinusoidal":
         x = x + L.sinusoidal_positions(S, cfg.d_model,
                                        device=x.device).to(x.dtype)[None]
-    return logical(x, "batch", "seq", "embed"), _positions(cfg, B, S,
-                                                           x.device)
+    return (logical(x, "batch", "seq", "embed"),
+            replicated_like(_positions(cfg, B, S, x.device), x))
 
 
 def _positions(cfg: ArchConfig, B: int, S: int, device) -> torch.Tensor:
@@ -422,7 +425,8 @@ def _lm_logits(params: Params, cfg: ArchConfig, x: torch.Tensor):
         logits = L.softcap(logits.float(), cfg.logit_cap)
     if cfg.vocab_padded != cfg.vocab:
         # mask padded vocab slots out of softmax/argmax
-        pad = torch.arange(cfg.vocab_padded, device=x.device) >= cfg.vocab
+        pad = replicated_like(
+            torch.arange(cfg.vocab_padded, device=x.device) >= cfg.vocab, x)
         logits = logits + pad * torch.tensor(-1e9, dtype=logits.dtype,
                                              device=x.device)
     return logical(logits, "batch", None, "vocab")
@@ -452,12 +456,14 @@ def forward_hidden(params: Params, cfg: ArchConfig, batch: dict):
     before the LM head, with autograd.  Under ``cfg.remat`` (and grad mode)
     each layer runs under ``torch.utils.checkpoint`` (non-reentrant): only
     its input is kept, and its activations are recomputed in the
-    backward."""
+    backward, under the activation rules of the forward (the backward of a
+    CUDA tensor runs on autograd's own thread)."""
     x, positions = _embed(params, cfg, batch)
     remat = cfg.remat and torch.is_grad_enabled()
+    block = under_current_rules(_train_block)
     for bp, (mixer, ffn) in zip(params["layers"], cfg.layer_plan):
         if remat:
-            x = checkpoint(_train_block, bp, x, cfg, mixer, ffn, positions,
+            x = checkpoint(block, bp, x, cfg, mixer, ffn, positions,
                            use_reentrant=False)
         else:
             x = _train_block(bp, x, cfg, mixer, ffn, positions)
@@ -470,7 +476,10 @@ def _chunk_loss(params: Params, cfg: ArchConfig, x: torch.Tensor,
     the float32 logsumexp, minus the gold logit."""
     logits = _lm_logits(params, cfg, x).float()
     lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    # on a vocab-sharded DTensor the gather's masked partial sums are
+    # reduced while the tensor keeps their shape
+    gold = logical(torch.gather(logits, -1, labels.long()[..., None]),
+                   "batch")[..., 0]
     return torch.sum(lse - gold)
 
 
@@ -491,11 +500,13 @@ def loss_fn(params: Params, cfg: ArchConfig, batch: dict,
     while S % seq_chunk != 0:
         seq_chunk //= 2
     remat = cfg.remat and torch.is_grad_enabled()
-    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    chunk_loss = under_current_rules(_chunk_loss)
+    total = replicated_like(torch.zeros((), dtype=torch.float32,
+                                        device=x.device), x)
     for i in range(S // seq_chunk):
         part = slice(i * seq_chunk, (i + 1) * seq_chunk)
         if remat:
-            total = total + checkpoint(_chunk_loss, params, cfg, x[:, part],
+            total = total + checkpoint(chunk_loss, params, cfg, x[:, part],
                                        labels[:, part], use_reentrant=False)
         else:
             total = total + _chunk_loss(params, cfg, x[:, part],

@@ -12,6 +12,11 @@ parameters and the state in place (one leaf at a time, its temporaries
 freed before the next), so a full-width model's state exists once: at
 recurrentgemma-2b's 2.9e9 parameters ``m``, ``v`` and ``master`` take
 34.7 GB.  It returns the same trees.
+
+On DTensor parameters (a sharded step) ``m``, ``v`` and ``master`` keep
+each parameter's placements, the step counter and the schedule's
+scalars are replicated, and the global norm is summed over every shard
+and comes out replicated.
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ import torch
 
 from ..core.engine.kernels import check_device
 from ..models import model as M
+from ..models.sharding import logical, replicated_like
 
 
 @dataclasses.dataclass(frozen=True)
@@ -76,7 +82,7 @@ def init_state(cfg: AdamWConfig, params) -> dict:
     """Zeroed ``m`` and ``v``, step 0 and (with master weights) a float32
     copy of every parameter, on the parameters' device."""
     def zeros(p):
-        return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        return torch.zeros_like(p, dtype=torch.float32)
     leaves = tree_leaves(params)
     device = leaves[0].device if leaves else "cpu"
     state = {"m": tree_map(zeros, params), "v": tree_map(zeros, params),
@@ -103,14 +109,14 @@ def apply_updates(cfg: AdamWConfig, params, grads, state: dict):
     """One AdamW step.  Returns (params, state, {"lr", "grad_norm"}), the
     trees updated in place.  A parameter whose gradient is None (no path
     to the loss) takes a zero gradient, as the reference's does."""
-    step = state["step"] + 1
-    lr = schedule(cfg, step)
     p_leaves = tree_leaves(params)
+    step = replicated_like(state["step"], p_leaves[0]) + 1
+    lr = schedule(cfg, step)
     g_leaves = [torch.zeros_like(p) if g is None else g
                 for p, g in zip(p_leaves, tree_leaves(grads))]
     # global-norm clip in fp32
     gsq = sum(torch.sum(torch.square(g.float())) for g in g_leaves)
-    gnorm = torch.sqrt(gsq)
+    gnorm = torch.sqrt(logical(gsq))
     scale = (torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
              if cfg.grad_clip else 1.0)
     b1c = 1 - cfg.b1 ** step.to(torch.float32)

@@ -7,6 +7,12 @@ reuse) and feeding each prompt token by token through the decode step, as
 the reference does.  Both take ``device=``: "cuda" by default, which raises
 without a card, or "cpu" for the plain PyTorch versions of the kernels.
 Nothing falls back to the CPU on its own.
+
+`greedy_generate` also runs a sharded program: called with DTensor
+parameters (``launch.sharding.distribute_tree``, ``fsdp=False``) and a
+DTensor prompt (``distribute_batch``) inside
+``models.sharding.activation_sharding``, it prefills and decodes on the
+mesh, and its argmax tokens come back replicated, the same on every rank.
 """
 
 from __future__ import annotations
@@ -20,6 +26,7 @@ import torch.nn.functional as F
 
 from ..core.engine.kernels import check_device
 from ..models import model as M
+from ..models.sharding import is_dtensor, logical, replicated_like
 
 
 @dataclasses.dataclass
@@ -82,6 +89,10 @@ def greedy_generate(params, cfg: M.ArchConfig, prompt, n_new: int,
     (B, S0, vocab) float32 tensor (16.8 GB at 4 x 4096 x 256,000).
     """
     dev = _check_params(params, device)
+    if is_dtensor(params["embed"]) and not is_dtensor(prompt):
+        raise TypeError("greedy_generate on DTensor parameters takes a "
+                        "DTensor prompt (launch.sharding.distribute_batch): "
+                        "a plain one may differ between ranks")
     prompt = torch.as_tensor(prompt, device=dev).to(torch.int64)
     B, S0 = prompt.shape[:2]
     s_max = s_max or (S0 + n_new)
@@ -89,12 +100,14 @@ def greedy_generate(params, cfg: M.ArchConfig, prompt, n_new: int,
                               last_only=True)
     state = pad_prefill_state(cfg, state, s_max)
     step = make_decode_fn(cfg)
-    last = torch.argmax(logits[:, -1:], dim=-1)      # (B, 1) or (B, 1, K)
+    # (B, 1) or (B, 1, K); on a mesh, replicated
+    last = logical(torch.argmax(logits[:, -1:], dim=-1))
     out = []
-    pos = torch.full((B,), S0, dtype=torch.int64, device=dev)
+    pos = replicated_like(torch.full((B,), S0, dtype=torch.int64, device=dev),
+                          prompt)
     for _ in range(n_new):
         logits, state = step(params, state, last, pos)
-        last = torch.argmax(logits[:, -1:], dim=-1)
+        last = logical(torch.argmax(logits[:, -1:], dim=-1))
         out.append(last)
         pos = pos + 1
     return torch.cat(out, dim=1).to(torch.int32)

@@ -12,6 +12,13 @@ the reference's ``lax.scan`` does; with one microbatch the gradients stay
 in the parameters' dtype, as the reference's ``value_and_grad`` gives
 them.  The step then applies AdamW (`optim.apply_updates`), which updates
 the parameters and the optimizer state in place.
+
+The same step runs a sharded program: with the parameters, the AdamW
+state and the batch distributed as DTensors (`launch.sharding`'s
+``distribute_tree`` and ``distribute_batch``) and the call made inside
+``models.sharding.activation_sharding``, every tensor of the step keeps
+its leaf's placements (the accumulators too), and the loss comes back
+replicated.
 """
 
 from __future__ import annotations
@@ -23,6 +30,7 @@ import torch
 
 from ..core.engine.kernels import check_device
 from ..models import model as M
+from ..models.sharding import is_dtensor, logical, replicated_like
 from ..optim import AdamWConfig, apply_updates, init_state, tree_leaves
 
 
@@ -35,6 +43,15 @@ class TrainConfig:
 
 def _params_device(params) -> torch.device:
     return tree_leaves(params)[0].device
+
+
+def _as_param(g, p):
+    """The gradient ``g`` in the layout of its parameter ``p``: on a mesh,
+    DTensor's partial sums reduced here once, and not again at each use
+    in AdamW; a plain tensor or None as it is."""
+    if not is_dtensor(g) or tuple(g.placements) == tuple(p.placements):
+        return g
+    return g.redistribute(g.device_mesh, p.placements)
 
 
 def loss_and_grads(params, cfg: M.ArchConfig, batch: dict,
@@ -52,17 +69,18 @@ def loss_and_grads(params, cfg: M.ArchConfig, batch: dict,
         if microbatches <= 1:
             loss = M.loss_fn(params, cfg, batch)
             loss.backward()
-            return loss.detach(), [p.grad for p in leaves]
+            return logical(loss.detach()), [_as_param(p.grad, p)
+                                            for p in leaves]
         B = batch["tokens"].shape[0]
         if B % microbatches:
             raise ValueError(f"batch {B} does not split into {microbatches} "
                              "microbatches")
         mb = B // microbatches
         order = range(microbatches) if order is None else order
-        acc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-               for p in leaves]
-        lsum = torch.zeros((), dtype=torch.float32,
-                           device=_params_device(params))
+        acc = [torch.zeros_like(p, dtype=torch.float32) for p in leaves]
+        lsum = replicated_like(torch.zeros((), dtype=torch.float32,
+                                           device=_params_device(params)),
+                               leaves[0])
         for i in order:
             part = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
             li = M.loss_fn(params, cfg, part)
@@ -75,7 +93,7 @@ def loss_and_grads(params, cfg: M.ArchConfig, batch: dict,
             lsum = lsum + li.detach()
         for a in acc:
             a.div_(microbatches)
-        return lsum / microbatches, acc
+        return logical(lsum / microbatches), acc
     finally:
         for p in leaves:
             p.grad = None

@@ -1763,6 +1763,55 @@ def test_logical_leaves_a_dtensor_as_it_is(nccl_mesh):
     assert torch.equal(got.to_local(), x)
 
 
+@pytest.mark.parametrize("arch", ["gemma2_2b", "recurrentgemma_2b",
+                                  "rwkv6_7b"])
+def test_sharded_smoke_family_on_the_nccl_mesh_is_bitwise(lm_kernels,
+                                                          nccl_mesh, arch):
+    """On the (1, 1) NCCL mesh every placement is ``Replicate()``: a smoke
+    model's gradient pass (two microbatches) and prefill in float32 with
+    the parameters and batch distributed on it, inside
+    ``activation_sharding``, equal the same calls on plain tensors bit for
+    bit, and launch each kernel of the family inside its region as often
+    as the plain calls do."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch import configs
+    from repro_torch.data import DataConfig, make_batch
+    from repro_torch.launch.sharding import (activation_rules,
+                                             distribute_batch,
+                                             distribute_tree)
+    from repro_torch.models import model as M
+    from repro_torch.models.sharding import activation_sharding
+    from repro_torch.train import loss_and_grads
+    cfg = configs.get_smoke(arch)
+    params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(3),
+                           device="cuda", dtype=torch.float32)
+    batch = make_batch(cfg, DataConfig(seed=4), 0, 4, 40, device="cuda")
+    rules = activation_rules(nccl_mesh, 4, n_kv=cfg.n_kv_heads)
+    out = {}
+    for sharded in (True, False):
+        p = distribute_tree(params, nccl_mesh, cfg) if sharded else params
+        b = distribute_batch(batch, nccl_mesh) if sharded else batch
+        for fam in lm_kernels:
+            fam.reset_launches()
+        with activation_sharding(nccl_mesh, rules):
+            loss, grads = loss_and_grads(p, cfg, b, microbatches=2)
+            logits, state = M.prefill(p, cfg, {"tokens": b["tokens"]})
+        torch.cuda.synchronize()
+        launched = {k: v for fam in lm_kernels
+                    for k, v in fam.launch_counts().items()}
+
+        def whole(t):
+            return t.to_local() if isinstance(t, DTensor) else t
+        out[sharded] = (whole(loss), [whole(g) for g in grads],
+                        whole(logits), launched)
+    (ld, gd, pd, nd), (lp, gp, pp, np_) = out[True], out[False]
+    assert nd == np_ and any(nd.values())
+    assert torch.equal(ld, lp) and torch.equal(pd, pp)
+    for x, y in zip(gd, gp):
+        assert torch.equal(x, y)
+
+
 def test_meta_tensors_take_the_shape_only_route(lm_kernels):
     """A meta tensor through the three LM ops returns outputs of the right
     shapes and dtypes and launches nothing; a CUDA tensor still launches

@@ -1,0 +1,242 @@
+"""The port's sharded train step on a device mesh against the JAX package's
+own sharded step, on the CPU.
+
+For the smoke configs of gemma2-2b (flash with a cap, local and global
+GQA), recurrentgemma-2b (RG-LRU, local MQA) and rwkv6-7b (WKV6), from the
+same weights (the port's ``init_params`` draw in the reference's layout,
+`_ref_tree` of ``tests/test_torch_train.py``) and batch (B=4, S=32):
+
+  * the JAX package's train step jitted with ``in_shardings``/
+    ``out_shardings`` from its ``tree_shardings``/``batch_shardings`` under
+    ``activation_sharding`` on a 2x2 mesh of 4 forced host devices (a
+    subprocess, `torch_sharded_worker.jax_train`), as
+    ``repro.launch.dryrun.lower_cell`` jits its train cell;
+  * the port's step (``make_train_step``) on DTensors on the (2, 2)
+    ``make_debug_mesh`` over gloo at world size 4, a process a rank on a
+    FileStore (`torch_sharded_worker.port_train`), parameters and AdamW
+    state from ``distribute_tree``, the batch from ``distribute_batch``;
+  * the loss within 1e-5 and ``grad_norm`` within 1e-4 (relative) of the
+    JAX package's sharded step, and of the port's unsharded step on plain
+    tensors; ``params``, ``master``, ``m`` and ``v`` gathered whole
+    (``full_tensor``) within `STEP_TOL`; every leaf keeps the placements
+    of its rule; the kernels' plain versions see local shards;
+  * the collectives the step issues (``CommDebugMode``) include every kind
+    the dry run (``launch.dryrun.collectives_for``) charges; with ``-s``,
+    `test_the_step_issues_every_collective_the_dry_run_charges` prints
+    both by kind and by site (`collectives_table`);
+  * a DTensor handed straight to a kernel op raises.
+
+The JAX package's steps run in a process a family, the port's in four
+ranks that take the families in turn, all seven started at once; each
+group has its own timeout, and the file ends asserting that no process
+it started is alive.
+"""
+
+import json
+import os
+import re
+from collections import defaultdict
+
+import numpy as np
+import pytest
+import torch
+
+import torch_sharded_worker as W
+from repro_torch import configs
+from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import AbstractMesh
+from repro_torch.models import model as TM
+from test_torch_train import STEP_TOL, _ref_tree
+
+#: the processes this file started
+STARTED: list = []
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    trees = {}
+    for arch in W.ARCHS:
+        cfg = configs.get_smoke(arch)
+        params = TM.init_params(cfg, torch.Generator().manual_seed(0),
+                                device="cpu", dtype=torch.float32)
+        trees[arch] = _ref_tree(cfg, params)
+    tmp = tmp_path_factory.mktemp("sharded")
+    W.write_inputs(tmp, trees)
+    jax_procs, port_procs = W.start("jax", tmp), W.start("train", tmp)
+    STARTED.extend(jax_procs + port_procs)
+    W.finish(jax_procs, timeout=300)
+    W.finish(port_procs, timeout=300)
+    jax = {arch: W.load(tmp, f"jax_{arch}.pkl") for arch in W.ARCHS}
+    ranks = [W.load(tmp, f"train{r}.pkl") for r in range(W.N_RANKS)]
+    return {arch: dict(jax=jax[arch], ranks=[r[arch] for r in ranks])
+            for arch in W.ARCHS}
+
+
+def _rel(got, want) -> float:
+    return float(np.abs(got - want).max()) / max(float(np.abs(want).max()),
+                                                 1e-30)
+
+
+def _jax_leaves(cfg, tree) -> dict:
+    """The reference's tree, unstacked into the port's layout, by path."""
+    from repro_torch.launch.sharding import tree_items
+    port = TM.params_from_jax(cfg, tree, device="cpu")
+    return {"/".join(map(str, p)): x.numpy() for p, x in tree_items(port)}
+
+
+def _check_leaves(got: dict, want: dict) -> None:
+    for key, tol in STEP_TOL.items():
+        assert got[key].keys() == want[key].keys()
+        for path, leaf in got[key].items():
+            assert _rel(leaf, want[key][path]) <= tol, (key, path)
+
+
+def _check_metrics(got: dict, want: dict) -> None:
+    assert abs(got["loss"] - want["loss"]) <= 1e-5 * abs(want["loss"])
+    assert abs(got["grad_norm"] - want["grad_norm"]) \
+        <= 1e-4 * want["grad_norm"]
+    assert got["lr"] == want["lr"]
+
+
+@pytest.mark.parametrize("arch", W.ARCHS)
+def test_sharded_step_matches_the_jax_sharded_step(runs, arch):
+    cfg = configs.get_smoke(arch)
+    jax, r = runs[arch]["jax"], runs[arch]["ranks"][0]
+    assert jax["n_devices"] == 4
+    _check_metrics({k: v for k, (v, _) in r["metrics"].items()},
+                   jax["metrics"])
+    want = {k: _jax_leaves(cfg, jax[k])
+            for k in ("params", "m", "v", "master")}
+    _check_leaves(r["sharded"], want)
+
+
+@pytest.mark.parametrize("arch", W.ARCHS)
+def test_sharded_step_matches_the_unsharded_port(runs, arch):
+    r = runs[arch]["ranks"][0]
+    _check_metrics({k: v for k, (v, _) in r["metrics"].items()},
+                   r["plain_metrics"])
+    _check_leaves(r["sharded"], r["plain"])
+
+
+@pytest.mark.parametrize("arch", W.ARCHS)
+def test_every_leaf_keeps_the_placements_of_its_rule(runs, arch):
+    """Parameters and AdamW state after the step have their specs'
+    placements (nothing came back replicated); some are sharded on each
+    mesh dim; the metrics are replicated and every rank holds the same
+    gathered values."""
+    ranks = runs[arch]["ranks"]
+    sharded_on = set()
+    for key, leaves in ranks[0]["placements"].items():
+        for path, (want, got) in leaves.items():
+            assert got == want, (key, path)
+            sharded_on.update(i for i, p in enumerate(got) if p != "R")
+    assert sharded_on == {0, 1}
+    for r in ranks:
+        for value, placements in r["metrics"].values():
+            assert placements == ["R", "R"]
+        assert r["metrics"] == ranks[0]["metrics"]
+        for key in ("params", "m"):
+            for path, leaf in r["sharded"][key].items():
+                np.testing.assert_array_equal(leaf,
+                                              ranks[0]["sharded"][key][path])
+
+
+@pytest.mark.parametrize("arch", W.ARCHS)
+def test_kernel_regions_see_local_shards(runs, arch):
+    """The kernels' plain versions (their ops' CPU route) see batch B/2 and
+    half the heads (channels for RG-LRU) with the sequence whole, forward
+    and backward."""
+    cfg = configs.get_smoke(arch)
+    seen = set(runs[arch]["ranks"][0]["seen"])
+    b = W.B // 2
+    want = set()
+    if any(m in ("attn", "local") for m, _ in cfg.layer_plan):
+        q = (b, W.S, cfg.n_heads // 2, cfg.head_dim)
+        want |= {("attention", q), ("attention_bwd", q)}
+    if any(m == "rglru" for m, _ in cfg.layer_plan):
+        x = (b, W.S, (cfg.rglru_width or cfg.d_model) // 2)
+        want |= {("rglru_scan", x), ("rglru_scan_bwd", x)}
+    if any(m == "rwkv" for m, _ in cfg.layer_plan):
+        r = (b, W.S, cfg.d_model // cfg.rwkv_head_size // 2,
+             cfg.rwkv_head_size)
+        want |= {("wkv6", r), ("wkv6_bwd", r)}
+    assert seen == want
+
+
+def _dry_run_site(op: str) -> str:
+    """A dry-run record's op (``launch.dryrun.collectives_for``) with its
+    layer or leaf name dropped."""
+    if op in ("embed", "embed grad", "loss max/sum/gold", "head input",
+              "head input grad"):
+        return op
+    if re.fullmatch(r"layer\d+ residual( grad)?", op):
+        return op.split(" ", 1)[1]
+    return "parameter " + op.rsplit(" ", 1)[1]
+
+
+def collectives_table(runs) -> dict:
+    """gemma2's sharded step on the 2x2 mesh beside the dry run's charge
+    for the same config, shape (B=4, S=32) and mesh: per kind the count
+    and result bytes of each and their ratios, and each side by site."""
+    count, nbytes, sites = runs["gemma2_2b"]["ranks"][0]["comm"]
+    recs = dryrun.collectives_for(
+        configs.get_smoke("gemma2_2b"),
+        {"batch": W.B, "seq": W.S, "kind": "train"},
+        AbstractMesh((2, 2), ("data", "model")), fsdp=True)
+    dry, dry_sites = defaultdict(lambda: [0, 0.0]), defaultdict(
+        lambda: [0, 0.0])
+    for kind, size, _group, op in recs:
+        for rec in (dry[kind], dry_sites[(_dry_run_site(op), kind)]):
+            rec[0] += 1
+            rec[1] += size
+    kinds = {}
+    for k in sorted(set(count) | set(dry)):
+        n, b = count.get(k, 0), nbytes.get(k, 0.0)
+        dn, db = dry[k] if k in dry else (0, 0.0)
+        kinds[k] = {"step_count": n, "step_bytes": b, "dry_run_count": dn,
+                    "dry_run_bytes": db,
+                    "count_ratio": n / dn if dn else None,
+                    "bytes_ratio": b / db if db else None}
+    order = sorted(sites.items(), key=lambda kv: -kv[1][1])
+    return {"arch": "gemma2_2b", "batch": W.B, "seq": W.S,
+            "mesh": "data=2,model=2", "kinds": kinds,
+            "step_sites": [[phase, site, kind, n, b]
+                           for (phase, site, kind), (n, b) in order],
+            "dry_run_sites": [[site, kind, n, b] for (site, kind), (n, b)
+                              in sorted(dry_sites.items(),
+                                        key=lambda kv: -kv[1][1])]}
+
+
+def test_the_step_issues_every_collective_the_dry_run_charges(runs):
+    """gemma2's step on the 2x2 mesh issues all-gathers, reduce-scatters
+    and all-reduces, each kind the dry run charges for the same config,
+    shape and mesh (their counts and bytes differ: DTensor's strategy is
+    its own), and every collective it issues has a site in the port.
+    With ``-s`` the test prints `collectives_table` as JSON."""
+    table = collectives_table(runs)
+    print(json.dumps(table, indent=1))
+    charged = {k for k, v in table["kinds"].items() if v["dry_run_count"]}
+    assert charged == {"all-gather", "reduce-scatter", "all-reduce"}
+    for kind in charged:
+        got = table["kinds"][kind]
+        assert got["step_count"] > 0 and got["step_bytes"] > 0, kind
+    sites = table["step_sites"]
+    assert sum(n for *_, n, _b in sites) == sum(
+        v["step_count"] for v in table["kinds"].values())
+    assert all(site is not None for _phase, site, *_ in sites)
+
+
+@pytest.mark.parametrize("op", ["flash_attention", "rglru_scan", "wkv6"])
+def test_a_dtensor_outside_a_kernel_region_raises(runs, op):
+    err = runs[W.ARCHS[0]]["ranks"][0]["refused"][op]
+    assert err is not None and "DTensor" in err
+
+
+def test_no_child_process_left(runs):
+    assert STARTED and all(p.poll() is not None for p in STARTED)
+    pids = {p.pid for p in STARTED}
+    live = set()
+    for task in os.listdir("/proc/self/task"):
+        with open(f"/proc/self/task/{task}/children") as f:
+            live.update(int(x) for x in f.read().split())
+    assert not pids & live
