@@ -167,7 +167,16 @@ per source, all started together.  Phases, each printing its own lines:
      run's count (which must put both runs' steps under 72 GB), the
      flash launches inside the kernel regions; then one gradient pass of
      recurrentgemma-2b (3 layers) and rwkv6-7b (2 layers) at full width,
-     bitwise, so RG-LRU and WKV6 run forward and backward in their regions.
+     bitwise, so RG-LRU and WKV6 run forward and backward in their
+     regions; then the MoE families at full width, deepseek-moe-16b at 2
+     of 28 layers (a dense layer, then one of 64 experts, top-6, 2 shared)
+     and mixtral-8x7b at 1 of 32 (8 experts of width 14,336): the prefill
+     of 4 x 4,096 and step 1's gradient pass on plain tensors twice each,
+     bitwise on repeat (the combine's fixed order), then both on the mesh,
+     the dispatch and combine in their regions, bitwise against the plain
+     calls, the routing's differing (token, expert) choices counted
+     (``sharded:moe``, ``sharded:grads``); flash's launches in the regions
+     join the kernels line.
 
 Any failed phase exits non-zero before the result line.  The last line is
 ``{"ok": true, "device": {...}}``; the line before it lists every kernel
@@ -3763,6 +3772,11 @@ def launch_phase(summary: dict, mesh) -> dict:
 SHARDED_ARCH = "gemma2_2b"
 SHARDED_CUTS = (("recurrentgemma_2b", 3), ("rwkv6_7b", 2))
 SHARDED_STEPS = 2
+#: the MoE families at full width on the mesh, cut to these depths (depth
+#: alone): deepseek-moe-16b's dense first layer and one MoE layer of 64
+#: experts, top-6, 2 shared; mixtral-8x7b's first layer, 8 experts of
+#: width 14,336
+SHARDED_MOE = (("deepseek_moe_16b", 2), ("mixtral_8x7b", 1))
 
 
 def local(x):
@@ -4010,6 +4024,81 @@ def sharded_train(mesh, summary: dict) -> dict:
     return {k: launches[k] + step_launches[k] for k in launches}
 
 
+def sharded_moe(mesh, arch: str, n_layers: int, summary: dict) -> dict:
+    """An MoE family at full width and ``n_layers`` layers: its prefill
+    (B=GEN_B x GEN_S, last-position logits and the decode state) and its
+    gradient pass on plain tensors twice each, bitwise on repeat (the
+    combine adds each token's contributions in a fixed order,
+    ``layers.moe_combine``); then the prefill with the parameters and
+    prompt on the mesh, its dispatch and combine in their regions, bitwise
+    against the plain call, its routing against the plain call's; then
+    the gradient pass on the mesh (`sharded_grads`).  Returns the mesh
+    runs' launches."""
+    import torch
+
+    from repro_torch.launch.sharding import distribute_batch, distribute_tree
+    from repro_torch.models import model as M
+    from repro_torch.train import loss_and_grads
+
+    cfg, params, n_params = full_model(arch, n_layers)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    prompt = torch.randint(0, cfg.vocab, (GEN_B, GEN_S), generator=gen,
+                           device="cuda")
+    batch = train_batches(cfg)[0]
+
+    def prefill(p, tokens):
+        with RouteLog() as log:
+            logits, st = M.prefill(p, cfg, {"tokens": tokens},
+                                   last_only=True)
+        return [local(t) for t in [logits, *_leaves(st)]], log.calls
+
+    (pre_p, routes_p), pre_p_s = synced(lambda: prefill(params, prompt))
+    pre_names = ["logits"] + [f"state{i}" for i in range(len(pre_p) - 1)]
+    again = first_unequal(pre_p, prefill(params, prompt)[0], pre_names)
+    names = _leaf_names(params)
+    (l1, g1), (l2, g2) = (loss_and_grads(params, cfg, batch, TRAIN_MB)
+                          for _ in range(2))
+    grads_again = (None if torch.equal(l1, l2) else "loss") or \
+        first_unequal(g1, g2, names)
+    del g1, g2
+    torch.cuda.empty_cache()
+    dparams = distribute_tree(params, mesh, cfg, fsdp=False)
+    dprompt = distribute_batch({"tokens": prompt}, mesh)["tokens"]
+    lm_reset()
+    with on_mesh(mesh, cfg, GEN_B):
+        (pre_d, routes_d), pre_d_s = synced(lambda: prefill(dparams,
+                                                            dprompt))
+    launches = lm_launches()
+    want = path_launches(cfg)[0]
+    check(launches == want,
+          f"{arch} sharded prefill launches {launches}, expected {want}")
+    bad = first_unequal(pre_d, pre_p, pre_names)
+    routing = routing_diff(cfg, routes_d, routes_p)
+    del dparams, pre_d, pre_p
+    line = dict(prefill_repeats=again is None,
+                grads_repeat=grads_again is None,
+                prefill_bitwise=bad is None, first_unequal=bad,
+                prefill_s=pre_d_s, plain_prefill_s=pre_p_s, **routing)
+    say("sharded:moe", arch=arch, layers=cfg.n_layers, params=n_params,
+        B=GEN_B, S=GEN_S,
+        **{k: (round(v, 3) if isinstance(v, float) else v)
+           for k, v in line.items()},
+        launches=json.dumps(launches, separators=(",", ":")))
+    summary["sharded_moe_" + arch] = dict(line, launches=launches)
+    check(again is None, f"{arch}: a second prefill on plain tensors "
+                         f"differs in {again}")
+    check(grads_again is None, f"{arch}: a second gradient pass on plain "
+                               f"tensors differs in {grads_again}")
+    check(bad is None, f"{arch}: the sharded prefill's {bad} differs from "
+                       "the plain-tensor call's")
+    for k, v in sharded_grads(mesh, cfg, params, batch, arch,
+                              summary).items():
+        launches[k] += v
+    del params, batch
+    torch.cuda.empty_cache()
+    return launches
+
+
 def sharded_phase(summary: dict, mesh) -> dict:
     """Phase 18: the sharded programs (prefill, decode, the train step) on
     the (1, 1) mesh of `nccl_mesh`, every placement ``Replicate()``, each
@@ -4019,8 +4108,8 @@ def sharded_phase(summary: dict, mesh) -> dict:
 
     t = time.perf_counter()
     say("sharded:mesh", backend="nccl", world_size=1, mesh="data=1,model=1",
-        families=",".join((SHARDED_ARCH,) + tuple(a for a, _ in
-                                                  SHARDED_CUTS)))
+        families=",".join((SHARDED_ARCH,) + tuple(
+            a for a, _ in SHARDED_CUTS + SHARDED_MOE)))
     torch.cuda.empty_cache()
     launches = sharded_serve(mesh, summary)
     for k, v in sharded_train(mesh, summary).items():
@@ -4033,6 +4122,9 @@ def sharded_phase(summary: dict, mesh) -> dict:
             launches[k] += v
         del params, batch
         torch.cuda.empty_cache()
+    for arch, n_layers in SHARDED_MOE:
+        for k, v in sharded_moe(mesh, arch, n_layers, summary).items():
+            launches[k] += v
     wall = time.perf_counter() - t
     say("lm:phase", arch="sharded", wall_s=round(wall, 3),
         launches=json.dumps(launches, separators=(",", ":")))

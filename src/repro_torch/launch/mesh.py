@@ -17,6 +17,9 @@ from __future__ import annotations
 
 import math
 
+#: every axis name the meshes of this module are built with
+MESH_AXES = ("pod", "data", "expert", "model")
+
 
 class AbstractMesh:
     """Axis names and sizes of a mesh, without devices: ``shape`` and

@@ -35,7 +35,7 @@ from __future__ import annotations
 
 from typing import Any
 
-from .mesh import axis_names, axis_size, data_axes
+from .mesh import MESH_AXES, axis_names, axis_size, data_axes
 
 FSDP = "data"
 TP = "model"
@@ -239,7 +239,10 @@ def placements(spec, mesh) -> list:
     mesh dim, ``Shard(tensor dim)`` if the spec names that axis, else
     ``Replicate()``.  A tuple of axes on one tensor dim shards it on each of
     them, major to minor in mesh order.  A mesh dim of size 1 is
-    ``Replicate()``: sharding over one device is replication."""
+    ``Replicate()``: sharding over one device is replication.  One of the
+    axes that `launch.mesh` builds (`MESH_AXES`) that this mesh lacks is
+    read as one of size 1 (`axis_size`) and shards nothing; any other
+    axis name raises."""
     from torch.distributed.tensor import Replicate, Shard
 
     names = axis_names(mesh)
@@ -248,7 +251,11 @@ def placements(spec, mesh) -> list:
         if entry is None:
             continue
         axes = entry if isinstance(entry, tuple) else (entry,)
-        idx = [names.index(a) for a in axes]
+        bad = [a for a in axes if a not in names and a not in MESH_AXES]
+        if bad:
+            raise ValueError(f"axes {bad} of {spec} are neither in the mesh "
+                             f"{names} nor among {MESH_AXES}")
+        idx = [names.index(a) for a in axes if a in names]
         if idx != sorted(idx):
             raise ValueError(f"axes {axes} of {spec} are not in the mesh's "
                              f"order {names}")

@@ -493,56 +493,113 @@ def moe_plan(idx: torch.Tensor, w: torch.Tensor, C: int, E: int):
     return st, sw, keep, buf_idx
 
 
+def moe_combine(yb: torch.Tensor, st: torch.Tensor, sw: torch.Tensor,
+                buf_idx: torch.Tensor, Tg: int, K: int) -> torch.Tensor:
+    """(g, Tg, d) float32: each token's K slot outputs of ``yb`` (g, E C +
+    1, d, the spare slot last), scaled by their weights ``sw`` in the
+    activation dtype, added from 0 in a fixed order: the token's pairs in
+    expert order, as ``index_add_`` adds them one source row at a time on
+    the CPU (bitwise its result there).  On the card ``index_add_`` adds
+    them with atomics, whose order nothing fixes (torch lists it among its
+    nondeterministic ops); this forward sum's order is fixed.  One gather
+    takes every pair's slot output, then K adds of its slices.  ``st``,
+    ``sw`` and ``buf_idx`` (g, Tg K) are `moe_plan`'s, in expert order."""
+    g, _, d = yb.shape
+    # each token's pairs, in expert order (a stable sort by token keeps it)
+    pair = torch.argsort(st, dim=1, stable=True)
+    slot = torch.gather(buf_idx, 1, pair).reshape(g, Tg, K)
+    wt = torch.gather(sw, 1, pair).reshape(g, Tg, K, 1)
+    rows = torch.arange(g, device=yb.device)[:, None, None]
+    contrib = (yb[rows, slot] * wt).float()
+    out = torch.zeros((g, Tg, d), dtype=torch.float32, device=yb.device)
+    for k in range(K):
+        out = out + contrib[:, :, k]
+    return out
+
+
+def _group_name(G1: int, G2: int):
+    """The logical name of the dispatch groups' dim: the mesh axes backing
+    it, as the reference's ``_group_axes`` gives them (batch axes, then
+    the capacity axes)."""
+    return {(True, True): "moe_group", (True, False): "batch",
+            (False, True): "capacity"}.get((G1 > 1, G2 > 1))
+
+
 def moe_forward(p: Params, x: torch.Tensor, cfg: MoEConfig) -> torch.Tensor:
     """Token-dropping MoE, the reference's semantics: route in float32,
     dispatch each kept (token, choice) pair to its expert's slot of a
     (g, E, C, d) buffer, run the experts as batched products, scale each
-    slot's output by its weight in the activation dtype, scatter-add the
-    contributions in float32 and cast back, then add the shared experts."""
+    slot's output by its weight in the activation dtype, add each token's
+    contributions in float32 (`moe_combine`) and cast back, then add the
+    shared experts.
+
+    The dispatch (routing, the capacity plan, the scatter into the buffer)
+    and the combine each run in a region over the dispatch groups
+    (`models.sharding.local_region`), the counterparts of the reference's
+    two ``shard_map`` calls: on DTensors each rank takes its own groups'
+    tokens, one group a rank when the groups tile the device grid, and the
+    regrouping of (B, S, d) into (G, Tg, d) and back happens on the local
+    block.  Between them the expert products run on DTensors, the buffer
+    resharded from groups to experts (the expert-parallel all-to-all)."""
     B, S, d = x.shape
-    E = cfg.n_experts
+    E, K = cfg.n_experts, cfg.top_k
     G1, G2 = _moe_groups(B, S)
     G = G1 * G2
     Tg = B * S // G
     C = moe_capacity(Tg, cfg)
-    if G2 > 1:
-        # (B, S, d) -> (G1, B/G1, G2, S/G2, d) -> (G, Tg, d): the groups
-        # line up with the (data, model) device grid
-        xg = x.reshape(G1, B // G1, G2, S // G2, d).transpose(1, 2).reshape(
-            G, Tg, d)
-    else:
-        xg = x.reshape(G, Tg, d)
-    w, idx = moe_route(xg, p["router"], cfg)
-    st, sw, keep, buf_idx = moe_plan(idx, w, C, E)
-    # dispatch: tokens gathered in expert order into their slots (the
-    # dropped ones all land in the spare slot E*C, cut off below)
-    rows = torch.arange(G, device=x.device)[:, None]
-    xb = torch.zeros((G, E * C + 1, d), dtype=x.dtype, device=x.device)
-    xb[rows, buf_idx] = xg[rows, st]
-    sw_eff = torch.where(keep, sw, torch.zeros((), device=x.device)).to(
-        x.dtype)
+    # the groups one block holds: all of them on a plain tensor, one a rank
+    # on a DTensor (its block is one group's (B / G1, S / G2) tokens)
+    g1, g2 = (1, 1) if is_dtensor(x) else (G1, G2)
+    b, s = B // G1, S // G2
+
+    def dispatch(xl, router):
+        # (g1 b, g2 s, d) -> (g1, b, g2, s, d) -> (g, Tg, d): group
+        # g1 G2 + g2, data major, as the reference's
+        xg = xl.reshape(g1, b, g2, s, d).transpose(1, 2).reshape(
+            g1 * g2, Tg, d)
+        w, idx = moe_route(xg, router, cfg)
+        st, sw, keep, buf_idx = moe_plan(idx, w, C, E)
+        # tokens gathered in expert order into their slots (the dropped
+        # ones all land in the spare slot E*C, cut off below)
+        rows = torch.arange(g1 * g2, device=xl.device)[:, None]
+        xb = torch.zeros((g1 * g2, E * C + 1, d), dtype=xl.dtype,
+                         device=xl.device)
+        xb[rows, buf_idx] = xg[rows, st]
+        sw_eff = torch.where(keep, sw, torch.zeros((), device=xl.device)).to(
+            xl.dtype)
+        return (xg, xb[:, :E * C].reshape(g1 * g2, E, C, d), st, sw_eff,
+                buf_idx)
+
+    def combine(yb, st, sw, buf_idx, *shared):
+        g = yb.shape[0]
+        # each pair reads its slot (the spare slot reads zeros)
+        ybf = torch.cat([yb.reshape(g, E * C, d),
+                         torch.zeros((g, 1, d), dtype=yb.dtype,
+                                     device=yb.device)], dim=1)
+        out = moe_combine(ybf, st, sw, buf_idx, Tg, K).to(yb.dtype)
+        if shared:
+            out = out + shared[0]
+        return out.reshape(g1, g2, b, s, d).transpose(1, 2).reshape(
+            g1 * b, g2 * s, d)
+
+    gn = _group_name(G1, G2)
+    x_names = ("batch", "capacity" if G2 > 1 else None, None)
+    xg, xb, st, sw, bidx = local_region(
+        dispatch, (x, p["router"]), (x_names, (None, None)),
+        ((gn, None, None), (gn, None, None, None), (gn, None), (gn, None),
+         (gn, None)))
     # expert compute: the buffer reshards from groups to experts here
-    xb = logical(xb[:, :E * C].reshape(G, E, C, d), "moe_batch", "expert",
-                 None, None)
+    xb = logical(xb, "moe_batch", "expert", None, None)
     h = F.silu(torch.einsum("gecd,edf->gecf", xb, p["wg"])) * torch.einsum(
         "gecd,edf->gecf", xb, p["wu"])
     h = logical(h, "moe_batch", "expert", None, "ffn")
     yb = logical(torch.einsum("gecf,efd->gecd", h, p["wd"]), "moe_batch",
                  "expert", None, None)
-    # combine: each pair reads its slot (the spare slot reads zeros)
-    ybf = torch.cat([yb.reshape(G, E * C, d),
-                     torch.zeros((G, 1, d), dtype=yb.dtype,
-                                 device=x.device)], dim=1)
-    contrib = ybf[rows, buf_idx] * sw_eff[..., None]
-    out = torch.zeros((G * Tg, d), dtype=torch.float32, device=x.device)
-    out.index_add_(0, (st + rows * Tg).reshape(-1),
-                   contrib.reshape(-1, d).float())
-    out = out.reshape(G, Tg, d).to(yb.dtype)
+    args, names = (yb, st, sw, bidx), ((gn,),) * 4
     if "shared" in p:
-        out = out + mlp_forward(p["shared"], xg, "swiglu")
-    if G2 > 1:
-        out = out.reshape(G1, G2, B // G1, S // G2, d).transpose(1, 2)
-    return out.reshape(B, S, d)
+        args += (mlp_forward(p["shared"], xg, "swiglu"),)
+        names += ((gn,),)
+    return local_region(combine, args, names, (x_names,))
 
 
 # ----------------------------------------------------------------------

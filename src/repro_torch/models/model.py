@@ -388,8 +388,8 @@ def _embed(params: Params, cfg: ArchConfig, batch: dict):
                                              dtype=x.dtype, device=x.device),
                                 x)
     if cfg.pos_embedding == "sinusoidal":
-        x = x + L.sinusoidal_positions(S, cfg.d_model,
-                                       device=x.device).to(x.dtype)[None]
+        x = x + replicated_like(L.sinusoidal_positions(
+            S, cfg.d_model, device=x.device).to(x.dtype)[None], x)
     return (logical(x, "batch", "seq", "embed"),
             replicated_like(_positions(cfg, B, S, x.device), x))
 
@@ -474,7 +474,11 @@ def _chunk_loss(params: Params, cfg: ArchConfig, x: torch.Tensor,
                 labels: torch.Tensor) -> torch.Tensor:
     """Summed next-token cross entropy of one sequence chunk: the LM head,
     the float32 logsumexp, minus the gold logit."""
-    logits = _lm_logits(params, cfg, x).float()
+    # DTensor's masked gather of the gold logit takes a vocab sharded on
+    # one mesh axis: on an expert-factorized mesh, whose TP axes shard the
+    # vocab twice, it leaves the "expert" axis first ("ffn" is "model")
+    logits = logical(_lm_logits(params, cfg, x).float(), "batch", None,
+                     "ffn")
     lse = torch.logsumexp(logits, dim=-1)
     # on a vocab-sharded DTensor the gather's masked partial sums are
     # reduced while the tensor keeps their shape

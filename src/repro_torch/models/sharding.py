@@ -153,14 +153,37 @@ def layout(x, *names: Optional[str]) -> tuple:
     return tuple(placements(logical_spec(x.shape, names, rules, mesh), mesh))
 
 
+def names_layout(mesh, *names: Optional[str]) -> tuple:
+    """The placements on ``mesh`` of a tensor whose dims are named
+    ``names`` under the active rules, each name's axes taken whole (no
+    shape to check them against, as a ``shard_map``'s ``out_specs``: the
+    caller names dims that the axes divide); an axis an earlier dim took
+    is dropped."""
+    rules = current_rules()
+    if rules is None:
+        raise RuntimeError("a DTensor reached a kernel region outside "
+                           "activation_sharding: no rules give its layout")
+    from ..launch.sharding import P, placements
+
+    axes, used = [], set()
+    for n in names:
+        ax = rules.get(n) if n else None
+        flat = () if ax is None else (ax if isinstance(ax, tuple) else (ax,))
+        flat = tuple(a for a in flat if a not in used)
+        used.update(flat)
+        axes.append(flat or None)
+    return tuple(placements(P(*axes), mesh))
+
+
 def local_region(fn, args: tuple, names: tuple, outs: tuple):
     """``fn(*args)``: on plain tensors as it is; on DTensors on their local
     shards, each arg first redistributed to the layout of its dim names in
     ``names`` (`layout`), and each output coming back as a DTensor laid
-    out as the arg that ``outs`` indexes.  An input replicated over a mesh
-    dim that an output is sharded on gets its gradient there as a partial
-    sum (each shard computed its own part of it).  ``fn`` sees plain local
-    tensors, so the kernel behind it launches on them."""
+    out as ``outs`` says: an int, as the arg it indexes; a tuple of dim
+    names, by `names_layout`.  An input replicated over a mesh dim that
+    an output is sharded on gets its gradient there as a partial sum (each
+    shard computed its own part of it).  ``fn`` sees plain local tensors,
+    so the kernel behind it launches on them."""
     dts = [is_dtensor(a) for a in args]
     if not any(dts):
         return fn(*args)
@@ -173,7 +196,8 @@ def local_region(fn, args: tuple, names: tuple, outs: tuple):
 
     mesh = args[0].device_mesh
     in_layouts = tuple(layout(a, *n) for a, n in zip(args, names))
-    out_layouts = tuple(in_layouts[i] for i in outs)
+    out_layouts = tuple(in_layouts[o] if isinstance(o, int)
+                        else names_layout(mesh, *o) for o in outs)
     split = [any(not lay[i].is_replicate() for lay in out_layouts)
              for i in range(mesh.ndim)]
     grads = tuple(tuple(Partial() if split[i] and lay[i].is_replicate()

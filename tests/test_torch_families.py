@@ -392,6 +392,53 @@ def test_moe_capacity_drops_tokens(mode, n_shared):
         assert (y[gone] == 0).all()
 
 
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("mode", ["softmax_topk", "topk_softmax"])
+def test_moe_combine_is_index_add_bitwise(mode, seed):
+    """``moe_combine`` adds each token's K contributions from 0 in expert
+    order, in a fixed loop, and so on the CPU equals bitwise the
+    ``index_add_`` of the pairs in expert order that it replaced (one
+    source row at a time), forward and backward, in float32 and bfloat16,
+    with pairs dropped (capacity factor 0.5) and without (8.0)."""
+    rng = np.random.default_rng(seed)
+    g, Tg, K, E, d = 2, 24, 3, 6, 16
+    for cf, dtype in ((0.5, torch.float32), (8.0, torch.bfloat16),
+                      (0.5, torch.bfloat16)):
+        cfg = TL.MoEConfig(n_experts=E, top_k=K, d_expert=8,
+                           capacity_factor=cf, router_mode=mode)
+        C = TL.moe_capacity(Tg, cfg)
+        xg = torch.from_numpy(rng.standard_normal((g, Tg, d))
+                              .astype(np.float32))
+        router = torch.from_numpy(rng.standard_normal((d, E))
+                                  .astype(np.float32))
+        w, idx = TL.moe_route(xg, router, cfg)
+        st, sw, keep, buf_idx = TL.moe_plan(idx, w, C, E)
+        assert bool((~keep).any()) == (cf == 0.5)
+        sw = torch.where(keep, sw, torch.zeros(())).to(dtype)
+        yb = torch.from_numpy(rng.standard_normal((g, E * C + 1, d))
+                              .astype(np.float32)).to(dtype)
+        yb[:, -1] = 0
+        outs, grads = [], []
+        for combine in ("fixed", "index_add"):
+            y = yb.clone().requires_grad_()
+            if combine == "fixed":
+                out = TL.moe_combine(y, st, sw, buf_idx, Tg, K)
+            else:
+                rows = torch.arange(g)[:, None]
+                contrib = y[rows, buf_idx] * sw[..., None]
+                out = torch.zeros((g * Tg, d), dtype=torch.float32)
+                out = out.index_add(0, (st + rows * Tg).reshape(-1),
+                                    contrib.reshape(-1, d).float())
+                out = out.reshape(g, Tg, d)
+            out.backward(torch.from_numpy(
+                np.random.default_rng(seed + 10).standard_normal(
+                    out.shape).astype(np.float32)))
+            outs.append(out.detach())
+            grads.append(y.grad)
+        assert torch.equal(outs[0], outs[1])
+        assert torch.equal(grads[0], grads[1])
+
+
 def test_vocab_padding_masked(models):
     """granite with vocab 250: the padded slots' logits are below -1e8."""
     cfg = tconfigs.get_smoke("granite3_8b")

@@ -41,7 +41,9 @@ train step (rwkv6 among them) on the card against the CPU's.  The sharding and l
 group of world size 1 (a FileStore, no network) under the (1, 1) debug
 mesh, ``distribute_tree`` on it, ``compressed_psum_tree`` bitwise
 ``dequantize(quantize_int8(g))``, ``logical`` leaving a replicated DTensor
-as it is, meta tensors through the three LM ops (shapes only, nothing
+as it is, five smoke families (the MoE's two among them, their dispatch
+and combine in their regions) bitwise on it against plain tensors, the
+MoE's combine bitwise on repeat and against the CPU, meta tensors through the three LM ops (shapes only, nothing
 launched) while a CUDA tensor still launches, and the dry run's
 ``HBM_PER_DEVICE`` against the card's own.
 """
@@ -1194,6 +1196,67 @@ def test_moe_on_card_routes_and_drops_as_on_the_cpu(lm_kernels):
                                    atol=1e-5)
 
 
+def test_moe_combine_repeats_on_the_card(lm_kernels):
+    """``moe_combine`` at deepseek-moe-16b's prefill shape (16,384 tokens
+    in one group, top-6 of 64 experts, d 2,048, bf16 slots): two calls on
+    the card bitwise equal, and bitwise the CPU's (the same float32 adds
+    in the same order)."""
+    from repro_torch.models import layers as L
+    Tg, K, E, d = 16384, 6, 64, 2048
+    C = L.moe_capacity(Tg, L.MoEConfig(n_experts=E, top_k=K, d_expert=1))
+    rng = np.random.default_rng(5)
+    logits = torch.from_numpy(rng.standard_normal((1, Tg, E), np.float32))
+    w, idx = torch.topk(torch.softmax(logits, -1), K, dim=-1)
+    st, sw, keep, buf_idx = L.moe_plan(idx, w / w.sum(-1, keepdim=True), C,
+                                       E)
+    sw = torch.where(keep, sw, torch.zeros(())).bfloat16()
+    yb = torch.from_numpy(rng.standard_normal((1, E * C + 1, d),
+                                              np.float32)).bfloat16()
+    yb[:, -1] = 0
+    want = L.moe_combine(yb, st, sw, buf_idx, Tg, K)
+    args = [t.cuda() for t in (yb, st, sw, buf_idx)]
+    a = L.moe_combine(*args, Tg, K)
+    b = L.moe_combine(*args, Tg, K)
+    assert torch.equal(a, b)
+    assert torch.equal(a.cpu(), want)
+
+
+def test_moe_layer_backward_repeats_on_the_card(lm_kernels):
+    """One MoE layer at deepseek-moe-16b's width (d 2,048, 64 experts of
+    1,408, top-6, 2 shared; bf16 weights) on 2 x 2,048 tokens, forward
+    and backward twice on the same inputs: the output and every gradient
+    bitwise equal, with pairs dropped.  Beside the combine's fixed order this
+    holds the dispatch: the gradient of its gather ``xg[rows, st]`` adds
+    each token's K rows through CUDA's ``index_put_`` with accumulate."""
+    from repro_torch import configs
+    from repro_torch.models import layers as L
+    arch = configs.get("deepseek_moe_16b")
+    cfg, d = arch.moe, arch.d_model
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    p = L.moe_init(gen, d, cfg, dtype=torch.bfloat16, device="cuda")
+    # an offset shared by every token skews the routing: pairs drop
+    x = (torch.randn((2, 2048, d), generator=gen, device="cuda")
+         + 0.5 * torch.randn((d,), generator=gen, device="cuda")).bfloat16()
+    dy = torch.randn(x.shape, generator=gen, device="cuda").bfloat16()
+    w, idx = L.moe_route(x.reshape(1, -1, d), p["router"], cfg)
+    keep = L.moe_plan(idx, w, L.moe_capacity(x.shape[0] * x.shape[1], cfg),
+                      cfg.n_experts)[2]
+    assert 0 < int(keep.sum()) < keep.numel()
+    leaves = [p["router"], p["wg"], p["wu"], p["wd"],
+              *(p["shared"][k] for k in sorted(p["shared"]))]
+    runs = []
+    for _ in range(2):
+        xx = x.clone().requires_grad_()
+        for t in leaves:
+            t.requires_grad_()
+            t.grad = None
+        y = L.moe_forward(p, xx, cfg)
+        y.backward(dy)
+        runs.append([y.detach(), xx.grad] + [t.grad for t in leaves])
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
 FAMILIES = ["gemma2_2b", "phi4_mini_3_8b", "granite3_8b", "codeqwen15_7b",
             "deepseek_moe_16b", "mixtral_8x7b", "qwen2_vl_7b",
             "musicgen_large"]
@@ -1764,7 +1827,8 @@ def test_logical_leaves_a_dtensor_as_it_is(nccl_mesh):
 
 
 @pytest.mark.parametrize("arch", ["gemma2_2b", "recurrentgemma_2b",
-                                  "rwkv6_7b"])
+                                  "rwkv6_7b", "deepseek_moe_16b",
+                                  "mixtral_8x7b"])
 def test_sharded_smoke_family_on_the_nccl_mesh_is_bitwise(lm_kernels,
                                                           nccl_mesh, arch):
     """On the (1, 1) NCCL mesh every placement is ``Replicate()``: a smoke

@@ -170,6 +170,23 @@ def test_spec_guards_divisibility():
     assert s == P(None, "data", "model"), s
 
 
+def test_placements_take_a_missing_mesh_axis_as_size_one():
+    """An axis that `launch.mesh` builds meshes with but this mesh lacks
+    shards nothing (an expert-factorized rule on a mesh without its
+    "expert" dim); any other axis name raises, as the reference's
+    ``NamedSharding`` refuses an axis its mesh lacks."""
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = AbstractMesh((2, 2), ("data", "model"))
+    P = tsh.P
+    assert tsh.placements(P(("expert", "model"), None), mesh) == [
+        Replicate(), Shard(0)]
+    assert tsh.placements(P("data", ("pod", "expert")), mesh) == [
+        Shard(0), Replicate()]
+    for spec in (P("modle", None), P(None, ("data", "exprt"))):
+        with pytest.raises(ValueError, match="neither in the mesh"):
+            tsh.placements(spec, mesh)
+
+
 @pytest.mark.parametrize("arch", tconfigs.ARCH_IDS)
 def test_state_batch_and_activation_rules_equal_the_reference(arch,
                                                               ref_shapes):

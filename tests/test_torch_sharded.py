@@ -23,7 +23,7 @@ same weights (the port's ``init_params`` draw in the reference's layout,
   * the collectives the step issues (``CommDebugMode``) include every kind
     the dry run (``launch.dryrun.collectives_for``) charges; with ``-s``,
     `test_the_step_issues_every_collective_the_dry_run_charges` prints
-    both by kind and by site (`collectives_table`);
+    both by kind and by site (`torch_sharded_worker.collectives_table`);
   * a DTensor handed straight to a kernel op raises.
 
 The JAX package's steps run in a process a family, the port's in four
@@ -33,18 +33,12 @@ it started is alive.
 """
 
 import json
-import os
-import re
-from collections import defaultdict
-
 import numpy as np
 import pytest
 import torch
 
 import torch_sharded_worker as W
 from repro_torch import configs
-from repro_torch.launch import dryrun
-from repro_torch.launch.mesh import AbstractMesh
 from repro_torch.models import model as TM
 from test_torch_train import STEP_TOL, _ref_tree
 
@@ -163,57 +157,14 @@ def test_kernel_regions_see_local_shards(runs, arch):
     assert seen == want
 
 
-def _dry_run_site(op: str) -> str:
-    """A dry-run record's op (``launch.dryrun.collectives_for``) with its
-    layer or leaf name dropped."""
-    if op in ("embed", "embed grad", "loss max/sum/gold", "head input",
-              "head input grad"):
-        return op
-    if re.fullmatch(r"layer\d+ residual( grad)?", op):
-        return op.split(" ", 1)[1]
-    return "parameter " + op.rsplit(" ", 1)[1]
-
-
-def collectives_table(runs) -> dict:
-    """gemma2's sharded step on the 2x2 mesh beside the dry run's charge
-    for the same config, shape (B=4, S=32) and mesh: per kind the count
-    and result bytes of each and their ratios, and each side by site."""
-    count, nbytes, sites = runs["gemma2_2b"]["ranks"][0]["comm"]
-    recs = dryrun.collectives_for(
-        configs.get_smoke("gemma2_2b"),
-        {"batch": W.B, "seq": W.S, "kind": "train"},
-        AbstractMesh((2, 2), ("data", "model")), fsdp=True)
-    dry, dry_sites = defaultdict(lambda: [0, 0.0]), defaultdict(
-        lambda: [0, 0.0])
-    for kind, size, _group, op in recs:
-        for rec in (dry[kind], dry_sites[(_dry_run_site(op), kind)]):
-            rec[0] += 1
-            rec[1] += size
-    kinds = {}
-    for k in sorted(set(count) | set(dry)):
-        n, b = count.get(k, 0), nbytes.get(k, 0.0)
-        dn, db = dry[k] if k in dry else (0, 0.0)
-        kinds[k] = {"step_count": n, "step_bytes": b, "dry_run_count": dn,
-                    "dry_run_bytes": db,
-                    "count_ratio": n / dn if dn else None,
-                    "bytes_ratio": b / db if db else None}
-    order = sorted(sites.items(), key=lambda kv: -kv[1][1])
-    return {"arch": "gemma2_2b", "batch": W.B, "seq": W.S,
-            "mesh": "data=2,model=2", "kinds": kinds,
-            "step_sites": [[phase, site, kind, n, b]
-                           for (phase, site, kind), (n, b) in order],
-            "dry_run_sites": [[site, kind, n, b] for (site, kind), (n, b)
-                              in sorted(dry_sites.items(),
-                                        key=lambda kv: -kv[1][1])]}
-
-
 def test_the_step_issues_every_collective_the_dry_run_charges(runs):
     """gemma2's step on the 2x2 mesh issues all-gathers, reduce-scatters
     and all-reduces, each kind the dry run charges for the same config,
     shape and mesh (their counts and bytes differ: DTensor's strategy is
     its own), and every collective it issues has a site in the port.
-    With ``-s`` the test prints `collectives_table` as JSON."""
-    table = collectives_table(runs)
+    With ``-s`` the test prints ``W.collectives_table`` as JSON."""
+    table = W.collectives_table(runs["gemma2_2b"]["ranks"][0]["comm"],
+                                "gemma2_2b")
     print(json.dumps(table, indent=1))
     charged = {k for k, v in table["kinds"].items() if v["dry_run_count"]}
     assert charged == {"all-gather", "reduce-scatter", "all-reduce"}
@@ -233,10 +184,4 @@ def test_a_dtensor_outside_a_kernel_region_raises(runs, op):
 
 
 def test_no_child_process_left(runs):
-    assert STARTED and all(p.poll() is not None for p in STARTED)
-    pids = {p.pid for p in STARTED}
-    live = set()
-    for task in os.listdir("/proc/self/task"):
-        with open(f"/proc/self/task/{task}/children") as f:
-            live.update(int(x) for x in f.read().split())
-    assert not pids & live
+    W.assert_none_alive(STARTED)

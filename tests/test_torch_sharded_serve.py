@@ -27,8 +27,6 @@ decode state from ``distribute_state``, all inside
 The file ends asserting that no process it started is alive.
 """
 
-import os
-
 import numpy as np
 import pytest
 import torch
@@ -184,12 +182,6 @@ def test_the_recompute_runs_under_the_forwards_rules(started, gloo_mesh_1):
         assert torch.equal(a, b)
 
 
-def _close(got: dict, want: dict) -> None:
-    assert got.keys() == want.keys()
-    for path, leaf in got.items():
-        np.testing.assert_allclose(leaf, want[path], **TOL, err_msg=path)
-
-
 @pytest.mark.parametrize("arch", W.ARCHS)
 def test_sharded_prefill_matches_plain(runs, arch):
     r = runs[arch][0]
@@ -197,7 +189,7 @@ def test_sharded_prefill_matches_plain(runs, arch):
     cfg = configs.get_smoke(arch)
     assert logits.shape == (W.B, W.S, cfg.vocab_padded)
     np.testing.assert_allclose(logits, pl, **TOL)
-    _close(state, ps)
+    W.assert_close_leaves(state, ps, TOL["atol"])
 
 
 @pytest.mark.parametrize("arch", W.ARCHS)
@@ -208,7 +200,7 @@ def test_sharded_decode_steps_match_plain(runs, arch):
     for got, want in zip(steps, ps):
         assert np.isfinite(got).all()
         np.testing.assert_allclose(got, want, **TOL)
-    _close(state, pst)
+    W.assert_close_leaves(state, pst, TOL["atol"])
 
 
 @pytest.mark.parametrize("arch", W.ARCHS)
@@ -263,10 +255,4 @@ def test_plain_tensors_pass_the_helpers_unchanged():
 
 
 def test_no_child_process_left(runs):
-    assert STARTED and all(p.poll() is not None for p in STARTED)
-    pids = {p.pid for p in STARTED}
-    live = set()
-    for task in os.listdir("/proc/self/task"):
-        with open(f"/proc/self/task/{task}/children") as f:
-            live.update(int(x) for x in f.read().split())
-    assert not pids & live
+    W.assert_none_alive(STARTED)

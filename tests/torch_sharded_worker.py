@@ -1,23 +1,29 @@
 """Processes of the sharded-program tests (``tests/test_torch_sharded*.py``).
 
 Run as ``python tests/torch_sharded_worker.py MODE ...``, each rank mode
-over the three families of `ARCHS` in turn:
+over the runs of a list in turn (`ARCHS` by default).  A run is a family,
+on the 2x2 ("data", "model") mesh, or ``family@DxExM``, on the ("data",
+"expert", "model") mesh of those sizes (the expert-factorized meshes of
+``repro.launch.mesh``'s ``expert_axis``):
 
-  * ``jax TMP ARCH``: the JAX package's own sharded train step on a 2x2
-    ("data", "model") mesh of 4 of 8 forced host devices, jitted with the
+  * ``jax TMP RUN``: the JAX package's own sharded train step on the run's
+    mesh of 4 of 8 forced host devices, jitted with the
     shardings of ``repro.launch.dryrun.lower_cell``'s train cell
     (``tree_shardings``, ``batch_shardings``, inside ``activation_sharding``)
     at XLA's backend optimization level 0.  The mesh is built here with
     ``AxisType.Auto`` axes: jax's default Explicit axes refuse the
     ``with_sharding_constraint`` of the reference's ``logical``.
-  * ``train RANK N TMP`` and ``serve RANK N TMP``: one rank of the
-    port's sharded program on gloo (a FileStore in TMP) on the (2, 2)
-    ``make_debug_mesh``: the train step (``make_train_step`` on DTensors
+  * ``train RANK N TMP RUNS`` and ``serve RANK N TMP RUNS``: one rank of
+    the port's sharded program on gloo (a FileStore in TMP) on the run's
+    mesh (``make_debug_mesh`` for the 2x2 one): the train step (``make_train_step`` on DTensors
     from ``distribute_tree``/``distribute_batch``), or prefill, four decode
     steps and ``greedy_generate`` (parameters TP-only, as the reference's
-    serving cells); ``serve`` also runs ``layers.attention`` on DTensors,
-    forward and backward, on (1, 4) and (2, 2) meshes (`ATTN_CASES`).
-    Rank 0 also runs the unsharded twin on plain tensors.
+    serving cells; a vision model takes its patches and no
+    ``greedy_generate``, which cannot serve it); ``serve`` of the default
+    runs also runs ``layers.attention`` on DTensors, forward and
+    backward, on (1, 4) and (2, 2) meshes (`ATTN_CASES`).  Rank 0 also
+    runs the unsharded twin on plain tensors.  For an MoE family both
+    sides record each MoE layer's routing (`ROUTED`).
 
 Each reads ``TMP/in.pkl`` (`write_inputs`) and writes a pickle of numpy
 arrays; the test files start the processes (`start`) and read them.  A
@@ -41,6 +47,14 @@ import numpy as np
 HERE = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(HERE, "..", "src")
 ARCHS = ["gemma2_2b", "recurrentgemma_2b", "rwkv6_7b"]
+MOE = ["deepseek_moe_16b", "mixtral_8x7b"]
+#: the MoE families on an expert-factorized mesh each: experts on their
+#: own axis beside "model" (deepseek-moe) and beside "data" (mixtral)
+MOE_EXPERT = ["deepseek_moe_16b@1x2x2", "mixtral_8x7b@2x2x1"]
+DENSE = ["phi4_mini_3_8b", "granite3_8b", "codeqwen15_7b", "qwen2_vl_7b",
+         "musicgen_large"]
+#: the runs whose step's collectives are booked by kind and site
+COMM_RUNS = ("gemma2_2b", "deepseek_moe_16b")
 #: the batch: 4 rows over "data" = 2, S above the smoke windows (16)
 B, S = 4, 32
 N_RANKS = 4
@@ -48,10 +62,20 @@ OPT = dict(lr=1e-3, warmup_steps=1, total_steps=10)
 #: decode steps after the prefill; new tokens of ``greedy_generate``
 N_DECODE = 4
 #: DTensor's collectives under the dry run's names (gloo has no
-#: all-to-all on the CPU; DTensor takes an all-gather for it)
+#: all-to-all on the CPU: DTensor takes an all-gather and a slice for it,
+#: so the MoE's expert-parallel all-to-all is counted as an all-gather)
 KINDS = {"all_gather_into_tensor": "all-gather",
          "reduce_scatter_tensor": "reduce-scatter",
          "all_reduce": "all-reduce", "all_to_all_single": "all-to-all"}
+
+
+def split_run(run: str) -> tuple[str, tuple, tuple]:
+    """(family, mesh shape, mesh axis names) of a run."""
+    arch, _, mesh = run.partition("@")
+    if not mesh:
+        return arch, (2, 2), ("data", "model")
+    return arch, tuple(int(x) for x in mesh.split("x")), ("data", "expert",
+                                                          "model")
 
 
 def write_inputs(tmp, trees: dict) -> None:
@@ -64,22 +88,24 @@ def write_inputs(tmp, trees: dict) -> None:
     for arch, tree in trees.items():
         batch = make_batch(configs.get_smoke(arch), DataConfig(seed=3), 0, B,
                            S, device="cpu")
-        out[arch] = {"tree": tree, "batch": {k: v.numpy() for k, v in
-                                             batch.items()}}
+        # a vision model's bfloat16 patches go as float32, exactly
+        out[arch] = {"tree": tree, "batch": {
+            k: (v.float() if v.is_floating_point() else v).numpy()
+            for k, v in batch.items()}}
     with open(os.path.join(tmp, "in.pkl"), "wb") as f:
         pickle.dump(out, f)
 
 
-def start(mode: str, tmp) -> list:
-    """The processes of one run: the JAX steps, a family each, or N_RANKS
-    ranks."""
+def start(mode: str, tmp, runs=ARCHS) -> list:
+    """The processes of one mode: the JAX steps, a run each, or N_RANKS
+    ranks taking ``runs`` in turn (their outputs ``{mode}{rank}.pkl``)."""
     env = dict(os.environ, PYTHONPATH=SRC, JAX_PLATFORMS="cpu",
                OMP_NUM_THREADS="1")
     me = os.path.abspath(__file__)
     if mode == "jax":
-        argvs = [[mode, str(tmp), arch] for arch in ARCHS]
+        argvs = [[mode, str(tmp), run] for run in runs]
     else:
-        argvs = [[mode, str(r), str(N_RANKS), str(tmp)]
+        argvs = [[mode, str(r), str(N_RANKS), str(tmp), ",".join(runs)]
                  for r in range(N_RANKS)]
     return [subprocess.Popen([sys.executable, me, *a], env=env,
                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
@@ -110,11 +136,54 @@ def load(tmp, name: str):
         return pickle.load(f)
 
 
+def assert_none_alive(procs: list) -> None:
+    """Every process of ``procs`` has ended and none is still a child of
+    this one."""
+    assert procs and all(p.poll() is not None for p in procs)
+    live = set()
+    for task in os.listdir("/proc/self/task"):
+        with open(f"/proc/self/task/{task}/children") as f:
+            live.update(int(x) for x in f.read().split())
+    assert not {p.pid for p in procs} & live
+
+
+def assert_close_leaves(got: dict, want: dict, atol: float) -> None:
+    """The same paths, each leaf within ``atol``."""
+    assert got.keys() == want.keys()
+    for path, leaf in got.items():
+        np.testing.assert_allclose(leaf, want[path], rtol=0, atol=atol,
+                                   err_msg=path)
+
+
 # ----------------------------------------------------------------------
 # the JAX package's sharded step
 # ----------------------------------------------------------------------
 
-def jax_train(tmp, arch: str) -> None:
+def _jax_routes(cfg, routes: list):
+    """Wrap the reference's ``moe_forward`` to hand ``routes`` each call's
+    expert choices (B, S, K), taken from the MoE layer's input with the
+    router ops of the reference's dispatch, through a debug callback."""
+    import jax
+    import jax.numpy as jnp
+    from jax import lax
+
+    from repro.models import layers as JL
+    fwd = JL.moe_forward
+    K = cfg.moe.top_k
+
+    def moe_forward(p, x, mcfg):
+        logits = jnp.einsum("bsd,de->bse", x.astype(jnp.float32),
+                            p["router"].astype(jnp.float32))
+        if mcfg.router_mode == "softmax_topk":
+            _, idx = lax.top_k(jax.nn.softmax(logits, axis=-1), K)
+        else:
+            _, idx = lax.top_k(logits, K)
+        jax.debug.callback(lambda i: routes.append(np.asarray(i)), idx)
+        return fwd(p, x, mcfg)
+    JL.moe_forward = moe_forward
+
+
+def jax_train(tmp, run: str) -> None:
     os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
     import dataclasses
 
@@ -128,12 +197,16 @@ def jax_train(tmp, arch: str) -> None:
     from repro.models.sharding import activation_sharding
     from repro.optim import AdamWConfig, init_state
     from repro.train import TrainConfig, make_train_step
-    mesh = jax.make_mesh((2, 2), ("data", "model"),
-                         axis_types=(AxisType.Auto, AxisType.Auto))
+    arch, shape, names = split_run(run)
+    mesh = jax.make_mesh(shape, names, axis_types=(AxisType.Auto,) * len(
+        shape))
     tcfg = TrainConfig(optimizer=AdamWConfig(**OPT))
     d = load(tmp, "in.pkl")[arch]
     # remat moves no value and only lengthens the compile
     cfg = dataclasses.replace(configs.get_smoke(arch), remat=False)
+    routes: list = []
+    if cfg.moe is not None:
+        _jax_routes(cfg, routes)
     rules = activation_rules(mesh, B, n_kv=cfg.n_kv_heads)
     with mesh, activation_sharding(mesh, rules):
         params = jax.tree.map(jnp.asarray, d["tree"])
@@ -149,12 +222,14 @@ def jax_train(tmp, arch: str) -> None:
             compiler_options={"xla_backend_optimization_level": 0,
                               "xla_llvm_disable_expensive_passes": True})
         p2, o2, m = compiled(params, opt, batch)
+        jax.effects_barrier()
     out = {"params": jax.tree.map(np.asarray, p2),
            **{k: jax.tree.map(np.asarray, o2[k])
               for k in ("m", "v", "master")},
            "metrics": {k: float(v) for k, v in m.items()},
-           "n_devices": len(p2["embed"].sharding.device_set)}
-    with open(os.path.join(tmp, f"jax_{arch}.pkl"), "wb") as f:
+           "n_devices": len(p2["embed"].sharding.device_set),
+           "routes": routes}
+    with open(os.path.join(tmp, f"jax_{run}.pkl"), "wb") as f:
         pickle.dump(out, f)
 
 
@@ -162,12 +237,15 @@ def jax_train(tmp, arch: str) -> None:
 # the port's sharded programs, one rank
 # ----------------------------------------------------------------------
 
-def _record_local_shapes(seen: list) -> None:
+def _record_local_shapes(seen: list, routes: list | None = None) -> None:
     """Wrap the three kernels' plain versions (the CPU route of their ops)
-    to note the op and the shape of its first operand."""
+    and the MoE's routing and combine (called in its dispatch and combine
+    regions) to note the op and the shape of its first operand; each
+    routing's expert choices (g, Tg, K) go to ``routes``."""
     from repro_torch.kernels.flash_attention import ref as fref
     from repro_torch.kernels.rg_lru import ref as gref
     from repro_torch.kernels.rwkv6 import ref as wref
+    from repro_torch.models import layers as L
 
     def wrap(mod, name):
         fn = getattr(mod, name)
@@ -178,9 +256,31 @@ def _record_local_shapes(seen: list) -> None:
         setattr(mod, name, wrapped)
     for mod, names in ((fref, ("attention", "attention_bwd")),
                        (gref, ("rglru_scan", "rglru_scan_bwd")),
-                       (wref, ("wkv6", "wkv6_bwd"))):
+                       (wref, ("wkv6", "wkv6_bwd")),
+                       (L, ("moe_route", "moe_combine"))):
         for name in names:
             wrap(mod, name)
+    if routes is not None:
+        route = L.moe_route
+
+        def kept(*a, **k):
+            w, idx = route(*a, **k)
+            routes.append(idx.numpy().copy())
+            return w, idx
+        L.moe_route = kept
+
+
+def _route_block(mesh, rules, B: int, S: int) -> tuple[int, int, int, int]:
+    """(first batch row, first sequence position, rows, positions) of this
+    rank's dispatch group under ``rules`` (one group a rank,
+    `layers._moe_groups`)."""
+    from repro_torch.models import layers as L
+    from repro_torch.models.sharding import activation_sharding, axis_coord
+    with activation_sharding(mesh, rules):
+        G1, G2 = L._moe_groups(B, S)
+    c1 = axis_coord(mesh, rules["batch"]) if G1 > 1 else 0
+    c2 = axis_coord(mesh, rules["capacity"]) if G2 > 1 else 0
+    return c1 * (B // G1), c2 * (S // G2), B // G1, S // G2
 
 
 def _full(tree) -> dict:
@@ -283,7 +383,57 @@ def comm_mode():
     return CommBytes()
 
 
-def port_train(rank: int, mesh, arch: str, d: dict) -> dict:
+def _dry_run_site(op: str) -> str:
+    """A dry-run record's op (``launch.dryrun.collectives_for``) with its
+    layer or leaf name dropped."""
+    if op in ("embed", "embed grad", "loss max/sum/gold", "head input",
+              "head input grad"):
+        return op
+    if re.fullmatch(r"layer\d+ residual( grad)?", op):
+        return op.split(" ", 1)[1]
+    if re.fullmatch(r"(moe|attn)\d+ .+", op):
+        kind, what = op.split(" ", 1)
+        return f"{kind.rstrip('0123456789')} {what}"
+    return "parameter " + op.rsplit(" ", 1)[1]
+
+
+def collectives_table(comm, arch: str) -> dict:
+    """``arch``'s sharded step on the 2x2 mesh (``comm``: a `COMM_RUNS`
+    rank's ``comm`` record) beside the dry run's charge for the same
+    config, shape (B=4, S=32) and mesh: per kind the count and result
+    bytes of each and their ratios, and each side by site."""
+    from repro_torch import configs
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import AbstractMesh
+    count, nbytes, sites = comm
+    recs = dryrun.collectives_for(
+        configs.get_smoke(arch), {"batch": B, "seq": S, "kind": "train"},
+        AbstractMesh((2, 2), ("data", "model")), fsdp=True)
+    dry, dry_sites = defaultdict(lambda: [0, 0.0]), defaultdict(
+        lambda: [0, 0.0])
+    for kind, size, _group, op in recs:
+        for rec in (dry[kind], dry_sites[(_dry_run_site(op), kind)]):
+            rec[0] += 1
+            rec[1] += size
+    kinds = {}
+    for k in sorted(set(count) | set(dry)):
+        n, b = count.get(k, 0), nbytes.get(k, 0.0)
+        dn, db = dry[k] if k in dry else (0, 0.0)
+        kinds[k] = {"step_count": n, "step_bytes": b, "dry_run_count": dn,
+                    "dry_run_bytes": db,
+                    "count_ratio": n / dn if dn else None,
+                    "bytes_ratio": b / db if db else None}
+    order = sorted(sites.items(), key=lambda kv: -kv[1][1])
+    return {"arch": arch, "batch": B, "seq": S,
+            "mesh": "data=2,model=2", "kinds": kinds,
+            "step_sites": [[phase, site, kind, n, b]
+                           for (phase, site, kind), (n, b) in order],
+            "dry_run_sites": [[site, kind, n, b] for (site, kind), (n, b)
+                              in sorted(dry_sites.items(),
+                                        key=lambda kv: -kv[1][1])]}
+
+
+def port_train(rank: int, mesh, run: str, d: dict) -> dict:
     import torch
 
     from repro_torch import configs
@@ -295,6 +445,7 @@ def port_train(rank: int, mesh, arch: str, d: dict) -> dict:
     from repro_torch.models.sharding import activation_sharding
     from repro_torch.optim import AdamWConfig, init_state
     from repro_torch.train import TrainConfig, make_train_step
+    arch = split_run(run)[0]
     cfg = configs.get_smoke(arch)
     tc = TrainConfig(optimizer=AdamWConfig(**OPT))
     step = make_train_step(cfg, tc, device="cpu")
@@ -305,25 +456,29 @@ def port_train(rank: int, mesh, arch: str, d: dict) -> dict:
         return params, init_state(tc.optimizer, M.params_from_jax(
             cfg, d["tree"], device="cpu"))
     seen: list = []
-    _record_local_shapes(seen)
+    routes: list = []
+    _record_local_shapes(seen, routes)
     params, opt = fresh()
     specs = {"params": tree_shardings(params, mesh, cfg),
              **{k: tree_shardings(opt[k], mesh, cfg)
                 for k in ("m", "v", "master")}}
     params, opt = (distribute_tree(params, mesh, cfg),
                    distribute_tree(opt, mesh, cfg))
-    # the collectives of gemma2's step, which the tests hold against the
-    # dry run's (the mode's hook on every op slows the step)
-    gemma = arch == "gemma2_2b"
-    comm = comm_mode() if gemma else contextlib.nullcontext()
-    anomaly = (torch.autograd.detect_anomaly(check_nan=False) if gemma
+    # the collectives of a `COMM_RUNS` step, which the tests hold against
+    # the dry run's (the mode's hook on every op slows the step)
+    booked = run in COMM_RUNS
+    comm = comm_mode() if booked else contextlib.nullcontext()
+    anomaly = (torch.autograd.detect_anomaly(check_nan=False) if booked
                else contextlib.nullcontext())
     dbatch = distribute_batch(batch, mesh)
+    rules = activation_rules(mesh, B, n_kv=cfg.n_kv_heads)
     t0 = time.perf_counter()
-    with activation_sharding(mesh, activation_rules(
-            mesh, B, n_kv=cfg.n_kv_heads)), comm, anomaly:
+    with activation_sharding(mesh, rules), comm, anomaly:
         params, opt, m = step(params, opt, dbatch)
+    n_moe = sum(f == "moe" for _, f in cfg.layer_plan)
     r = {"step_s": time.perf_counter() - t0, "seen": sorted(set(seen)),
+         # the forward's routings (a recompute routes again after them)
+         "routes": (routes[:n_moe], _route_block(mesh, rules, B, S)),
          "comm": (dict(getattr(comm, "count", {})),
                   dict(getattr(comm, "nbytes", {})),
                   dict(getattr(comm, "sites", {}))),
@@ -342,7 +497,9 @@ def port_train(rank: int, mesh, arch: str, d: dict) -> dict:
     r["gather_s"] = time.perf_counter() - t0
     if rank == 0:
         params, opt = fresh()
+        routes.clear()
         params, opt, m = step(params, opt, batch)
+        r["plain_routes"] = routes[:n_moe]
         r["plain"] = {"params": _full(params),
                       **{k: _full(opt[k]) for k in ("m", "v", "master")}}
         r["plain_metrics"] = {k: float(v) for k, v in m.items()}
@@ -350,7 +507,7 @@ def port_train(rank: int, mesh, arch: str, d: dict) -> dict:
     return r
 
 
-def port_serve(rank: int, mesh, arch: str, d: dict) -> dict:
+def port_serve(rank: int, mesh, run: str, d: dict) -> dict:
     import torch
 
     from repro_torch import configs
@@ -361,26 +518,32 @@ def port_serve(rank: int, mesh, arch: str, d: dict) -> dict:
     from repro_torch.models import model as M
     from repro_torch.models.sharding import activation_sharding
     from repro_torch.serve.engine import greedy_generate, pad_prefill_state
+    arch = split_run(run)[0]
     cfg = configs.get_smoke(arch)
     tokens = torch.from_numpy(d["batch"]["tokens"])
     steps = torch.from_numpy(d["batch"]["labels"][:, -N_DECODE:])
+    # a vision model prefills its patches first, and decodes after them
+    prompt = {"tokens": tokens}
+    if cfg.vlm_patches:
+        prompt["patches"] = torch.from_numpy(d["batch"]["patches"])
+    P = cfg.vlm_patches
 
     def serve(params, put_batch, put_state):
-        logits, st = M.prefill(params, cfg, put_batch({"tokens": tokens})
-                               )
+        logits, st = M.prefill(params, cfg, put_batch(prompt))
         out = {"prefill": (_full({"x": logits})["x"], _full(st))}
-        st = put_state(pad_prefill_state(cfg, st, S + N_DECODE))
+        st = put_state(pad_prefill_state(cfg, st, P + S + N_DECODE))
         decoded = []
         for j in range(N_DECODE):
             tb = put_batch({"t": steps[:, j:j + 1],
-                            "p": torch.full((B,), S + j)})
+                            "p": torch.full((B,), P + S + j)})
             lg, st = M.decode_step(params, cfg, st, tb["t"], tb["p"])
             decoded.append(_full({"x": lg})["x"])
         out["decode"] = (decoded, _full(st))
-        g = greedy_generate(params, cfg, put_batch({"t": tokens})["t"],
-                            N_DECODE, device="cpu")
-        out["greedy"] = (_full({"x": g})["x"],
-                         [str(p) for p in getattr(g, "placements", ())])
+        if not P:
+            g = greedy_generate(params, cfg, put_batch({"t": tokens})["t"],
+                                N_DECODE, device="cpu")
+            out["greedy"] = (_full({"x": g})["x"],
+                             [str(p) for p in getattr(g, "placements", ())])
         return out
 
     params = distribute_tree(M.params_from_jax(cfg, d["tree"], device="cpu"),
@@ -391,6 +554,13 @@ def port_serve(rank: int, mesh, arch: str, d: dict) -> dict:
         r = serve(params, lambda b: distribute_batch(b, mesh),
                   lambda st: distribute_state(st, mesh, B))
         r["serve_s"] = time.perf_counter() - t0
+    if P:
+        if rank == 0:
+            plain = M.params_from_jax(cfg, d["tree"], device="cpu")
+            r["plain"] = serve(plain, lambda b: b, lambda st: st)
+        return r
+    with activation_sharding(mesh, activation_rules(
+            mesh, B, n_kv=cfg.n_kv_heads)):
         # a prompt that differs between ranks: refused plain; distributed,
         # rank 0's on every rank
         mine = (tokens + rank) % cfg.vocab
@@ -468,20 +638,40 @@ def main(argv: list) -> None:
     if mode == "jax":
         jax_train(argv[1], argv[2])
         return
-    rank, n, tmp = int(argv[1]), int(argv[2]), argv[3]
+    rank, n, tmp, runs = int(argv[1]), int(argv[2]), argv[3], argv[4]
     import torch
     import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
 
     from repro_torch.launch.mesh import make_debug_mesh
     torch.set_num_threads(1)
+    # a store a mode: a file's train and serve ranks may run at once
     dist.init_process_group("gloo", store=dist.FileStore(
-        os.path.join(tmp, "store"), n), rank=rank, world_size=n)
+        os.path.join(tmp, f"store_{mode}"), n), rank=rank, world_size=n)
+    meshes: dict = {}
+
+    def mesh_of(run):
+        _, shape, names = split_run(run)
+        if shape not in meshes:
+            if len(shape) == 2:
+                meshes[shape] = make_debug_mesh(*shape, device_type="cpu")
+            else:
+                # DTensor expands an op's strategy over every combination
+                # of its mesh dims' strategies: on three dims an einsum's
+                # first call takes ~145 s here.  A dim of size 1 shards
+                # nothing, so the run takes the mesh's dims of size > 1
+                # (the rules read an absent axis as size 1)
+                full = init_device_mesh("cpu", shape, mesh_dim_names=names)
+                meshes[shape] = full[tuple(n for n, k in zip(names, shape)
+                                           if k > 1)]
+        return meshes[shape]
     try:
-        mesh = make_debug_mesh(2, 2, device_type="cpu")
-        run = {"train": port_train, "serve": port_serve}[mode]
-        r = {arch: run(rank, mesh, arch, d)
-             for arch, d in load(tmp, "in.pkl").items()}
-        if mode == "serve":
+        go = {"train": port_train, "serve": port_serve}[mode]
+        inputs = load(tmp, "in.pkl")
+        runs = runs.split(",")
+        r = {run: go(rank, mesh_of(run), run, inputs[split_run(run)[0]])
+             for run in runs}
+        if mode == "serve" and runs == ARCHS:
             r["attn"] = port_attn()
     finally:
         dist.destroy_process_group()
