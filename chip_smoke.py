@@ -139,10 +139,14 @@ per source, all started together.  Phases, each printing its own lines:
      triple; depth is the only cut) takes 2 steps, saves (``ckpt.save``,
      in a temporary directory, removed after), restores, and its third
      step equals a third step from the live state bit for bit;
- 17. sharding and launch: the dry run (``launch/dryrun.py``, counted on
-     meta tensors) of all ten architectures at train_4k on the single-pod
-     16 x 16 mesh, its records written under the output directory and its
-     roofline rows printed; 30 jobs built from them (``job_from_roofline``,
+ 17. sharding and launch: the dry run (``launch/dryrun.py``: one step of
+     each cell as the port's own sharded program on a cuda-typed 16 x 16
+     mesh over a fake process group, rank 0's local shards on meta, in a
+     child process that owns that group and sees no card) of all ten
+     architectures at train_4k on the single-pod mesh, its records
+     written under the output directory, its roofline rows printed and
+     the cells' collective bytes by kind on its summary line; 30 jobs
+     built from them (``job_from_roofline``,
      25, 50 and 100 steps) and a sweep job per architecture (its three
      trainings side by side) scheduled with dagps in exact and routed mode
      on the card, the scan,
@@ -3525,11 +3529,19 @@ DRYRUN_SLICES = 32
 CALIBRATION_FACTOR = 2.0
 
 
+#: the dry run's child process: its limit in seconds, and the worker
+#: processes it counts the cells in (the card's host has 8 cores)
+DRYRUN_TIMEOUT = 480
+DRYRUN_JOBS = 4
+
+
 def dryrun_records(out_dir: str) -> list:
     """The dry run of every architecture at `DRYRUN_SHAPE` on the
-    single-pod mesh, written fresh under ``out_dir``."""
+    single-pod mesh, written fresh under ``out_dir`` by the dry run's CLI
+    in a child process: it owns the fake process group of the mesh's 256
+    ranks (this process keeps its NCCL group) and is shown no card."""
     from repro_torch import configs
-    from repro_torch.launch import dryrun, report
+    from repro_torch.launch import report
 
     os.makedirs(out_dir, exist_ok=True)
     cells = [(a, DRYRUN_SHAPE) for a in configs.ARCH_IDS]
@@ -3537,18 +3549,41 @@ def dryrun_records(out_dir: str) -> list:
         path = os.path.join(out_dir, f"{arch}_{shape}_single.json")
         if os.path.exists(path):
             os.remove(path)
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
     t = time.perf_counter()
-    recs = dryrun.run_cells(cells, ["single"], out_dir, quiet=True)
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--all",
+         "--shape", DRYRUN_SHAPE, "--mesh", "single", "--out", out_dir,
+         "--jobs", str(DRYRUN_JOBS)],
+        env=env, cwd=ROOT, capture_output=True, text=True,
+        timeout=DRYRUN_TIMEOUT)
     count_s = time.perf_counter() - t
+    check(proc.returncode == 0, f"the dry run's child exited "
+                                f"{proc.returncode}: {proc.stdout[-2000:]}"
+                                f"{proc.stderr[-2000:]}")
+    recs = []
+    for arch, shape in cells:
+        with open(os.path.join(out_dir, f"{arch}_{shape}_single.json")) as f:
+            recs.append(json.load(f))
     bad = [r["arch"] for r in recs if "error" in r]
     check(not bad, f"dry run failed for {bad}: "
                    f"{[r.get('error') for r in recs if 'error' in r]}")
     for line in report.roofline_table(recs).splitlines()[2:]:
         print(f"dryrun:row {line}", flush=True)
+    coll: dict = {}
+    for r in recs:
+        for kind, b in r["collectives"]["bytes_by_kind"].items():
+            coll[kind] = coll.get(kind, 0.0) + b
     say("launch:dryrun", cells=len(recs), mesh="single", shape=DRYRUN_SHAPE,
-        count_s=round(count_s, 3),
+        count_s=round(count_s, 3), child=True,
+        torch=",".join(sorted({r["torch"] for r in recs})),
         cell_count_s=",".join(str(r["count_s"]) for r in recs),
         dominant=",".join(r["roofline"]["dominant"] for r in recs),
+        collective_s=",".join(f"{r['roofline']['collective_s']:.6f}"
+                              for r in recs),
+        coll_bytes=json.dumps({k: coll[k] for k in sorted(coll)},
+                              separators=(",", ":")),
         fits_80g=sum(r["memory"]["fits_80g"] for r in recs),
         out=os.path.relpath(out_dir, ROOT))
     return recs

@@ -1,34 +1,45 @@
-"""Dry run: count every (arch x shape x mesh) cell on the meta device.
+"""Dry run: count every (arch x shape x mesh) cell of the port's own program.
 
-A port of ``repro.launch.dryrun``, which lowers and compiles each cell on
-512 fake host devices.  Here one step of the cell's kind runs at the
-cell's full global shape on meta tensors, which hold no data and compute
-nothing, under an `AbstractMesh` of the production shape and its
-activation rules; it needs no card, as the reference needed no TPU.  The
-record keeps the reference's keys wherever ``launch/cluster.py``
-`job_from_roofline` and ``launch/report.py`` read them
-(``roofline.{compute_s, memory_s, collective_s, ...}``,
-``memory.peak_live_bytes``), with ``count_s`` and ``aten_ops`` in place of
-``compile_s`` and ``hlo_lines`` and ``memory.fits_80g`` in place of
-``fits_16g``.  The terms, each per device:
+A port of ``repro.launch.dryrun``, which lowers and compiles each cell's
+SPMD program on 512 fake host devices and reads its collectives from the
+compiled HLO and its per-device FLOPs and bytes from ``cost_analysis``.
+Here one step of the cell's kind runs as the port's own sharded program
+(DTensor, as on a real mesh) at the cell's full global shape
+and full width, on a `DeviceMesh` of the production shape built over a
+fake process group of the mesh's size (``launch/mesh.py`` `fake_mesh`):
+this process is rank 0 and holds rank 0's local shards on the meta
+device, which hold no data and compute nothing.  It needs no card, as
+the reference needed no TPU; the process that counts owns the fake group
+(the CLI below, or a child process of its caller).  The mesh is cuda-typed,
+so DTensor picks the collectives it issues on NCCL (a ``Shard`` to
+``Shard`` move is an all-to-all), as on the card.
 
-  * **FLOPs.**  The step: train, `train.loss_and_grads` (forward and
-    backward, with the recompute of its checkpoints) then AdamW's
-    `apply_updates`; prefill, ``model.prefill(..., last_only=True)``;
-    decode, ``model.decode_step``.  Counted under
-    ``torch.utils.flop_counter.FlopCounterMode`` (its matrix products),
-    plus the operations the LM ops' meta route charges (flash attention,
-    the RG-LRU scan and WKV6, forward and backward, by the formulas in
-    their ``ops.py``), divided by the mesh's device count: an even split,
-    so compute a guard leaves replicated is not charged.
-  * **Bytes.**  Per aten op, the bytes of its tensor operands and results
-    (XLA's "bytes accessed" convention, on the unfused eager program the
-    port runs; views and uninitialized allocations move none), plus the
-    LM ops' charged bytes, divided by the device count.
-  * **Collective bytes.**  `collectives_for`: the collectives the specs of
-    ``launch/sharding.py`` and its `activation_rules` imply, each weighted
-    by the ring cost of ``launch/roofline.py`` `collective_stats`.
-  * **Peak memory.**  The exact local bytes, by the specs, of the
+One step: train, `train.loss_and_grads` (forward and backward, with the
+recompute of its checkpoints) then AdamW's `apply_updates`, on parameters,
+AdamW state and batch distributed by the specs of ``launch/sharding.py``;
+prefill, ``model.prefill(..., last_only=True)``; decode,
+``model.decode_step`` on a distributed decode state; all under the mesh's
+`activation_rules`.  `ProgramCounter` reads, on rank 0, each term per
+device:
+
+  * **FLOPs.**  The local aten ops' (each counted once: an op on DTensors
+    is counted as the local ops DTensor runs for it), by the formulas of
+    ``torch.utils.flop_counter``, plus the operations the LM ops' meta
+    route charges at the local shard shapes that their kernel regions
+    (``models.sharding.local_region``) hand them (flash attention, the
+    RG-LRU scan and WKV6, forward and backward, by the formulas in their
+    ``ops.py``).  Compute a rule leaves replicated is charged on every
+    device that runs it.
+  * **Bytes.**  Per local aten op, the bytes of its tensor operands and
+    results (XLA's "bytes accessed" convention, on the unfused eager
+    program the port runs; views and uninitialized allocations move
+    none), plus the LM ops' charged bytes.
+  * **Collective bytes.**  Each collective op DTensor issues on rank 0
+    (``launch/roofline.py`` `collective_record`: kind, result bytes, its
+    group's size), weighted by the ring cost of `collective_stats`; the
+    counterpart of the reference's ``parse_collectives``.
+  * **Peak memory** is modelled, not read (the reference reads
+    ``memory_analysis``): the exact local bytes, by the specs, of the
     parameters, AdamW's m, v and float32 master, the gradients (the
     parameters' dtype; with microbatches, float32 accumulators besides),
     the batch shard (and for serving the decode state), plus the
@@ -41,23 +52,36 @@ record keeps the reference's keys wherever ``launch/cluster.py``
     checkpoints; its working set is the same one-layer measure, an upper
     bound of what one layer's forward holds at once.
 
-The meta run walks every layer (the port has no scanned body), so the
-reference's unroll extrapolation (`roofline_cell`) is not needed.
+On a mesh of one device `count_cell` counts the plain program on meta
+tensors (the program the card runs at world size 1), in the calling
+process, whatever process group it holds.
+
+A DTensor gradient pass costs about a second a layer on the host, so
+`roofline_cell` counts a model cut to one and to two periods of its body
+(``ArchConfig.n_body``, its head and tail layers kept) and extrapolates
+to its G periods, T(1) + (G - 1) (T(2) - T(1)), as the reference does
+with its scan's unroll; the port has no scan, so there is no odd-G
+remainder copy to correct for.
 
 Usage:
   python -m repro_torch.launch.dryrun --all [--mesh both] [--out artifacts/dryrun]
   python -m repro_torch.launch.dryrun --arch mixtral_8x7b --shape train_4k --mesh single
+  python -m repro_torch.launch.dryrun --all --shape train_4k   # one shape's cells
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import math
 import os
+import re
+import sys
 import time
 import traceback
+from collections import defaultdict
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
@@ -65,17 +89,20 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from .. import configs
 from ..data import batch_specs
 from ..kernels import pin
-from ..models import layers as L
 from ..models import model as M
 from ..models.sharding import activation_sharding, logical_spec
 from . import roofline as RL
-from .mesh import axis_size, data_axes, make_production_mesh, n_devices
+from .mesh import AbstractMesh, fake_group, fake_mesh, make_production_mesh, \
+    n_devices
 from .sharding import (tree_items, activation_rules, batch_shardings,
-                       local_shape, state_shardings, tp_axes, tree_shardings)
+                       distribute_batch, distribute_state, distribute_tree,
+                       local_shape, state_shardings, tree_shardings)
 
-#: ops that move no bytes: they allocate without writing
+#: ops that move no bytes: they allocate without writing, or wrap or wait
+#: for a tensor another op wrote
 _NO_BYTES = {"empty", "empty_like", "empty_strided", "new_empty",
-             "new_empty_strided", "detach", "lift_fresh"}
+             "new_empty_strided", "detach", "lift_fresh", "wait_tensor",
+             "_wrap_tensor_autograd"}
 
 
 def _tensors(tree) -> list:
@@ -87,27 +114,131 @@ def _nbytes(t) -> int:
     return t.numel() * t.element_size()
 
 
-class ByteCounter(TorchDispatchMode):
-    """Counts aten ops and the bytes of their tensor operands and results
-    (a view, and an op that allocates without writing, moves none)."""
+#: the module in which DTensor propagates an op's sharding
+_PROPAGATION = os.path.join("distributed", "tensor", "_sharding_prop.py")
+
+
+def _in_propagation() -> bool:
+    """True inside DTensor's sharding propagation (a frame of its module
+    on the stack)."""
+    f = sys._getframe(2)
+    while f is not None:
+        if f.f_code.co_filename.endswith(_PROPAGATION):
+            return True
+        f = f.f_back
+    return False
+
+
+_FRAME = re.compile(r'File "([^"]+)", line (\d+), in (\S+)')
+
+
+#: the modules whose frames are never a collective's site: the sharding
+#: helpers (their caller asked for the layout) and this counter
+_NOT_SITES = ("repro_torch/models/sharding.py", "repro_torch/launch/dryrun.py")
+
+
+def _site(frames) -> str | None:
+    """``file:line function`` of the innermost frame of ``frames`` (file,
+    line, function; outermost first) in the port and outside
+    `_NOT_SITES`."""
+    for file, line, fn in reversed(list(frames)):
+        f = file.replace(os.sep, "/")
+        if "/repro_torch/" in f and not f.endswith(_NOT_SITES):
+            return f"{f.rsplit('/', 1)[1]}:{line} {fn}"
+    return None
+
+
+class ProgramCounter(TorchDispatchMode):
+    """Counts one rank's program: its local aten ops on the meta device
+    (the dry run's tensors; ``ops``), their bytes (``bytes``: tensor
+    operands and results; a view, and an op that allocates without
+    writing, moves none), their FLOPs (``flops``, by
+    ``torch.utils.flop_counter``'s formulas) and its collectives, on any
+    device.  An op on no meta tensor is not the program's: DTensor plans
+    a layout the first time it meets it with small host tensors (a
+    mesh's coordinates).
+
+    An op on DTensors is left to DTensor (the mode declines it), which
+    runs it as local ops and collectives that come back through the mode:
+    each is counted once, at the shape this rank holds.  The ops DTensor
+    runs to propagate an op's sharding (on fake or meta tensors, the
+    first time it meets the op's signature) are no part of the program
+    and are not counted.  Each collective
+    (``launch/roofline.py`` `collective_record`) is kept as a record
+    ``(kind, result_bytes, group_size, site)`` in ``collectives``, counted
+    by kind (``count``, ``nbytes``: result bytes) and booked by ``sites``:
+    (phase, site, kind) -> [count, bytes].  The site is the innermost
+    frame of the port that issued it; in the backward, that of the forward
+    op whose gradient issued it when anomaly mode recorded its stack
+    (``torch.autograd.detect_anomaly``), else None.  The phase is
+    "forward", "recompute" (a checkpointed layer rerun in the backward)
+    or "backward"."""
 
     def __init__(self):
         super().__init__()
+        from torch.utils.flop_counter import flop_registry
+        self._flop_registry = flop_registry
         self.ops = 0
         self.bytes = 0
+        self.flops = 0.0
+        self.collectives: list = []
+        self.count: dict = defaultdict(int)
+        self.nbytes: dict = defaultdict(float)
+        self.sites: dict = defaultdict(lambda: [0, 0.0])
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        out = func(*args, **(kwargs or {}))
+        kwargs = kwargs or {}
+        if isinstance(func, torch._ops.HigherOrderOperator):
+            return func(*args, **kwargs)
+        dt = sys.modules.get("torch.distributed.tensor")
+        if dt is not None and any(issubclass(t, dt.DTensor) for t in types):
+            return NotImplemented
+        if torch._C._get_dispatch_mode(
+                torch._C._TorchDispatchModeKey.FAKE) is not None \
+                or _in_propagation():
+            # DTensor's sharding propagation deriving an op's output
+            # shape or strategy on fake or meta tensors (once per op
+            # signature): no part of the program
+            return func(*args, **kwargs)
+        out = func(*args, **kwargs)
+        rec = RL.collective_record(func, args, out)
+        if rec is not None:
+            self._book(*rec)
+        tensors = _tensors((args, kwargs)) + _tensors(out)
+        if not any(t.is_meta for t in tensors):
+            return out
         self.ops += 1
-        if not func.is_view and func.overloadpacket.__name__ not in _NO_BYTES:
-            self.bytes += sum(_nbytes(t) for t in
-                              _tensors((args, kwargs or {})) + _tensors(out))
+        packet = func.overloadpacket
+        if not func.is_view and packet.__name__ not in _NO_BYTES:
+            self.bytes += sum(_nbytes(t) for t in tensors)
+        formula = self._flop_registry.get(packet)
+        if formula is not None:
+            self.flops += formula(*args, **kwargs, out_val=out)
         return out
 
+    def _book(self, kind: str, nbytes: int, group: int) -> None:
+        here = [(f.filename, f.lineno, f.name)
+                for f in traceback.extract_stack()]
+        site, phase = _site(here), "forward"
+        node = torch._C._current_autograd_node()
+        if node is not None:
+            phase = "recompute"
+            if site is None or site.split(":")[0] == "step.py":
+                phase = "backward"
+                site = _site(_FRAME.findall("".join(
+                    node.metadata.get("traceback_", []))))
+        self.collectives.append((kind, nbytes, group, site))
+        self.count[kind] += 1
+        self.nbytes[kind] += nbytes
+        rec = self.sites[(phase, site, kind)]
+        rec[0] += 1
+        rec[1] += nbytes
 
-def meta_params(cfg) -> dict:
-    """The model's bf16 parameter tree on the meta device."""
-    return M.init_params(cfg, torch.Generator(), device="meta")
+
+def meta_params(cfg, dtype=torch.bfloat16) -> dict:
+    """The model's parameter tree (bf16, or ``dtype``) on the meta
+    device."""
+    return M.init_params(cfg, torch.Generator(), device="meta", dtype=dtype)
 
 
 def meta_batch(cfg, B: int, S: int, labels: bool = True) -> dict:
@@ -230,16 +361,15 @@ def memory_model(cfg, kind: str, B: int, S: int, mesh, rules: dict,
     return mem
 
 
-def count_step(cfg, kind: str, B: int, S: int, microbatches: int = 1) -> dict:
-    """Global FLOPs, bytes and aten ops of one step of ``kind`` at (B, S)
-    on the meta device, the LM ops' charges included (the caller opens the
-    mesh's activation rules)."""
-    from torch.utils.flop_counter import FlopCounterMode
+def _step_inputs(cfg, kind: str, B: int, S: int, mesh, dtype, depth):
+    """The meta inputs of one step of ``kind``: (params, AdamW state or
+    None, batch, decode state or None), distributed by their specs (the
+    body stacked ``depth`` deep) when ``mesh`` is a `DeviceMesh` (meta
+    local shards)."""
+    from ..optim import AdamWConfig, init_state
 
-    from ..optim import AdamWConfig, apply_updates, init_state
-    from ..train import loss_and_grads
-
-    params = meta_params(cfg)
+    params = meta_params(cfg, dtype)
+    opt = state = None
     if kind == "train":
         batch = meta_batch(cfg, B, S)
         opt = init_state(AdamWConfig(), params)
@@ -248,246 +378,255 @@ def count_step(cfg, kind: str, B: int, S: int, microbatches: int = 1) -> dict:
     else:
         state = M.init_decode_state(cfg, B, S, device="meta")
         K = cfg.n_codebooks
-        tok = torch.empty((B, 1, K) if K > 1 else (B, 1), dtype=torch.int32,
-                          device="meta")
-        pos = torch.empty((B,), dtype=torch.int32, device="meta")
-    fc = FlopCounterMode(display=False)
-    bc = ByteCounter()
-    with fc, bc, pin.meta_charges() as charges:
+        batch = {"tokens": torch.empty((B, 1, K) if K > 1 else (B, 1),
+                                       dtype=torch.int32, device="meta"),
+                 "pos": torch.empty((B,), dtype=torch.int32, device="meta")}
+    if isinstance(mesh, AbstractMesh):
+        return params, opt, batch, state
+    train = kind == "train"
+    params = distribute_tree(params, mesh, cfg, fsdp=train, depth=depth)
+    if opt is not None:
+        opt = distribute_tree(opt, mesh, cfg, depth=depth)
+    batch = distribute_batch(batch, mesh)
+    if state is not None:
+        state = distribute_state(state, mesh, B)
+    return params, opt, batch, state
+
+
+def count_program(cfg, kind: str, B: int, S: int, mesh,
+                  microbatches: int = 1, dtype=torch.bfloat16,
+                  depth: int | None = None) -> dict:
+    """FLOPs, bytes, aten ops and collectives of one step of ``kind`` at
+    (B, S) as rank 0 of ``mesh`` runs it (`ProgramCounter`), the LM ops'
+    meta charges included: the sharded program on a `DeviceMesh`, the
+    plain program on an `AbstractMesh` of one device; parameters in
+    ``dtype``, laid out with the body stacked ``depth`` deep (a cut
+    model's: the whole model's, `cut_to_periods`).  The caller opens the
+    mesh's activation rules."""
+    from ..optim import AdamWConfig, apply_updates
+    from ..train import loss_and_grads
+
+    if isinstance(mesh, AbstractMesh) and n_devices(mesh) != 1:
+        raise ValueError(f"{mesh}: a mesh of several devices is counted on "
+                         "a DeviceMesh (`fake_mesh`)")
+    params, opt, batch, state = _step_inputs(cfg, kind, B, S, mesh, dtype,
+                                             depth)
+    pc = ProgramCounter()
+    with pc, pin.meta_charges() as charges:
         if kind == "train":
             _, grads = loss_and_grads(params, cfg, batch, microbatches)
             apply_updates(AdamWConfig(), params, grads, opt)
         elif kind == "prefill":
             M.prefill(params, cfg, batch, last_only=True)
         else:
-            M.decode_step(params, cfg, state, tok, pos)
+            M.decode_step(params, cfg, state, batch["tokens"], batch["pos"])
     by_op: dict = {}
     for op, flops, nb in charges:
         row = by_op.setdefault(op, {"calls": 0, "flops": 0.0, "bytes": 0.0})
         row["calls"] += 1
         row["flops"] += flops
         row["bytes"] += nb
-    return {"flops_counted": float(fc.get_total_flops()),
-            "bytes_counted": float(bc.bytes), "aten_ops": bc.ops,
+    return {"flops_counted": float(pc.flops),
+            "bytes_counted": float(pc.bytes), "aten_ops": pc.ops,
             "kernel_ops": by_op,
-            "flops": float(fc.get_total_flops())
+            "flops": float(pc.flops)
             + sum(r["flops"] for r in by_op.values()),
-            "bytes": float(bc.bytes) + sum(r["bytes"] for r in by_op.values()),
-            "params": params}
+            "bytes": float(pc.bytes) + sum(r["bytes"] for r in by_op.values()),
+            "collectives": pc.collectives,
+            "result_bytes_by_kind": dict(pc.nbytes),
+            "sites": [[phase, site, kind, n, b] for (phase, site, kind),
+                      (n, b) in sorted(pc.sites.items(),
+                                       key=lambda kv: -kv[1][1])]}
 
 
-# ----------------------------------------------------------------------
-# collectives
-# ----------------------------------------------------------------------
-
-def _axes_of(spec) -> set:
-    out = set()
-    for e in spec:
-        if e is not None:
-            out.update(e if isinstance(e, tuple) else (e,))
-    return out
-
-
-def collectives_for(cfg, shape: dict, mesh, fsdp: bool,
-                    microbatches: int = 1) -> list:
-    """The collectives one step of the cell implies, as records ``(kind,
-    result_bytes, group_size, op)`` for `roofline.collective_stats`.
-
-    * Train, FSDP: each parameter leaf whose spec uses "data": an
-      all-gather of its data-gathered local size over the data group in
-      the forward and another for the backward (its recompute under remat
-      and its products), per microbatch, and a reduce-scatter of its
-      float32 gradient; a leaf without "data": an all-reduce of its
-      float32 gradient over "data"; with a "pod" axis, an all-reduce of
-      every local gradient shard over "pod".
-    * The residual stream (B/dp, S, d) in bf16, where "seq" maps to the TP
-      axes and divides S: per layer an all-gather before the mixer and one
-      before the FFN, a reduce-scatter after each; the backward mirrors
-      them and the recompute repeats the forward's.  Where S does not
-      divide (decode's S = 1): the TP all-reduce after each sublayer
-      instead.
-    * MoE: experts on a mesh axis, two all-to-alls of the (G, E, C, d)
-      dispatch buffer in the forward (dispatch, combine) over that axis;
-      few experts (expert-TP on d_ff), an all-gather of the buffer over
-      TP before the experts and a reduce-scatter after; the backward
-      mirrors, the recompute repeats.
-    * Loss (train): the vocab-sharded loss's all-reduces of the
-      (B/dp, S) float32 maximum, sum and gold logit, per pass over the
-      chunks (forward and recompute).
-    * Additions: the vocab-sharded embedding's reduce-scatter into the
-      residual's layout (an all-reduce when S does not divide; its
-      backward mirrors it); the LM head's all-gather of the final hidden
-      state (its gradient's reduce-scatter in the backward); decode
-      attention over a sequence-sharded cache (KV heads that do not divide
-      TP): all-reduces of the softmax's float32 max and sum and of its
-      float32 output.
-    * Prefill and decode: TP only (``fsdp=False``), forward only.
-    """
-    B, S, kind = shape["batch"], shape["seq"], shape["kind"]
-    train = kind == "train"
-    dp = data_axes(mesh)
-    n_tp = axis_size(mesh, tp_axes(mesh))
-    n_data, n_pod = axis_size(mesh, "data"), axis_size(mesh, "pod")
-    rules = activation_rules(mesh, B, n_kv=cfg.n_kv_heads)
-    Bl = B // axis_size(mesh, dp) if rules["batch"] else B
-    S_eff = 1 if kind == "decode" else _seq(cfg, S)
-    d, act = cfg.d_model, 2
-    recs: list = []
-
-    def add(kind_, nbytes, group, op, times=1):
-        if group > 1:
-            recs.extend([(kind_, float(nbytes), int(group), op)] * times)
-
-    if train:
-        params = meta_params(cfg)
-        specs = dict(tree_items(tree_shardings(params, mesh, cfg, fsdp)))
-        for path, leaf in tree_items(params):
-            spec = specs[path]
-            n_loc = math.prod(local_shape(tuple(leaf.shape), spec, mesh))
-            name = "/".join(str(k) for k in path)
-            axes = _axes_of(spec)
-            if "data" in axes:
-                add("all-gather", n_loc * n_data * leaf.element_size(),
-                    n_data, f"{name} gather", 2 * microbatches)
-                add("reduce-scatter", n_loc * 4, n_data, f"{name} grad")
-            else:
-                add("all-reduce", n_loc * 4, n_data, f"{name} grad")
-            add("all-reduce", n_loc * 4, n_pod, f"{name} grad pod")
-    # forward passes over the activations: the forward, then under remat
-    # the backward's recompute; the backward mirrors the forward once
-    fwd = (2 if cfg.remat else 1) if train else 1
-    bwd = 1 if train else 0
-    full = Bl * S_eff * d * act
-    seq_ok = rules["seq"] is not None and S_eff % n_tp == 0
-    if seq_ok:
-        per_layer = [("all-gather", full), ("reduce-scatter", full / n_tp)] * 2
-        mirror = [("reduce-scatter", full / n_tp), ("all-gather", full)] * 2
-    else:
-        per_layer = [("all-reduce", full)] * 2
-        mirror = per_layer
-    for i in range(cfg.n_layers):
-        for k, nb in per_layer:
-            add(k, nb, n_tp, f"layer{i} residual", fwd)
-        for k, nb in mirror:
-            add(k, nb, n_tp, f"layer{i} residual grad", bwd)
-    # MoE dispatch buffer
-    n_moe = sum(1 for _, f in cfg.layer_plan if f == "moe")
-    if n_moe:
-        with activation_sharding(mesh, rules):
-            G1, G2 = L._moe_groups(B // microbatches, S_eff)
-        G = G1 * G2
-        Tg = B * S_eff // (G * microbatches)
-        C = L.moe_capacity(Tg, cfg.moe)
-        E = cfg.moe.n_experts
-        buf = G * E * C * d * act * microbatches / n_devices(mesh)
-        ep_axis = "expert" if "expert" in mesh.mesh_dim_names else None
-        ep = axis_size(mesh, ep_axis) if ep_axis else (
-            n_tp if E % n_tp == 0 else 1)
-        for i in range(n_moe):
-            if ep > 1:
-                add("all-to-all", buf, ep, f"moe{i} dispatch+combine",
-                    2 * (fwd + bwd))
-            else:
-                add("all-gather", buf * n_tp, n_tp, f"moe{i} buffer",
-                    fwd + bwd)
-                add("reduce-scatter", buf, n_tp, f"moe{i} output", fwd + bwd)
-    # embedding (vocab-sharded lookup) and, for training, the head
-    V_ok = cfg.vocab_padded % n_tp == 0
-    if V_ok:
-        if seq_ok:
-            add("reduce-scatter", full / n_tp, n_tp, "embed", 1)
-            add("all-gather", full, n_tp, "embed grad", bwd)
-        else:
-            add("all-reduce", full, n_tp, "embed", 1 + bwd)
-    if train and V_ok:
-        S_txt = S
-        stats = Bl * S_txt * 4 * max(cfg.n_codebooks, 1)
-        add("all-reduce", stats, n_tp, "loss max/sum/gold", 3 * fwd)
-        head = Bl * S_txt * d * act
-        add("all-gather", head, n_tp, "head input", fwd)
-        add("reduce-scatter", head / n_tp, n_tp, "head input grad", bwd)
-    if kind == "decode" and cfg.n_kv_heads % n_tp != 0:
-        n_attn = sum(1 for m, _ in cfg.layer_plan if m in ("attn", "local"))
-        H = cfg.n_heads
-        for i in range(n_attn):
-            add("all-reduce", 2 * Bl * H * 4, n_tp, f"attn{i} softmax stats")
-            add("all-reduce", Bl * H * cfg.head_dim * 4, n_tp,
-                f"attn{i} output")
-    return recs
+@contextlib.contextmanager
+def program_mesh(mesh):
+    """The mesh to run the program on: a `DeviceMesh` as it is, an
+    `AbstractMesh` of one device as it is, and an `AbstractMesh` of more as
+    a cuda-typed `fake_mesh` of its shape over a fake group that this
+    process owns for the block (`fake_group`)."""
+    if not isinstance(mesh, AbstractMesh) or n_devices(mesh) == 1:
+        yield mesh
+        return
+    with fake_group(n_devices(mesh)):
+        yield fake_mesh(mesh.shape, mesh.mesh_dim_names)
 
 
-# ----------------------------------------------------------------------
-# cells
-# ----------------------------------------------------------------------
+def _abstract(mesh) -> AbstractMesh:
+    return mesh if isinstance(mesh, AbstractMesh) else AbstractMesh(
+        mesh.shape, mesh.mesh_dim_names)
+
+
+def _model_flops(cfg, kind: str, B: int, S: int) -> float:
+    n_active = cfg.n_active_params()
+    if kind == "train":
+        return 6.0 * n_active * B * S
+    if kind == "prefill":
+        return 2.0 * n_active * B * S
+    return 2.0 * n_active * B
+
 
 def count_cell(cfg, kind: str, B: int, S: int, mesh,
-               microbatches: int = 1) -> dict:
-    """The record's counted part for ``cfg`` at (B, S) on ``mesh``:
-    ``roofline``, ``collectives``, ``memory``, ``counts``, ``count_s``,
-    ``aten_ops``, ``model_flops``, ``n_params``, ``n_active_params``."""
+               microbatches: int = 1, dtype=torch.bfloat16,
+               periods: int | None = None) -> dict:
+    """The record's counted part for ``cfg`` at (B, S) on ``mesh`` (an
+    `AbstractMesh`, counted on its `program_mesh`, or a `DeviceMesh`),
+    parameters in ``dtype``; the program of the model cut to ``periods``
+    body periods if given (`cut_to_periods`), the memory and parameter
+    counts the whole model's: ``roofline``, ``collectives``, ``memory``,
+    ``counts``, ``count_s``, ``aten_ops``, ``model_flops``, ``n_params``,
+    ``n_active_params``, ``torch`` (the version that ran the program)."""
     n_dev = n_devices(mesh)
     rules = activation_rules(mesh, B, n_kv=cfg.n_kv_heads)
     t0 = time.perf_counter()
-    with activation_sharding(mesh, rules):
-        counts = count_step(cfg, kind, B, S, microbatches)
-        params = counts.pop("params")
-        mem = memory_model(cfg, kind, B, S, mesh, rules, params,
+    run = cfg if periods is None else cut_to_periods(cfg, periods)
+    with program_mesh(mesh) as pmesh, activation_sharding(pmesh, rules):
+        counts = count_program(run, kind, B, S, pmesh, microbatches, dtype,
+                               depth=cfg.n_body)
+    params = meta_params(cfg, dtype)
+    with activation_sharding(_abstract(mesh), rules):
+        mem = memory_model(cfg, kind, B, S, _abstract(mesh), rules, params,
                            microbatches)
-    n_params = sum(t.numel() for _, t in tree_items(params))
-    n_active = cfg.n_active_params()
-    recs = collectives_for(cfg, dict(batch=B, seq=S, kind=kind), mesh,
-                           fsdp=kind == "train", microbatches=microbatches)
-    coll = RL.collective_stats(recs, n_dev)
-    if kind == "train":
-        model_flops = 6.0 * n_active * B * S
-    elif kind == "prefill":
-        model_flops = 2.0 * n_active * B * S
-    else:
-        model_flops = 2.0 * n_active * B
-    cost = {"flops": counts["flops"] / n_dev,
-            "bytes accessed": counts["bytes"] / n_dev}
-    rl = RL.roofline_terms(cost, coll, n_dev, model_flops)
-    roof = rl.to_json()
-    roof["extrapolated"] = False
-    return {"n_params": n_params, "n_active_params": n_active,
+    coll = RL.collective_stats(counts["collectives"], n_dev)
+    model_flops = _model_flops(cfg, kind, B, S)
+    rl = RL.roofline_terms({"flops": counts["flops"],
+                            "bytes accessed": counts["bytes"]}, coll, n_dev,
+                           model_flops)
+    return {"n_params": sum(t.numel() for _, t in tree_items(params)),
+            "n_active_params": cfg.n_active_params(),
+            # the torch whose DTensor chose the program's collectives
+            "torch": torch.__version__,
             "count_s": round(time.perf_counter() - t0, 3),
             "aten_ops": counts["aten_ops"], "memory": mem,
-            "collectives": coll.to_json(), "roofline": roof,
-            "counts": counts, "model_flops": model_flops}
+            "collectives": coll.to_json(),
+            "roofline": dict(rl.to_json(), extrapolated=False),
+            "counts": dict(counts, collectives=coll.to_json()),
+            "model_flops": model_flops}
 
 
-def lower_cell(arch_id: str, shape_name: str, multi_pod: bool,
-               perf_variant: str = "base", cfg=None) -> dict:
-    """Count one cell; returns the JSON record."""
+def cut_to_periods(cfg, periods: int):
+    """``cfg`` with its body cut to ``periods`` repeats of its block
+    pattern, its head (the first dense layers) and tail layers kept; each
+    kept layer keeps its kind (a layer's mixer follows its index modulo
+    the pattern)."""
+    drop = (cfg.n_body - periods) * len(cfg.block_pattern)
+    return dataclasses.replace(cfg, n_layers=cfg.n_layers - drop)
+
+
+def _lin(a, b, G: int):
+    """T(1) + (G - 1) (T(2) - T(1)), key by key through dicts."""
+    if isinstance(a, dict):
+        return {k: _lin(a.get(k, 0), b.get(k, 0), G) for k in a.keys() | b}
+    return a + (G - 1) * (b - a)
+
+
+def extrapolate_counts(c1: dict, c2: dict, G: int) -> dict:
+    """The counts of a model of ``G`` body periods from those at one
+    (``c1``) and two (``c2``) periods: every count, FLOP and byte term,
+    the LM ops' charges and the collectives by kind, linear in G.  The
+    costliest collectives and the sites listed are ``c2``'s."""
+    keys = ("flops_counted", "bytes_counted", "aten_ops", "flops", "bytes",
+            "kernel_ops")
+    out = {k: _lin(c1[k], c2[k], G) for k in keys}
+    s1, s2 = c1["collectives"], c2["collectives"]
+    by_kind = _lin(s1["bytes_by_kind"], s2["bytes_by_kind"], G)
+    out["collectives"] = RL.CollectiveStats(
+        by_kind, float(sum(by_kind.values())),
+        _lin(s1["count_by_kind"], s2["count_by_kind"], G),
+        s2["top"]).to_json()
+    out["result_bytes_by_kind"] = _lin(c1["result_bytes_by_kind"],
+                                       c2["result_bytes_by_kind"], G)
+    out["sites"] = c2["sites"]
+    return out
+
+
+def _cell(arch_id: str, shape_name: str, multi_pod: bool, perf_variant: str,
+          cfg):
     if cfg is None:
         cfg = configs.get(arch_id)
     shape = configs.SHAPES[shape_name]
-    B, S, kind = shape["batch"], shape["seq"], shape["kind"]
     expert_axis = 0
     if perf_variant.startswith("moe3d"):
         expert_axis = int(perf_variant[5:] or "8")
     mesh = make_production_mesh(multi_pod=multi_pod, expert_axis=expert_axis)
     rec = dict(arch=arch_id, shape=shape_name,
                mesh="multi" if multi_pod else "single",
-               n_devices=n_devices(mesh), batch=B, seq=S, kind=kind,
-               variant=perf_variant)
-    rec.update(count_cell(cfg, kind, B, S, mesh))
+               n_devices=n_devices(mesh), batch=shape["batch"],
+               seq=shape["seq"], kind=shape["kind"], variant=perf_variant)
+    return cfg, mesh, rec
+
+
+def lower_cell(arch_id: str, shape_name: str, multi_pod: bool,
+               perf_variant: str = "base", cfg=None,
+               periods: int | None = None) -> dict:
+    """Count one cell, its model cut to ``periods`` body periods if given
+    (`cut_to_periods`; the memory and parameter counts stay the whole
+    model's); returns the JSON record."""
+    cfg, mesh, rec = _cell(arch_id, shape_name, multi_pod, perf_variant, cfg)
+    rec.update(count_cell(cfg, rec["kind"], rec["batch"], rec["seq"], mesh,
+                          periods=periods))
+    rec["periods"] = cfg.n_body if periods is None else periods
     return rec
 
 
 def roofline_cell(arch_id: str, shape_name: str, multi_pod: bool,
                   perf_variant: str = "base", cfg=None) -> dict:
-    """The full cell record: `lower_cell`'s.  The reference extrapolates
-    its scanned body from unroll 1 and 2; the meta run walks every layer,
-    so its counts are whole already."""
-    return lower_cell(arch_id, shape_name, multi_pod, perf_variant, cfg=cfg)
+    """The full cell record.  A model of G > 2 body periods is counted at
+    one and at two (`lower_cell` with ``periods``) and its counts, FLOPs,
+    bytes and collectives extrapolated to G (`extrapolate_counts`); the
+    memory and the parameter counts are the whole model's."""
+    if cfg is None:
+        cfg = configs.get(arch_id)
+    G = cfg.n_body
+    if G <= 2:
+        return lower_cell(arch_id, shape_name, multi_pod, perf_variant, cfg)
+    one = lower_cell(arch_id, shape_name, multi_pod, perf_variant, cfg, 1)
+    two = lower_cell(arch_id, shape_name, multi_pod, perf_variant, cfg, 2)
+    counts = extrapolate_counts(one["counts"], two["counts"], G)
+    coll = RL.CollectiveStats(**{k: counts["collectives"][k] for k in (
+        "bytes_by_kind", "total_bytes", "count_by_kind", "top")})
+    rl = RL.roofline_terms({"flops": counts["flops"],
+                            "bytes accessed": counts["bytes"]}, coll,
+                           one["n_devices"], one["model_flops"])
+    rec = dict(one, counts=counts, aten_ops=counts["aten_ops"],
+               collectives=coll.to_json(), periods=G,
+               count_s=round(one["count_s"] + two["count_s"], 3))
+    rec["roofline"] = dict(rl.to_json(), extrapolated=True)
+    rec["roofline_probe_periods2"] = two["roofline"]
+    return rec
+
+
+def count_one(arch: str, shape: str, mesh_name: str, variant: str) -> dict:
+    """One cell's record, or, for a cell that fails, its error (these are
+    bugs of the port's program: recorded, never modelled)."""
+    try:
+        return roofline_cell(arch, shape, mesh_name == "multi", variant)
+    except Exception as e:  # record and continue: these are bugs
+        return dict(arch=arch, shape=shape, mesh=mesh_name, variant=variant,
+                    error=f"{type(e).__name__}: {e}",
+                    traceback=traceback.format_exc()[-4000:])
+
+
+def _worker_init() -> None:
+    torch.set_num_threads(1)
+    _quiet()
+
+
+def _quiet() -> None:
+    """DTensor warns at each redistribution over several mesh dims."""
+    import logging
+    logging.getLogger("torch.distributed.tensor._redistribute").setLevel(
+        logging.ERROR)
 
 
 def run_cells(cells, meshes, out_dir: str, variant: str = "base",
-              quiet: bool = False) -> list[dict]:
+              quiet: bool = False, jobs: int = 1) -> list[dict]:
+    """Count the cells not cached under ``out_dir`` (in ``jobs`` worker
+    processes, each owning its fake groups, when above 1) and write each
+    record there; returns them in order."""
     os.makedirs(out_dir, exist_ok=True)
-    records = []
     say = (lambda *a: None) if quiet else print
+    todo, records = [], {}
     for arch, shape in cells:
         for mesh_name in meshes:
             tag = f"{arch}_{shape}_{mesh_name}" + (
@@ -495,32 +634,44 @@ def run_cells(cells, meshes, out_dir: str, variant: str = "base",
             path = os.path.join(out_dir, tag + ".json")
             if os.path.exists(path):
                 with open(path) as f:
-                    rec = json.load(f)
+                    records[tag] = json.load(f)
+                rl = records[tag].get("roofline", {})
                 say(f"[cached] {tag}: "
-                    f"{rec.get('roofline', {}).get('dominant', rec.get('error', '?'))}")
-                records.append(rec)
-                continue
-            try:
-                rec = roofline_cell(arch, shape, mesh_name == "multi", variant)
-                rl = rec["roofline"]
-                say(f"[ok] {tag}: count={rec['count_s']}s "
-                    f"dom={rl['dominant']} "
-                    f"terms=({rl['compute_s']:.4f},{rl['memory_s']:.4f},"
-                    f"{rl['collective_s']:.4f})s "
-                    f"mem={rec['memory']['peak_live_bytes'] / 2**30:.2f}GiB "
-                    f"fits={rec['memory']['fits_80g']}")
-            except Exception as e:  # record and continue: these are bugs
-                rec = dict(arch=arch, shape=shape, mesh=mesh_name,
-                           variant=variant, error=f"{type(e).__name__}: {e}",
-                           traceback=traceback.format_exc()[-4000:])
-                say(f"[FAIL] {tag}: {type(e).__name__}: {str(e)[:300]}")
-            with open(path, "w") as f:
-                json.dump(rec, f, indent=1)
-            records.append(rec)
-    return records
+                    f"{rl.get('dominant', records[tag].get('error', '?'))}")
+            else:
+                todo.append((tag, (arch, shape, mesh_name, variant)))
+    if jobs > 1 and len(todo) > 1:
+        import concurrent.futures as cf
+        import multiprocessing as mp
+
+        with cf.ProcessPoolExecutor(
+                min(jobs, len(todo)), mp_context=mp.get_context("spawn"),
+                initializer=_worker_init) as pool:
+            done = zip(todo, pool.map(count_one, *zip(*(a for _, a in todo))))
+            counted = [(tag, rec) for (tag, _), rec in done]
+    else:
+        counted = [(tag, count_one(*a)) for tag, a in todo]
+    for tag, rec in counted:
+        if "error" in rec:
+            say(f"[FAIL] {tag}: {rec['error'][:300]}")
+        else:
+            rl = rec["roofline"]
+            say(f"[ok] {tag}: count={rec['count_s']}s "
+                f"dom={rl['dominant']} "
+                f"terms=({rl['compute_s']:.4f},{rl['memory_s']:.4f},"
+                f"{rl['collective_s']:.4f})s "
+                f"mem={rec['memory']['peak_live_bytes'] / 2**30:.2f}GiB "
+                f"fits={rec['memory']['fits_80g']}")
+        with open(os.path.join(out_dir, tag + ".json"), "w") as f:
+            json.dump(rec, f, indent=1)
+        records[tag] = rec
+    order = [f"{a}_{s}_{m}" + ("" if variant == "base" else f"_{variant}")
+             for a, s in cells for m in meshes]
+    return [records[t] for t in order]
 
 
 def main(argv=None):
+    _quiet()
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default=None)
     ap.add_argument("--shape", default=None)
@@ -530,19 +681,23 @@ def main(argv=None):
     ap.add_argument("--out", default="artifacts/dryrun")
     ap.add_argument("--variant", default="base")
     ap.add_argument("--list", action="store_true")
+    ap.add_argument("--jobs", type=int, default=1,
+                    help="worker processes counting cells side by side")
     args = ap.parse_args(argv)
     if args.list:
         for a, s in configs.cells():
             print(a, s)
         return
     if args.all:
-        cells = configs.cells()
+        cells = [c for c in configs.cells()
+                 if args.shape is None or c[1] == args.shape]
     else:
         if not (args.arch and args.shape):
             ap.error("--arch and --shape (or --all)")
         cells = [(args.arch, args.shape)]
     meshes = ["single", "multi"] if args.mesh == "both" else [args.mesh]
-    records = run_cells(cells, meshes, args.out, args.variant)
+    records = run_cells(cells, meshes, args.out, args.variant,
+                        jobs=args.jobs)
     n_fail = sum(1 for r in records if "error" in r)
     print(f"\n{len(records) - n_fail}/{len(records)} cells counted")
     if n_fail:

@@ -11,10 +11,21 @@ reference's 512 fake host devices) or a ``torch.distributed`` `DeviceMesh`.
 Every rule of `launch.sharding` reads only a mesh's axis names and sizes
 (`axis_names`, `axis_size`), so it takes either kind.  Importing this
 module touches no device and no process group.
+
+The dry run counts the port's sharded program on a `DeviceMesh` of the
+production shape with no cluster behind it (`fake_mesh`): a cuda-typed mesh
+over torch's fake process group of the mesh's size, in which this process
+is rank 0.  The fake group moves no data, and its collectives on meta
+tensors compute nothing; DTensor picks the collectives it would issue on
+NCCL (a cuda-typed mesh), and the card is never touched.  As the
+reference's dry run must own its device count before jax starts, the
+process that counts owns that group: the dry run's CLI, or a child
+process of whoever calls it.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 #: every axis name the meshes of this module are built with
@@ -64,6 +75,49 @@ def make_production_mesh(*, multi_pod: bool = False, expert_axis: int = 0,
     if device_type is None:
         return AbstractMesh(shape, names)
     return _device_mesh(device_type, shape, names)
+
+
+@contextlib.contextmanager
+def fake_group(n: int):
+    """A fake default process group of ``n`` ranks, this process rank 0,
+    for the block: opened here if none is open (and closed after), kept if
+    one of ``n`` is open already; a default group of another size raises."""
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        if dist.get_world_size() != n:
+            raise RuntimeError(
+                f"a mesh of {n} devices needs a fake process group of {n} "
+                f"ranks; this process has a default group of "
+                f"{dist.get_world_size()} ({dist.get_backend()}): count in "
+                "a process of its own")
+        yield
+        return
+    # registers torch's fake backend ("fake") on import
+    import torch.testing._internal.distributed.fake_pg  # noqa: F401
+    dist.init_process_group("fake", store=dist.HashStore(), rank=0,
+                            world_size=n)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+def fake_mesh(shape, names, device_type: str = "cuda"):
+    """A `DeviceMesh` of ``shape`` named ``names`` over the fake default
+    group open now (`fake_group` of the mesh's size), typed ``device_type``
+    and touching no device."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    if not dist.is_initialized() or dist.get_backend() != "fake":
+        raise RuntimeError("fake_mesh needs the fake group open: "
+                           "`with fake_group(n):`")
+    if dist.get_world_size() != math.prod(shape):
+        raise ValueError(f"mesh {tuple(shape)} needs {math.prod(shape)} "
+                         f"ranks, the fake group has {dist.get_world_size()}")
+    return init_device_mesh(device_type, tuple(shape),
+                            mesh_dim_names=tuple(names))
 
 
 def make_debug_mesh(n_data: int = 1, n_model: int = 1,

@@ -95,6 +95,10 @@ def main() -> None:
                     choices=["roofline", "dryrun", "pick"])
     args = ap.parse_args()
     recs = load(args.dir, args.mesh, args.variant)
+    if args.what != "pick":
+        # DTensor's choice of collectives may move between torch versions
+        print("counted on torch", ", ".join(sorted(
+            {r["torch"] for r in recs if "torch" in r})) or "?")
     if args.what == "roofline":
         print(roofline_table(recs))
     elif args.what == "dryrun":

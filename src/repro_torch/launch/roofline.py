@@ -7,9 +7,11 @@ Three terms per (arch x shape x mesh), in seconds:
   collective = collective_bytes_per_device / LINK_BW
 
 The dry run (``launch/dryrun.py``) counts FLOPs and bytes per device.
-PyTorch has no compiled module whose text lists its collectives, so the
-collectives come as records, ``(kind, result_bytes, group_size, op)``, one
-per collective the sharding rules imply, and `collective_stats` weights
+PyTorch has no compiled module whose text lists its collectives; instead
+the dry run runs the port's sharded program and reads each collective op
+that DTensor issues (`collective_record`, the counterpart of the
+reference's ``parse_collectives`` over the compiled HLO) as a record
+``(kind, result_bytes, group_size, site)``, and `collective_stats` weights
 each with the reference's ring cost for its group of n devices:
 
   all-gather      (n-1)/n * result
@@ -37,6 +39,43 @@ HBM_BW = 3.35e12
 LINK_BW = 450e9
 #: torch.cuda.get_device_properties(0).total_memory, NVIDIA H100 80GB HBM3
 HBM_PER_DEVICE = 85_017_493_504
+
+#: the collective ops DTensor issues, under the reference's HLO kinds
+#: (``wait_tensor`` completes one of them and moves nothing of its own)
+COLLECTIVE_OPS = {
+    "_c10d_functional.all_gather_into_tensor": "all-gather",
+    "_c10d_functional.all_gather_into_tensor_coalesced": "all-gather",
+    "_c10d_functional.reduce_scatter_tensor": "reduce-scatter",
+    "_c10d_functional.reduce_scatter_tensor_coalesced": "reduce-scatter",
+    "_c10d_functional.all_reduce": "all-reduce",
+    "_c10d_functional.all_reduce_coalesced": "all-reduce",
+    "_c10d_functional.all_to_all_single": "all-to-all",
+    "_dtensor.shard_dim_alltoall": "all-to-all",
+}
+
+
+def collective_record(func, args, out) -> tuple[str, int, int] | None:
+    """``(kind, result_bytes, group_size)`` of the op ``func`` called on
+    ``args`` with result ``out``, if it is one of `COLLECTIVE_OPS`, else
+    None.  The result is what one rank receives: the gathered tensor of an
+    all-gather, the scattered part of a reduce-scatter, the whole of an
+    all-reduce, the exchanged shard of an all-to-all (a coalesced op: its
+    results summed).  The group is the op's own (its last argument, a
+    group or a group's name)."""
+    import torch
+
+    kind = COLLECTIVE_OPS.get(func.name().replace("::", "."))
+    if kind is None:
+        return None
+    outs = out if isinstance(out, (list, tuple)) else (out,)
+    nbytes = sum(t.numel() * t.element_size() for t in outs
+                 if isinstance(t, torch.Tensor))
+    group = args[-1]
+    if isinstance(group, str):
+        from torch.distributed.distributed_c10d import _resolve_process_group
+        group = _resolve_process_group(group)
+    return kind, nbytes, group.size()
+
 
 def ring_cost(kind: str, result_bytes: float, n: int) -> float:
     """Bytes one device sends for ``kind`` over a group of ``n``."""
@@ -70,7 +109,7 @@ class CollectiveStats:
 
 def collective_stats(records, n_devices: int) -> CollectiveStats:
     """Ring-weighted bytes per device of ``records``, each ``(kind,
-    result_bytes, group_size, op)`` (``group_size`` None: all
+    result_bytes, group_size, site)`` (``group_size`` None: all
     ``n_devices``); the twelve costliest listed in ``top``."""
     bytes_by_kind: dict[str, float] = defaultdict(float)
     count_by_kind: dict[str, int] = defaultdict(int)

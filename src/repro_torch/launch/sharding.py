@@ -28,7 +28,8 @@ program distributes its inputs by them, as the reference's ``jax.jit``
 takes ``in_shardings``: `distribute_tree` the parameters and the AdamW
 state (its ``m``/``v``/``master`` take the parameters' specs),
 `distribute_batch` a batch and `distribute_state` a decode state.  A
-leaf already a DTensor is redistributed to its spec.
+leaf already a DTensor is redistributed to its spec; a meta leaf becomes a
+DTensor of a meta local shard (the dry run's program on a fake mesh).
 """
 
 from __future__ import annotations
@@ -207,24 +208,28 @@ def _map_with_path(fn, tree, path=()):
     return fn(path, tree)
 
 
-def _stack_of(cfg):
+def _stack_of(cfg, depth: int | None = None):
     """path -> the leading dims the reference stacks that leaf under: its
-    body layers (n_body,), everything else none."""
+    body layers (n_body,), or (``depth``,), everything else none."""
     n_head = len(cfg.groups[0])
     body = range(n_head, n_head + cfg.n_body * len(cfg.block_pattern))
+    depth = cfg.n_body if depth is None else depth
 
     def stack(path):
         if len(path) > 1 and path[0] == "layers" and path[1] in body:
-            return (cfg.n_body,)
+            return (depth,)
         return ()
     return stack
 
 
-def tree_shardings(tree: Any, mesh, cfg, fsdp: bool = True) -> Any:
+def tree_shardings(tree: Any, mesh, cfg, fsdp: bool = True,
+                   depth: int | None = None) -> Any:
     """A tree of specs matching ``tree`` (params, grads, or the AdamW
     state, whose ``m``/``v``/``master`` mirror the params) of the model
-    ``cfg`` (for the reference's stacking of its body)."""
-    stack = _stack_of(cfg)
+    ``cfg`` (for the reference's stacking of its body; ``depth``: the
+    body's stacked depth if not ``cfg``'s own, the whole model's for one
+    cut to fewer body periods)."""
+    stack = _stack_of(cfg, depth)
 
     def f(path, leaf):
         # opt state: m/v/master/step prefix the params' own paths
@@ -267,10 +272,19 @@ def placements(spec, mesh) -> list:
 
 def _place(x, mesh, spec):
     """``x`` as a DTensor on ``mesh`` with the placements of ``spec``: a
-    plain tensor distributed, a DTensor redistributed."""
+    plain tensor distributed, a DTensor redistributed.  A meta tensor (the
+    dry run's) becomes a DTensor whose local shard is a meta tensor of
+    `local_shape`: nothing moves to the mesh's device and no collective
+    runs."""
+    import torch
     from torch.distributed.tensor import DTensor, distribute_tensor
 
     want = placements(spec, mesh)
+    if not isinstance(x, DTensor) and x.device.type == "meta":
+        shard = torch.empty(local_shape(tuple(x.shape), spec, mesh),
+                            dtype=x.dtype, device="meta")
+        return DTensor.from_local(shard, mesh, want, run_check=False,
+                                  shape=x.shape, stride=x.stride())
     if not isinstance(x, DTensor):
         return distribute_tensor(x, mesh, want)
     return x if tuple(x.placements) == tuple(want) else x.redistribute(
@@ -283,11 +297,13 @@ def _distribute_by(tree: Any, specs: Any, mesh) -> Any:
                           tree)
 
 
-def distribute_tree(tree: Any, mesh, cfg, fsdp: bool = True) -> Any:
+def distribute_tree(tree: Any, mesh, cfg, fsdp: bool = True,
+                    depth: int | None = None) -> Any:
     """``tree`` (of the model ``cfg``: its parameters, or its AdamW state)
     with every leaf a DTensor on ``mesh`` with the placements of its spec
     (`tree_shardings`)."""
-    return _distribute_by(tree, tree_shardings(tree, mesh, cfg, fsdp), mesh)
+    return _distribute_by(tree, tree_shardings(tree, mesh, cfg, fsdp, depth),
+                          mesh)
 
 
 def local_shape(shape: tuple[int, ...], spec, mesh) -> tuple[int, ...]:
@@ -375,7 +391,7 @@ def activation_rules(mesh, batch: int, n_kv: int | None = None,
     blocks: the residual stream (and hence the checkpointed layer inputs,
     the biggest training-memory term) is sharded over the model axis, with
     an all-gather before each mixer and FFN and a reduce-scatter after
-    (the dry run charges them, `dryrun.collectives_for`).
+    (the dry run counts what the program issues, `dryrun.count_program`).
     """
     dp = data_axes(mesh)
     tpa = tp_axes(mesh)

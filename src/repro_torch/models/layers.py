@@ -34,6 +34,7 @@ tensors hold no data: the dry run counts a step on them.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 
 import torch
@@ -44,10 +45,30 @@ from ..kernels.flash_attention import ops as flash_ops
 from ..kernels.rg_lru import ops as rglru_ops
 from ..kernels.rwkv6 import ops as rwkv6_ops
 from .sharding import (axis_coord, axis_prod, current_mesh, current_rules,
-                       is_dtensor, layout, local_region, logical,
-                       replicated_like)
+                       is_dtensor, layout, local_einsum, local_region,
+                       logical, project, project_out, replicated_like,
+                       unflatten_last)
 
 Params = dict
+
+
+#: the products `project` and `project_out` compute
+_mm = torch.matmul
+_heads_in = functools.partial(torch.einsum, "bsd,dhk->bshk")
+_heads_out = functools.partial(torch.einsum, "bshk,hkd->bsd")
+
+
+def _mm_f32(x, w):
+    """A product with the weight in float32."""
+    return x @ w.float()
+
+
+#: a product of the residual (B, S, d) with a (d, f) weight, and back
+_IN = "bsd,df->bsf"
+_OUT = "bsf,fd->bsd"
+_HEADS_OUT = "bshk,hkd->bsd"
+#: the RG-LRU's gates: (B, S, dr) channels times a (dr, dr) weight
+_GATE = "bsf,fg->bsg"
 
 
 def check_init_device(device) -> str:
@@ -232,9 +253,9 @@ def attn_init(gen: torch.Generator, cfg: AttnConfig, dtype=torch.bfloat16,
 
 
 def _qkv(p: Params, x: torch.Tensor, cfg: AttnConfig, positions):
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
-    k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
-    v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
+    eq = "bsd,dhk->bshk"
+    q, k, v = project(x, (eq, p["wq"], _heads_in), (eq, p["wk"], _heads_in),
+                      (eq, p["wv"], _heads_in))
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
     if cfg.use_rope:
@@ -254,7 +275,7 @@ def attn_prefill(p: Params, x: torch.Tensor, cfg: AttnConfig,
     """Like forward but also returns the KV cache {k, v}: (B, S, KV, hd)."""
     q, k, v = _qkv(p, x, cfg, positions)
     o = attention(q, k, v, causal=True, window=cfg.window, cap=cfg.cap)
-    return torch.einsum("bshk,hkd->bsd", o, p["wo"]), {"k": k, "v": v}
+    return project_out(o, _HEADS_OUT, p["wo"], _heads_out), {"k": k, "v": v}
 
 
 def _write_slot(c: torch.Tensor, rows: torch.Tensor, slot: torch.Tensor,
@@ -338,7 +359,7 @@ def attn_decode(p: Params, x: torch.Tensor, cfg: AttnConfig, cache: Params,
     vf = logical(_repeat_kv(cache["v"], H // KV), "batch", "kv_seq", "heads",
                  None)
     scale = 1.0 / math.sqrt(cfg.head_dim)
-    logits = torch.einsum("bchd,bshd->bhcs", q.float(), kf.float()) * scale
+    logits = local_einsum("bchd,bshd->bhcs", q.float(), kf.float()) * scale
     if cfg.cap is not None:
         logits = softcap(logits, cfg.cap)
     if ring:
@@ -350,8 +371,8 @@ def attn_decode(p: Params, x: torch.Tensor, cfg: AttnConfig, cache: Params,
     logits = torch.where(mask[:, None, None, :], logits,
                          torch.full((), -1e30, device=x.device))
     probs = torch.softmax(logits, dim=-1)
-    o = torch.einsum("bhcs,bshd->bchd", probs, vf.float()).to(x.dtype)
-    out = torch.einsum("bshk,hkd->bsd", o, p["wo"])
+    o = local_einsum("bhcs,bshd->bchd", probs, vf.float()).to(x.dtype)
+    out = project_out(o, _HEADS_OUT, p["wo"], _heads_out)
     return out, cache
 
 
@@ -375,12 +396,12 @@ def mlp_init(gen: torch.Generator, d: int, f: int, kind: str = "swiglu",
 
 
 def mlp_forward(p: Params, x: torch.Tensor, kind: str = "swiglu") -> torch.Tensor:
-    if kind == "swiglu":
-        return (F.silu(x @ p["wg"]) * (x @ p["wu"])) @ p["wd"]
-    if kind == "geglu":
-        return (gelu_tanh(x @ p["wg"]) * (x @ p["wu"])) @ p["wd"]
-    h = gelu_tanh(x @ p["w1"] + p["b1"])
-    return h @ p["w2"] + p["b2"]
+    if kind in ("swiglu", "geglu"):
+        g, u = project(x, (_IN, p["wg"], _mm), (_IN, p["wu"], _mm))
+        act = F.silu if kind == "swiglu" else gelu_tanh
+        return project_out(act(g) * u, _OUT, p["wd"], _mm)
+    h = gelu_tanh(project(x, (_IN, p["w1"], _mm)) + p["b1"])
+    return project_out(h, _OUT, p["w2"], _mm) + p["b2"]
 
 
 # ----------------------------------------------------------------------
@@ -659,8 +680,8 @@ def rglru_block(p: Params, x: torch.Tensor, cfg: RGLRUConfig,
     """
     B, S, _ = x.shape
     dr = cfg.d_rnn
-    gate = gelu_tanh(x @ p["w_in_g"])
-    u = x @ p["w_in_x"]
+    g, u = project(x, (_IN, p["w_in_g"], _mm), (_IN, p["w_in_x"], _mm))
+    gate = gelu_tanh(g)
     W = cfg.conv_width
     if state is None:
         conv_carry = replicated_like(
@@ -678,14 +699,14 @@ def rglru_block(p: Params, x: torch.Tensor, cfg: RGLRUConfig,
     new_conv_carry = upad[:, S:] if W > 1 else conv_carry
     # RG-LRU gates in f32
     convf = conv.float()
-    rg = torch.sigmoid(convf @ p["wa"].float() + p["ba"])
-    ig = torch.sigmoid(convf @ p["wx"].float() + p["bx"])
+    rg = torch.sigmoid(project_out(convf, _GATE, p["wa"], _mm_f32) + p["ba"])
+    ig = torch.sigmoid(project_out(convf, _GATE, p["wx"], _mm_f32) + p["bx"])
     log_a = -cfg.c * rg * F.softplus(p["lam"])
     a = torch.exp(log_a)
     mult = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-12))
     gated = (ig * convf) * mult
     h, new_h = rglru_scan(gated, a, h0.float())
-    out = (h.to(x.dtype) * gate) @ p["w_out"]
+    out = project_out(h.to(x.dtype) * gate, _OUT, p["w_out"], _mm)
     return out, (new_conv_carry, new_h)
 
 
@@ -763,9 +784,9 @@ def _rwkv_streams(p: Params, x: torch.Tensor, x_prev: torch.Tensor):
     x: (B, S, d); x_prev: x shifted right by one (with carry for decode).
     """
     delta = (x_prev - x).float()
-    tm = torch.tanh(x.float() @ p["tm_a"].float())
+    tm = torch.tanh(project(x.float(), (_IN, p["tm_a"], _mm_f32)))
     tm = tm.reshape(*x.shape[:-1], 5, 32)
-    dyn = torch.einsum("...ni,nid->...nd", tm, p["tm_b"].float())
+    dyn = local_einsum("bsni,nid->bsnd", tm, p["tm_b"].float())
     mixed = x[..., None, :].float() + delta[..., None, :] * (p["mu"] + dyn)
     return [mixed[..., i, :] for i in range(5)]
 
@@ -782,13 +803,13 @@ def rwkv_time_mix(p: Params, x: torch.Tensor, cfg: RWKVConfig,
     H, N = cfg.n_heads, cfg.head_size
     xr, xk, xv, xg, xw = _rwkv_streams(p, x, _token_shift(x, x_carry))
     dt = x.dtype
-    r = (xr.to(dt) @ p["wr"]).reshape(B, S, H, N)
-    k = (xk.to(dt) @ p["wk"]).reshape(B, S, H, N)
-    v = (xv.to(dt) @ p["wv"]).reshape(B, S, H, N)
-    g = F.silu(xg.to(dt) @ p["wg"])
-    wlog = p["w0"] + (torch.tanh(xw.to(dt) @ p["wd_a"]).float()
-                      @ p["wd_b"].float())
-    w = torch.exp(-torch.exp(wlog)).reshape(B, S, H, N)   # decay in (0, 1)
+    r = unflatten_last(project(xr.to(dt), (_IN, p["wr"], _mm)), H, N)
+    k = unflatten_last(project(xk.to(dt), (_IN, p["wk"], _mm)), H, N)
+    v = unflatten_last(project(xv.to(dt), (_IN, p["wv"], _mm)), H, N)
+    g = F.silu(project(xg.to(dt), (_IN, p["wg"], _mm)))
+    lora = torch.tanh(project(xw.to(dt), (_IN, p["wd_a"], _mm))).float()
+    wlog = p["w0"] + project(lora, (_IN, p["wd_b"], _mm_f32))
+    w = unflatten_last(torch.exp(-torch.exp(wlog)), H, N)  # decay in (0, 1)
     u = p["u"].reshape(H, N)
     if state is None:
         state = replicated_like(torch.zeros((B, H, N, N), dtype=torch.float32,
@@ -804,8 +825,9 @@ def rwkv_time_mix(p: Params, x: torch.Tensor, cfg: RWKVConfig,
         (_HEADS,) * 4 + (("heads",), ("batch", "heads")), (0, 5))
     # per-head group norm
     y = rms_norm(y.reshape(B, S, H, N), p["ln_w"].reshape(H, N), eps=1e-5)
-    y = y.reshape(B, S, d) * g
-    return y.to(dt) @ p["wo"], (x[:, -1, :], new_state)
+    # gated per head (the gate split as the heads are), then merged
+    y = (y * unflatten_last(g, H, N)).reshape(B, S, d)
+    return project_out(y.to(dt), _OUT, p["wo"], _mm), (x[:, -1, :], new_state)
 
 
 def rwkv_channel_mix(p: Params, x: torch.Tensor,
@@ -815,6 +837,7 @@ def rwkv_channel_mix(p: Params, x: torch.Tensor,
     mu = p["cm_mu"]
     xk = x + (x_prev - x) * mu[0].to(x.dtype)
     xr = x + (x_prev - x) * mu[1].to(x.dtype)
-    kk = torch.square(torch.relu(xk @ p["cm_k"]))
-    out = torch.sigmoid(xr @ p["cm_r"]) * (kk @ p["cm_v"])
+    kk = torch.square(torch.relu(project(xk, (_IN, p["cm_k"], _mm))))
+    out = torch.sigmoid(project(xr, (_IN, p["cm_r"], _mm))) * project_out(
+        kk, _OUT, p["cm_v"], _mm)
     return out, x[:, -1, :]

@@ -44,7 +44,8 @@ from torch.utils.checkpoint import checkpoint
 
 from ..core.engine.kernels import check_device
 from . import layers as L
-from .sharding import logical, replicated_like, under_current_rules
+from .sharding import (is_dtensor, logical, lookup, project, replicated_like,
+                       under_current_rules)
 
 Params = dict
 
@@ -372,14 +373,15 @@ def _embed(params: Params, cfg: ArchConfig, batch: dict):
         codes = batch["tokens"]
         # summed left to right in the activation dtype, as the reference's
         # Python sum does
-        x = params["embed"][0][codes[..., 0]]
+        x = lookup(params["embed"][0], codes[..., 0])
         for k in range(1, cfg.n_codebooks):
-            x = x + params["embed"][k][codes[..., k]]
+            x = x + lookup(params["embed"][k], codes[..., k])
     else:
-        x = params["embed"][batch["tokens"]]
+        x = lookup(params["embed"], batch["tokens"])
     B, S = x.shape[:2]
     if cfg.vlm_patches:
-        patches = batch["patches"].to(x.dtype) @ params["patch_proj"]
+        patches = project(batch["patches"].to(x.dtype),
+                          ("bpe,ed->bpd", params["patch_proj"], L._mm))
         x = torch.cat([patches, x], dim=1)
         S = x.shape[1]
     if cfg.embed_scale:
@@ -414,13 +416,23 @@ def _positions(cfg: ArchConfig, B: int, S: int, device) -> torch.Tensor:
 def _lm_logits(params: Params, cfg: ArchConfig, x: torch.Tensor):
     x = _norm(x, params["final_ln"], cfg)
     if cfg.n_codebooks > 1:
-        w = params["lm_head"] if not cfg.tie_embeddings else \
-            params["embed"].transpose(1, 2)                    # (K, d, V)
-        logits = torch.einsum("bsd,kdv->bskv", x, w)
-    elif cfg.tie_embeddings:
-        logits = x @ params["embed"].T
+        # (K, d, V), or the tied (K, V, d) embedding transposed
+        if cfg.tie_embeddings:
+            term = ("bsd,kvd->bskv", params["embed"], lambda x, w: torch.einsum(
+                "bsd,kdv->bskv", x, w.transpose(1, 2)))
+        else:
+            term = ("bsd,kdv->bskv", params["lm_head"],
+                    lambda x, w: torch.einsum("bsd,kdv->bskv", x, w))
+        logits = project(x, term)
     else:
-        logits = x @ params["lm_head"]
+        # the vocab-parallel head reads the sequence whole, gathered
+        # first: DTensor would flatten it split over mesh dims with the
+        # batch (a strided shard: minutes to plan over three, refused
+        # before torch 2.13)
+        if is_dtensor(x):
+            x = logical(x, "batch")
+        logits = x @ (params["embed"].T if cfg.tie_embeddings
+                      else params["lm_head"])
     if cfg.logit_cap is not None:
         logits = L.softcap(logits.float(), cfg.logit_cap)
     if cfg.vocab_padded != cfg.vocab:

@@ -17,7 +17,12 @@ makes a tensor built inside the model (positions, masks, constants) a
 replicated DTensor on the mesh of the DTensor it meets, and `local_region`
 runs a hand-written kernel's op on the local shards in the layout the
 kernel needs (``local_map``), so the kernel never sees a DTensor and never
-a gathered whole tensor.  A plain tensor passes both unchanged.
+a gathered whole tensor.  A plain tensor passes both unchanged.  The
+products of a split activation with its weights (`project`,
+`project_out`, `local_einsum`) and the embedding lookup (`lookup`) run
+the same way, on every torch and mesh, where DTensor's own op may not: a
+head count that does not divide the TP axes, a mesh of three split dims,
+a torch before 2.13.
 """
 
 from __future__ import annotations
@@ -27,6 +32,8 @@ import functools
 import sys
 import threading
 from typing import Optional
+
+import torch
 
 _state = threading.local()
 
@@ -140,6 +147,44 @@ def replicated_like(t, like):
                               run_check=False)
 
 
+def unflatten_last(x, *sizes):
+    """``x`` with its last dim split into ``sizes`` (a reshape); on a
+    DTensor whose last dim a mesh dim splits into parts ``sizes[0]`` does
+    not divide (4 heads over 16), that dim gathered first, as DTensor
+    cannot split a sharded dim unevenly."""
+    shape = (*x.shape[:-1], *sizes)
+    if not is_dtensor(x):
+        return x.reshape(shape)
+    from torch.distributed.tensor import Replicate
+
+    mesh, last = x.device_mesh, x.ndim - 1
+    want = [Replicate() if (p.is_shard(last) and sizes[0] % mesh.size(i))
+            else p for i, p in enumerate(x.placements)]
+    if want != list(x.placements):
+        x = x.redistribute(mesh, want)
+    return x.reshape(shape)
+
+
+def as_partial(x):
+    """A DTensor ``x`` as a partial sum over every mesh dim (a replicated
+    value divided among the ranks, a local step), so that sums of such
+    values need no collective until one reduces the total; a plain
+    tensor as it is."""
+    if not is_dtensor(x):
+        return x
+    from torch.distributed.tensor import DTensor, Partial
+
+    mesh, local, n = x.device_mesh, x.to_local(), 1
+    for i, p in enumerate(x.placements):
+        if p.is_replicate():
+            n *= mesh.size(i)
+        elif not p.is_partial():
+            raise ValueError(f"{x.placements}: a sharded tensor is not a "
+                             "partial sum")
+    return DTensor.from_local(local / n if n > 1 else local, mesh,
+                              [Partial()] * mesh.ndim, run_check=False)
+
+
 def layout(x, *names: Optional[str]) -> tuple:
     """The placements of the DTensor ``x`` under the active rules with its
     dims named ``names`` (as `logical` would give it)."""
@@ -191,16 +236,212 @@ def local_region(fn, args: tuple, names: tuple, outs: tuple):
         raise TypeError("a kernel region takes DTensors alone: make a "
                         "tensor built inside the model one with "
                         "replicated_like")
-    from torch.distributed.tensor import Partial
-    from torch.distributed.tensor.experimental import local_map
-
     mesh = args[0].device_mesh
     in_layouts = tuple(layout(a, *n) for a, n in zip(args, names))
     out_layouts = tuple(in_layouts[o] if isinstance(o, int)
                         else names_layout(mesh, *o) for o in outs)
+    return _local_call(fn, args, in_layouts, out_layouts, mesh)
+
+
+def _eq_letters(eq: str) -> tuple[str, str, str]:
+    """(x's letters, w's letters, the product's) of "xs,ws->out"."""
+    ins, out = eq.replace(" ", "").split("->")
+    a, b = ins.split(",")
+    return a, b, out
+
+
+def project(x, *terms):
+    """The products of the activation ``x`` with weights, one per term
+    ``(eq, w, fn)``: ``fn(x, w)`` computes it and ``eq``, an einsum
+    equation with ``x``'s letters first, fixes the layouts and nothing
+    else.  Returns a product, or a tuple of them in ``terms``'s order.  On
+    plain tensors each ``fn`` as it is.  On DTensors on local shards
+    (``local_map``), the weights that shard the same mesh dims in one
+    region: each weight gathered over the FSDP axis and on its contracted
+    dims, and kept sharded on its other dims as its rule shards it; ``x``
+    gathered on its contracted dim and on each mesh dim the region's
+    weights shard (column parallel: the residual's sequence shards
+    gathered once before head- or ffn-sharded products; where no weight is
+    split, ``x`` keeps them and the products come out sharded on the
+    sequence); each product laid out by its equation.  DTensor never sees
+    a product, so none of its strategies splits a merged dim it cannot
+    unflatten (heads that do not divide the TP axes), flattens a dim split
+    over one mesh dim with one split over another (which torch before
+    2.13 refuses), or is searched for over the mesh's dims (minutes an op
+    over three): one program on every torch."""
+    plain = tuple(fn(x, w) for _eq, w, fn in terms) if not is_dtensor(x) \
+        else None
+    if plain is not None:
+        return plain[0] if len(plain) == 1 else plain
+    from torch.distributed.tensor import Replicate, Shard
+
+    from ..launch.sharding import FSDP
+
+    mesh = x.device_mesh
+    names = tuple(mesh.mesh_dim_names)
+    w_lays = []
+    for eq, w, _fn in terms:
+        _xa, wa, out = _eq_letters(eq)
+        w_lays.append(tuple(
+            p if (isinstance(p, Shard) and names[i] != FSDP
+                  and wa[p.dim] in out) else Replicate()
+            for i, p in enumerate(w.placements)))
+    groups: dict = {}
+    for j, lay in enumerate(w_lays):
+        groups.setdefault(tuple(not p.is_replicate() for p in lay),
+                          []).append(j)
+    outs: list = [None] * len(terms)
+    for taken, idx in groups.items():
+        eqs = [_eq_letters(terms[j][0]) for j in idx]
+        x_lay = tuple(
+            p if (isinstance(p, Shard) and not taken[i]
+                  and all(xa[p.dim] in out for xa, _wa, out in eqs))
+            else Replicate() for i, p in enumerate(x.placements))
+        out_lays = []
+        for j, (xa, wa, out) in zip(idx, eqs):
+            lay = []
+            for i in range(mesh.ndim):
+                p, src = (x_lay[i], xa) if not x_lay[i].is_replicate() \
+                    else (w_lays[j][i], wa)
+                lay.append(Shard(out.index(src[p.dim]))
+                           if isinstance(p, Shard) else Replicate())
+            out_lays.append(tuple(lay))
+        fns = [terms[j][2] for j in idx]
+
+        def body(xl, *wl, fns=fns):
+            return tuple(f(xl, w) for f, w in zip(fns, wl))
+        got = _local_call(body, (x,) + tuple(terms[j][1] for j in idx),
+                          (x_lay,) + tuple(w_lays[j] for j in idx),
+                          tuple(out_lays), mesh)
+        for j, o in zip(idx, got):
+            outs[j] = o
+    return outs[0] if len(outs) == 1 else tuple(outs)
+
+
+def project_out(x, eq: str, w, fn):
+    """``fn(x, w)``, the product of ``x`` with the weight ``w`` by the
+    einsum equation ``eq`` (``x``'s letters first; it fixes the layouts and
+    nothing else) that contracts ``x``'s split dims: the row-parallel
+    product after a column-parallel one (attention's output projection,
+    an MLP's down projection).  On plain tensors ``fn`` as it is.  On
+    DTensors on local shards (``local_map``): ``x`` as it is laid out,
+    ``w`` sliced to ``x``'s shards of the dims they contract and whole
+    elsewhere (gathered over the FSDP axis); the product is a partial sum
+    over each mesh dim that splits a contracted dim, which the caller's
+    layout reduces (a reduce-scatter into the residual's sequence shards),
+    and sharded where ``x``'s kept dims are; a partial sum in ``x`` stays
+    one in the product."""
+    if not is_dtensor(x):
+        return fn(x, w)
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    xa, wa, out = _eq_letters(eq)
+    mesh = x.device_mesh
+    w_lay, out_lay = [], []
+    for p in x.placements:
+        if isinstance(p, Shard) and xa[p.dim] not in out:
+            w_lay.append(Shard(wa.index(xa[p.dim])))
+            out_lay.append(Partial())
+        elif p.is_partial():
+            # a partial sum in is a partial sum out (the product is linear)
+            w_lay.append(Replicate())
+            out_lay.append(p)
+        else:
+            w_lay.append(Replicate())
+            out_lay.append(Shard(out.index(xa[p.dim]))
+                           if isinstance(p, Shard) else Replicate())
+    return _local_call(lambda xl, wl: (fn(xl, wl),), (x, w),
+                       (tuple(x.placements), tuple(w_lay)),
+                       (tuple(out_lay),), mesh)[0]
+
+
+def local_einsum(eq: str, a, b):
+    """``torch.einsum(eq, a, b)``; on DTensors on local shards, laid out by
+    a rule of its own rather than DTensor's search over the mesh's dims:
+    on each mesh dim, a letter both inputs shard stays sharded (a partial
+    sum where ``eq`` contracts it); a letter one input shards, the other
+    is sliced to match where it has that letter; where the inputs shard
+    different letters, the smaller input is gathered.  A partial sum in an
+    input is reduced first."""
+    if not is_dtensor(a):
+        return torch.einsum(eq, a, b)
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    la, lb, out = _eq_letters(eq)
+
+    def letter(p, ls):
+        return ls[p.dim] if isinstance(p, Shard) else None
+    a_lay, b_lay, o_lay = [], [], []
+    for pa, pb in zip(a.placements, b.placements):
+        xa, xb = letter(pa, la), letter(pb, lb)
+        if xa and xb and xa != xb:
+            if a.numel() >= b.numel():
+                xb = None
+            else:
+                xa = None
+        c = xa or xb
+        if c is None:
+            a_lay.append(Replicate())
+            b_lay.append(Replicate())
+            o_lay.append(Replicate())
+            continue
+        a_lay.append(Shard(la.index(c)) if c in la else Replicate())
+        b_lay.append(Shard(lb.index(c)) if c in lb else Replicate())
+        o_lay.append(Shard(out.index(c)) if c in out else Partial())
+    return _local_call(lambda x, y: (torch.einsum(eq, x, y),), (a, b),
+                       (tuple(a_lay), tuple(b_lay)), (tuple(o_lay),),
+                       a.device_mesh)[0]
+
+
+def lookup(table, ids):
+    """``table[ids]``, rows of an embedding table; on a DTensor table the
+    vocab-parallel lookup on local shards (DTensor's own lookup fails its
+    backward before torch 2.13): the table gathered over every
+    mesh dim but those that split its rows, each rank reading the ids that
+    fall in its rows (zeros elsewhere), the result a partial sum over the
+    mesh dims that split the rows and split as ``ids`` are elsewhere."""
+    if not is_dtensor(table):
+        return table[ids]
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    mesh = table.device_mesh
+    t_lay = tuple(p if p.is_shard(0) else Replicate()
+                  for p in table.placements)
+    out_lay, lo, n = [], 0, 1
+    for i, (pt, pi) in enumerate(zip(t_lay, ids.placements)):
+        if pt.is_shard(0):
+            out_lay.append(Partial())
+            lo = lo * mesh.size(i) + mesh.get_local_rank(i)
+            n *= mesh.size(i)
+        else:
+            out_lay.append(Shard(pi.dim) if isinstance(pi, Shard)
+                           else Replicate())
+    lo *= table.shape[0] // n
+
+    def body(tl, il):
+        local = il.long() - lo
+        hit = (local >= 0) & (local < tl.shape[0])
+        rows = tl[local.clamp(0, tl.shape[0] - 1)]
+        return (rows * hit[..., None].to(rows.dtype),)
+    return _local_call(body, (table, ids), (t_lay, tuple(ids.placements)),
+                       (tuple(out_lay),), mesh)[0]
+
+
+def _local_call(fn, args: tuple, in_layouts: tuple, out_layouts: tuple,
+                mesh):
+    """``local_map`` of ``fn`` over DTensor ``args`` redistributed to
+    ``in_layouts``, its outputs laid out as ``out_layouts``; an input
+    replicated over a mesh dim that an output is sharded on (or holds a
+    partial sum over) gets its gradient there as a partial sum, and a
+    partial-sum input its gradient whole."""
+    from torch.distributed.tensor import Partial, Replicate
+    from torch.distributed.tensor.experimental import local_map
+
     split = [any(not lay[i].is_replicate() for lay in out_layouts)
              for i in range(mesh.ndim)]
-    grads = tuple(tuple(Partial() if split[i] and lay[i].is_replicate()
+    # a partial sum's gradient is whole on every rank
+    grads = tuple(tuple(Replicate() if lay[i].is_partial()
+                        else Partial() if split[i] and lay[i].is_replicate()
                         else lay[i] for i in range(mesh.ndim))
                   for lay in in_layouts)
     return local_map(fn, out_placements=out_layouts,

@@ -28,7 +28,7 @@ import torch
 
 from ..core.engine.kernels import check_device
 from ..models import model as M
-from ..models.sharding import logical, replicated_like
+from ..models.sharding import as_partial, logical, replicated_like
 
 
 @dataclasses.dataclass(frozen=True)
@@ -114,8 +114,11 @@ def apply_updates(cfg: AdamWConfig, params, grads, state: dict):
     lr = schedule(cfg, step)
     g_leaves = [torch.zeros_like(p) if g is None else g
                 for p, g in zip(p_leaves, tree_leaves(grads))]
-    # global-norm clip in fp32
-    gsq = sum(torch.sum(torch.square(g.float())) for g in g_leaves)
+    # global-norm clip in fp32; on a mesh each leaf's square sum is laid
+    # out as a partial sum over every mesh dim, so the sum over leaves is
+    # local and reduced once (the layout does not depend on the leaves
+    # that came before)
+    gsq = sum(as_partial(torch.sum(torch.square(g.float()))) for g in g_leaves)
     gnorm = torch.sqrt(logical(gsq))
     scale = (torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
              if cfg.grad_clip else 1.0)

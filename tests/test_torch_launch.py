@@ -16,18 +16,19 @@ CPU: ``launch/{mesh,sharding,roofline,dryrun,report}.py``,
     sizes 2 and 4 (a process a rank) bitwise against the reference's under
     ``shard_map`` (a subprocess), and ``distribute_tree`` on a 2x2 mesh;
   * twins of ``test_collective_parser`` and ``test_roofline_terms_math``;
-  * the dry run: the four families' smoke configs counted on meta, the
-    collectives of a two-layer configuration against a hand count, one
-    full-width cell's parameter counts and model FLOPs against the
-    reference's; the report's tables; ``job_from_roofline`` on a record
-    the port wrote, and ``schedule_cluster`` of both packages on the same
-    jobs by ``repr``.
+  * the dry run, counted in one child process that owns the fake
+    process groups its meshes need (`dry`): the four families' smoke
+    configs as their sharded programs on a 2x4 mesh, one full-width
+    cell's parameter counts and model FLOPs against the reference's; the
+    report's tables; ``job_from_roofline`` on a record the port wrote, and
+    ``schedule_cluster`` of both packages on the same jobs by ``repr``.
 """
 
 import dataclasses
 import json
 import math
 import os
+import pickle
 import subprocess
 import sys
 
@@ -47,7 +48,6 @@ from repro.models import model as JM
 from repro.models import sharding as jmsh
 from repro_torch import configs as tconfigs
 from repro_torch.launch import cluster as tcluster
-from repro_torch.launch import dryrun as tdry
 from repro_torch.launch import report as treport
 from repro_torch.launch import roofline as troof
 from repro_torch.launch import sharding as tsh
@@ -55,6 +55,7 @@ from repro_torch.launch.mesh import AbstractMesh, production_shape
 from repro_torch.models import layers as TL
 from repro_torch.models import model as TM
 from repro_torch.models.sharding import activation_sharding, logical_spec
+import torch_sharded_worker as W
 
 ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
 SRC = os.path.join(ROOT, "src")
@@ -490,17 +491,52 @@ def test_roofline_terms_math():
         {"flops": 1.0}, jroof.CollectiveStats({}, 0.0, {}), 1, 1.0).to_json())
 
 
-@pytest.mark.parametrize("arch", ["recurrentgemma_2b", "gemma2_2b",
-                                  "deepseek_moe_16b", "rwkv6_7b"])
-@pytest.mark.parametrize("kind", ["train", "prefill", "decode"])
-def test_dry_run_counts_the_smoke_configs(arch, kind):
-    """Each family's smoke config counted on meta at B=8, S=64 on a 2x4
-    mesh: finite, positive terms; the LM ops' meta route charged (the
+#: the families and kinds of `test_dry_run_counts_the_smoke_configs`
+SMOKE_ARCHS = ["recurrentgemma_2b", "gemma2_2b", "deepseek_moe_16b",
+               "rwkv6_7b"]
+SMOKE_KINDS = ["train", "prefill", "decode"]
+#: the full-width records the report and the jobs read
+RECORD_ARCHS = ("deepseek_moe_16b", "gemma2_2b", "rwkv6_7b")
+
+
+@pytest.fixture(scope="module")
+def dry(tmp_path_factory):
+    """The dry run's records of this file, counted in one child process
+    (``torch_sharded_worker.dry_jobs``), each mesh over a fake process
+    group the child owns: the smoke configs on a 2x4 mesh at B=8, S=64;
+    deepseek-moe-16b train_4k on the single-pod mesh; and, for the report
+    and the jobs, three smoke configs in train_4k cells of the single-pod
+    mesh, named as the full ones."""
+    tmp = tmp_path_factory.mktemp("dry")
+    jobs = {f"smoke/{a}/{k}": dict(what="cell", arch=a, kind=k, B=8, S=64,
+                                   mesh=((2, 4), ("data", "model")))
+            for a in SMOKE_ARCHS for k in SMOKE_KINDS}
+    jobs["full"] = dict(what="cell_full", arch="deepseek_moe_16b",
+                        shape="train_4k", multi=False)
+    for arch in RECORD_ARCHS:
+        jobs[f"record/{arch}"] = dict(what="lower", arch=arch,
+                                      shape="train_4k", multi=False)
+    with open(tmp / "dry_in.pkl", "wb") as f:
+        pickle.dump(jobs, f)
+    procs = W.start("dry", tmp)
+    W.finish(procs, timeout=600)
+    W.assert_none_alive(procs)
+    out = W.load(tmp, "dry_out.pkl")
+    for name, rec in out.items():
+        assert "error" not in rec, (name, rec.get("error"))
+    return out
+
+
+@pytest.mark.parametrize("arch", SMOKE_ARCHS)
+@pytest.mark.parametrize("kind", SMOKE_KINDS)
+def test_dry_run_counts_the_smoke_configs(dry, arch, kind):
+    """Each family's smoke config counted as its sharded program at B=8,
+    S=64 on a 2x4 mesh (a fake group's, local shards on meta): finite,
+    positive terms; the LM ops' meta route charged on local shards (the
     scans and flash, forward and, for train, backward, once a layer a
-    pass); peak memory the sum of its parts."""
+    pass, as on one device); peak memory the sum of its parts."""
     cfg = tconfigs.get_smoke(arch)
-    mesh = AbstractMesh((2, 4), ("data", "model"))
-    rec = tdry.count_cell(cfg, kind, 8, 64, mesh)
+    rec = dry[f"smoke/{arch}/{kind}"]
     rl, mem, ops = rec["roofline"], rec["memory"], rec["counts"]["kernel_ops"]
     for key in ("compute_s", "memory_s", "collective_s"):
         assert 0 < rl[key] < float("inf"), key
@@ -520,9 +556,10 @@ def test_dry_run_counts_the_smoke_configs(arch, kind):
             bwd = "wkv6_bwd" if op == "wkv6" else op + "_bwd"
             assert ops.get(bwd, {}).get("calls", 0) == layers, bwd
     if n["wkv6"] and kind != "decode":
-        # WKV6's charges per (b, t, h): the forward's 5 (N^2 + N); the
-        # backward kernel's (145 N^2 + 120 N) / 8 (``ops.py``)
-        bsh, N = 8 * 64 * cfg.n_heads, cfg.head_dim
+        # WKV6's charges per (b, t, h) of a local shard (batch over
+        # "data" = 2, heads over "model" = 4): the forward's 5 (N^2 + N);
+        # the backward kernel's (145 N^2 + 120 N) / 8 (``ops.py``)
+        bsh, N = 8 * 64 * cfg.n_heads // 8, cfg.head_dim
         assert ops["wkv6"]["flops"] == passes * n["wkv6"] * 5 * bsh * (
             N * N + N)
         if kind == "train":
@@ -531,78 +568,43 @@ def test_dry_run_counts_the_smoke_configs(arch, kind):
     assert rec["model_flops"] > 0 and rec["n_params"] == cfg.n_params()
 
 
-def test_collectives_for_a_two_layer_config_by_hand():
-    """A dense two-layer config on a 2x4 mesh, train at B=8, S=16: the
-    records ``collectives_for`` gives, counted here leaf by leaf from the
-    rules in its docstring."""
-    cfg = TM.ArchConfig(name="two", family="dense", n_layers=2, d_model=64,
-                        n_heads=4, n_kv_heads=2, head_dim=16, d_ff=128,
-                        vocab=256)
-    mesh = AbstractMesh((2, 4), ("data", "model"))
-    B, S = 8, 16
-    recs = tdry.collectives_for(cfg, dict(batch=B, seq=S, kind="train"),
-                                mesh, fsdp=True)
-    d, V, f = cfg.d_model, cfg.vocab_padded, cfg.d_ff
-    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    # FSDP leaves (data=2, model=4): embed (V/4, d/2), wq (d/2, H/4, hd),
-    # wk, wv (d/2, KV, hd: KV=2 does not take model=4), wo (H/4, hd, d/2),
-    # wg, wu (d/2, f/4), wd (f/4, d/2); replicated norms all-reduce
-    bf16 = 2
-    gathered = [V // 4 * d] + 2 * [d * H // 4 * hd, d * KV * hd, d * KV * hd,
-                                   H // 4 * hd * d, d * f // 4, d * f // 4,
-                                   f // 4 * d]
-    want = []
-    for g in gathered:
-        want += [("all-gather", g * bf16, 2)] * 2
-        want += [("reduce-scatter", g // 2 * 4, 2)]
-    n_norms = 1 + 2 * 2                  # final_ln, ln1 and ln2 a layer
-    want += [("all-reduce", d * 4, 2)] * n_norms
-    full = B // 2 * S * d * bf16          # the residual (B/dp, S, d)
-    for _layer in range(2):
-        want += [("all-gather", full, 4), ("reduce-scatter", full / 4, 4)] * 4
-        want += [("reduce-scatter", full / 4, 4), ("all-gather", full, 4)] * 2
-    want += [("reduce-scatter", full / 4, 4), ("all-gather", full, 4)]
-    want += [("all-reduce", B // 2 * S * 4, 4)] * 6
-    want += [("all-gather", full, 4)] * 2 + [("reduce-scatter", full / 4, 4)]
-    got = sorted((k, float(b), g) for k, b, g, _op in recs)
-    assert got == sorted((k, float(b), g) for k, b, g in want)
-
-
-def test_full_width_cell_counts_equal_the_reference():
-    """deepseek-moe-16b train_4k on the single-pod mesh: ``n_params``,
-    ``n_active_params`` and ``model_flops`` equal the reference's, and the
-    counted FLOPs over all devices lie between 1 and 2 model FLOPs
-    (remat's recompute, attention and the router)."""
-    rec = tdry.lower_cell("deepseek_moe_16b", "train_4k", False)
+def test_full_width_cell_counts_equal_the_reference(dry):
+    """deepseek-moe-16b train_4k on the single-pod mesh, the record the
+    CLI writes (``roofline_cell``: one and two body periods counted,
+    extrapolated to 27): ``n_params``, ``n_active_params`` and
+    ``model_flops`` equal the reference's, and the counted FLOPs over all
+    devices lie between 1 and 2 model FLOPs (remat's recompute, attention
+    and the router)."""
+    rec = dry["full"]
     jcfg = jconfigs.get("deepseek_moe_16b")
     n_active = jcfg.n_active_params()
     assert rec["n_params"] == jcfg.n_params()
     assert rec["n_active_params"] == n_active == 2_828_650_496
     assert rec["model_flops"] == 6.0 * n_active * 256 * 4096
+    assert rec["roofline"]["extrapolated"] and rec["periods"] == 27
     total = rec["roofline"]["flops_per_device"] * rec["n_devices"]
     assert 1.0 <= total / rec["model_flops"] <= 2.0
     assert rec["n_devices"] == 256 and rec["memory"]["fits_80g"]
 
 
-def _records(tmp_path):
+def _records(dry, tmp_path):
     """Port-written train_4k records of three smoke configs (named as the
     full ones), one per architecture."""
     recs = []
-    for arch in ("deepseek_moe_16b", "gemma2_2b", "rwkv6_7b"):
-        rec = tdry.lower_cell(arch, "train_4k", False,
-                              cfg=tconfigs.get_smoke(arch))
+    for arch in RECORD_ARCHS:
+        rec = dry[f"record/{arch}"]
         with open(tmp_path / f"{arch}_train_4k_single.json", "w") as f:
             json.dump(rec, f)
         recs.append(rec)
     return recs
 
 
-def test_report_renders_as_the_reference(tmp_path):
+def test_report_renders_as_the_reference(dry, tmp_path):
     """``roofline_table`` and ``pick_hillclimb`` give the reference's rows
     on the same records (the reference's fits column read from
     ``fits_16g``, set to the port's ``fits_80g``); ``load`` reads them
     back."""
-    recs = _records(tmp_path)
+    recs = _records(dry, tmp_path)
     assert [r["arch"] for r in treport.load(str(tmp_path))] == sorted(
         r["arch"] for r in recs)
     theirs = json.loads(json.dumps(recs))
@@ -613,12 +615,12 @@ def test_report_renders_as_the_reference(tmp_path):
     assert len(treport.dryrun_table(recs).splitlines()) == 2 + len(recs)
 
 
-def test_jobs_from_port_records_and_schedules(tmp_path):
+def test_jobs_from_port_records_and_schedules(dry, tmp_path):
     """The port's ``job_from_roofline`` on a record the port wrote gives
     the reference's stages, except ``hbm``, rescaled by 16 GiB /
     ``HBM_PER_DEVICE``; ``schedule_cluster`` of both packages on the same
     stage dicts makes the same decisions (``repr``)."""
-    _records(tmp_path)
+    _records(dry, tmp_path)
     scale = 16 * 2**30 / troof.HBM_PER_DEVICE
     tjobs, jjobs = [], []
     for i, arch in enumerate(("deepseek_moe_16b", "gemma2_2b", "rwkv6_7b",

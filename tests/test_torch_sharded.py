@@ -20,10 +20,11 @@ same weights (the port's ``init_params`` draw in the reference's layout,
     tensors; ``params``, ``master``, ``m`` and ``v`` gathered whole
     (``full_tensor``) within `STEP_TOL`; every leaf keeps the placements
     of its rule; the kernels' plain versions see local shards;
-  * the collectives the step issues (``CommDebugMode``) include every kind
-    the dry run (``launch.dryrun.collectives_for``) charges; with ``-s``,
+  * the collectives the step issues (the dry run's own counter,
+    ``launch.dryrun.ProgramCounter``) by kind and site; with ``-s``,
     `test_the_step_issues_every_collective_the_dry_run_charges` prints
-    both by kind and by site (`torch_sharded_worker.collectives_table`);
+    them beside the reference's compiled step's and the deleted hand
+    model's charge (`torch_sharded_worker.collectives_table`);
   * a DTensor handed straight to a kernel op raises.
 
 The JAX package's steps run in a process a family, the port's in four
@@ -159,21 +160,27 @@ def test_kernel_regions_see_local_shards(runs, arch):
 
 def test_the_step_issues_every_collective_the_dry_run_charges(runs):
     """gemma2's step on the 2x2 mesh issues all-gathers, reduce-scatters
-    and all-reduces, each kind the dry run charges for the same config,
-    shape and mesh (their counts and bytes differ: DTensor's strategy is
-    its own), and every collective it issues has a site in the port.
-    With ``-s`` the test prints ``W.collectives_table`` as JSON."""
-    table = W.collectives_table(runs["gemma2_2b"]["ranks"][0]["comm"],
-                                "gemma2_2b")
+    and all-reduces, each over a group of 2, every one with a site in the
+    port; the dry run now charges exactly what this program issues
+    (``tests/test_torch_dryrun_program.py`` holds its count on a fake
+    mesh against this run's).  With ``-s`` the test prints
+    ``W.collectives_table`` as JSON: per kind the reference's compiled
+    program (its HLO parsed), the port's program and the deleted hand
+    model's charge, side by side (no two are held equal: XLA's partitioner
+    and DTensor choose their own collectives)."""
+    r = runs["gemma2_2b"]
+    table = W.collectives_table(r["ranks"][0]["comm"], "gemma2_2b",
+                                r["jax"]["xla_collectives"])
     print(json.dumps(table, indent=1))
-    charged = {k for k, v in table["kinds"].items() if v["dry_run_count"]}
-    assert charged == {"all-gather", "reduce-scatter", "all-reduce"}
-    for kind in charged:
-        got = table["kinds"][kind]
-        assert got["step_count"] > 0 and got["step_bytes"] > 0, kind
+    issued = {k for k, v in table["kinds"].items() if v["port"][0]}
+    assert {"all-gather", "reduce-scatter", "all-reduce"} <= issued
+    for kind in issued:
+        assert table["kinds"][kind]["port"][1] > 0, kind
+    assert sum(table["kinds"][k]["xla"][0] for k in table["kinds"]) > 0
+    records = r["ranks"][0]["comm"][3]
+    assert records and {g for _k, _b, g, _s in records} == {2}
     sites = table["step_sites"]
-    assert sum(n for *_, n, _b in sites) == sum(
-        v["step_count"] for v in table["kinds"].values())
+    assert sum(n for *_, n, _b in sites) == len(records)
     assert all(site is not None for _phase, site, *_ in sites)
 
 

@@ -2,9 +2,11 @@
 
 Run as ``python tests/torch_sharded_worker.py MODE ...``, each rank mode
 over the runs of a list in turn (`ARCHS` by default).  A run is a family,
-on the 2x2 ("data", "model") mesh, or ``family@DxExM``, on the ("data",
+on the 2x2 ("data", "model") mesh, ``family@DxM`` on the ("data",
+"model") mesh of those sizes, or ``family@DxExM``, on the ("data",
 "expert", "model") mesh of those sizes (the expert-factorized meshes of
-``repro.launch.mesh``'s ``expert_axis``):
+``repro.launch.mesh``'s ``expert_axis``); a run of `RUN_CONFIG` takes
+its family's smoke config with those fields changed, on both sides:
 
   * ``jax TMP RUN``: the JAX package's own sharded train step on the run's
     mesh of 4 of 8 forced host devices, jitted with the
@@ -24,6 +26,9 @@ on the 2x2 ("data", "model") mesh, or ``family@DxExM``, on the ("data",
     backward, on (1, 4) and (2, 2) meshes (`ATTN_CASES`).  Rank 0 also
     runs the unsharded twin on plain tensors.  For an MoE family both
     sides record each MoE layer's routing (`ROUTED`).
+  * ``dry TMP``: the dry run's counts of the jobs in ``TMP/dry_in.pkl``
+    (`dry_jobs`), each on a mesh over a fake process group this process
+    owns, as ``launch/dryrun.py`` counts a cell.
 
 Each reads ``TMP/in.pkl`` (`write_inputs`) and writes a pickle of numpy
 arrays; the test files start the processes (`start`) and read them.  A
@@ -35,12 +40,10 @@ from __future__ import annotations
 import contextlib
 import os
 import pickle
-import re
 import subprocess
 import sys
 import time
 import traceback
-from collections import defaultdict
 
 import numpy as np
 
@@ -55,18 +58,32 @@ DENSE = ["phi4_mini_3_8b", "granite3_8b", "codeqwen15_7b", "qwen2_vl_7b",
          "musicgen_large"]
 #: the runs whose step's collectives are booked by kind and site
 COMM_RUNS = ("gemma2_2b", "deepseek_moe_16b")
+#: smoke configs whose head, KV-head, codebook or LoRA widths do not
+#: divide a model axis of 4, as the full configs' do not divide 16: the
+#: faults a 16x16 mesh met in the port's program, each held at 1x4
+RUN_CONFIG = {
+    "gemma2_2b@1x4": dict(n_heads=6, n_kv_heads=3),      # 8, 4 on 16
+    "recurrentgemma_2b@1x4": dict(n_heads=2),            # 10, 1 on 16
+    "rwkv6_7b@1x4": {},                                  # 5 x 32 LoRA
+    "musicgen_large@1x4": dict(n_codebooks=3),           # 4 on 16
+}
 #: the batch: 4 rows over "data" = 2, S above the smoke windows (16)
 B, S = 4, 32
 N_RANKS = 4
 OPT = dict(lr=1e-3, warmup_steps=1, total_steps=10)
 #: decode steps after the prefill; new tokens of ``greedy_generate``
 N_DECODE = 4
-#: DTensor's collectives under the dry run's names (gloo has no
-#: all-to-all on the CPU: DTensor takes an all-gather and a slice for it,
-#: so the MoE's expert-parallel all-to-all is counted as an all-gather)
-KINDS = {"all_gather_into_tensor": "all-gather",
-         "reduce_scatter_tensor": "reduce-scatter",
-         "all_reduce": "all-reduce", "all_to_all_single": "all-to-all"}
+#: the deleted hand model's charge for the `COMM_RUNS` step (B=4, S=32,
+#: the 2x2 mesh; every group of 2): per kind, the count and the result
+#: bytes (PERF.md §6)
+MODEL_CHARGE = {
+    "gemma2_2b": {"all-gather": (85, 548_864),
+                  "reduce-scatter": (55, 270_336),
+                  "all-reduce": (23, 5_888)},
+    "deepseek_moe_16b": {"all-gather": (83, 1_130_496),
+                         "reduce-scatter": (51, 559_104),
+                         "all-reduce": (13, 3_328),
+                         "all-to-all": (12, 393_216)}}
 
 
 def split_run(run: str) -> tuple[str, tuple, tuple]:
@@ -74,19 +91,29 @@ def split_run(run: str) -> tuple[str, tuple, tuple]:
     arch, _, mesh = run.partition("@")
     if not mesh:
         return arch, (2, 2), ("data", "model")
-    return arch, tuple(int(x) for x in mesh.split("x")), ("data", "expert",
-                                                          "model")
+    shape = tuple(int(x) for x in mesh.split("x"))
+    if len(shape) == 2:
+        return arch, shape, ("data", "model")
+    return arch, shape, ("data", "expert", "model")
+
+
+def run_config(run: str):
+    """The smoke config of a run's family, changed by `RUN_CONFIG`."""
+    import dataclasses
+
+    from repro_torch import configs
+    return dataclasses.replace(configs.get_smoke(split_run(run)[0]),
+                               **RUN_CONFIG.get(run, {}))
 
 
 def write_inputs(tmp, trees: dict) -> None:
-    """Per family of ``trees``, its reference-layout numpy weights and a
-    batch drawn from the port's ``make_batch`` (the reference's draws the
-    same numbers)."""
-    from repro_torch import configs
+    """Per family (or `RUN_CONFIG` run) of ``trees``, its reference-layout
+    numpy weights and a batch drawn from the port's ``make_batch`` (the
+    reference's draws the same numbers)."""
     from repro_torch.data import DataConfig, make_batch
     out = {}
     for arch, tree in trees.items():
-        batch = make_batch(configs.get_smoke(arch), DataConfig(seed=3), 0, B,
+        batch = make_batch(run_config(arch), DataConfig(seed=3), 0, B,
                            S, device="cpu")
         # a vision model's bfloat16 patches go as float32, exactly
         out[arch] = {"tree": tree, "batch": {
@@ -104,6 +131,8 @@ def start(mode: str, tmp, runs=ARCHS) -> list:
     me = os.path.abspath(__file__)
     if mode == "jax":
         argvs = [[mode, str(tmp), run] for run in runs]
+    elif mode == "dry":
+        argvs = [[mode, str(tmp)]]
     else:
         argvs = [[mode, str(r), str(N_RANKS), str(tmp), ",".join(runs)]
                  for r in range(N_RANKS)]
@@ -201,9 +230,11 @@ def jax_train(tmp, run: str) -> None:
     mesh = jax.make_mesh(shape, names, axis_types=(AxisType.Auto,) * len(
         shape))
     tcfg = TrainConfig(optimizer=AdamWConfig(**OPT))
-    d = load(tmp, "in.pkl")[arch]
+    inputs = load(tmp, "in.pkl")
+    d = inputs[run] if run in inputs else inputs[arch]
     # remat moves no value and only lengthens the compile
-    cfg = dataclasses.replace(configs.get_smoke(arch), remat=False)
+    cfg = dataclasses.replace(configs.get_smoke(arch), remat=False,
+                              **RUN_CONFIG.get(run, {}))
     routes: list = []
     if cfg.moe is not None:
         _jax_routes(cfg, routes)
@@ -223,7 +254,13 @@ def jax_train(tmp, run: str) -> None:
                               "xla_llvm_disable_expensive_passes": True})
         p2, o2, m = compiled(params, opt, batch)
         jax.effects_barrier()
-    out = {"params": jax.tree.map(np.asarray, p2),
+    xla = None
+    if run in COMM_RUNS:
+        # the reference's own count: its compiled program's collectives
+        from repro.launch.roofline import parse_collectives
+        xla = parse_collectives(compiled.as_text(), 4).to_json()
+    out = {"xla_collectives": xla,
+           "params": jax.tree.map(np.asarray, p2),
            **{k: jax.tree.map(np.asarray, o2[k])
               for k in ("m", "v", "master")},
            "metrics": {k: float(v) for k, v in m.items()},
@@ -323,114 +360,45 @@ def _refusals(mesh) -> dict:
     return out
 
 
-_FRAME = re.compile(r'File "([^"]+)", line (\d+), in (\w+)')
-
-
-def _site(frames) -> str | None:
-    """``file:line function`` of the innermost frame of ``frames`` (file,
-    line, function; outermost first) in the port, its sharding helpers
-    left out (their caller is the site)."""
-    for file, line, fn in reversed(list(frames)):
-        f = file.replace(os.sep, "/")
-        if "/repro_torch/" in f and not f.endswith("sharding.py"):
-            return f"{f.rsplit('/', 1)[1]}:{line} {fn}"
-    return None
-
-
 def comm_mode():
-    """``CommDebugMode`` that also counts each collective under the dry
-    run's kind names (``count``), sums its result bytes (``nbytes``: what
-    one rank receives, the gathered tensor of an all-gather, the
-    scattered part of a reduce-scatter, the whole of an all-reduce) and
-    books both by site (``sites``: (phase, site, kind) -> [count, bytes]).
-    The site is the innermost frame of the port that issued it; in the
-    backward, that of the forward op whose gradient issued it (anomaly
-    mode's record of the node's forward stack, so the step runs under
-    ``torch.autograd.detect_anomaly``).  The phase is "forward",
-    "recompute" (a checkpointed layer rerun in the backward) or
-    "backward"."""
-    import torch
-    from torch.distributed.tensor.debug import CommDebugMode
-
-    class CommBytes(CommDebugMode):
-        def __init__(self):
-            super().__init__()
-            self.count = defaultdict(int)
-            self.nbytes = defaultdict(float)
-            self.sites = defaultdict(lambda: [0, 0.0])
-
-        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-            out = super().__torch_dispatch__(func, types, args, kwargs)
-            name = getattr(func, "__name__", "").split(".")[0]
-            if name in KINDS and isinstance(out, torch.Tensor):
-                kind, nb = KINDS[name], out.numel() * out.element_size()
-                self.count[kind] += 1
-                self.nbytes[kind] += nb
-                here = [(f.filename, f.lineno, f.name)
-                        for f in traceback.extract_stack()]
-                site, phase = _site(here), "forward"
-                node = torch._C._current_autograd_node()
-                if node is not None:
-                    phase = "recompute"
-                    if site is None or site.split(":")[0] == "step.py":
-                        phase = "backward"
-                        site = _site(_FRAME.findall("".join(
-                            node.metadata.get("traceback_", []))))
-                rec = self.sites[(phase, site, kind)]
-                rec[0] += 1
-                rec[1] += nb
-            return out
-    return CommBytes()
+    """The dry run's counter (``launch.dryrun.ProgramCounter``): each
+    collective counted by kind (``count``), its result bytes summed
+    (``nbytes``), both booked by site (``sites``: (phase, site, kind) ->
+    [count, bytes]; in the backward the forward op's site, from anomaly
+    mode's record, so the step runs under
+    ``torch.autograd.detect_anomaly``), and the records
+    (``collectives``)."""
+    from repro_torch.launch.dryrun import ProgramCounter
+    return ProgramCounter()
 
 
-def _dry_run_site(op: str) -> str:
-    """A dry-run record's op (``launch.dryrun.collectives_for``) with its
-    layer or leaf name dropped."""
-    if op in ("embed", "embed grad", "loss max/sum/gold", "head input",
-              "head input grad"):
-        return op
-    if re.fullmatch(r"layer\d+ residual( grad)?", op):
-        return op.split(" ", 1)[1]
-    if re.fullmatch(r"(moe|attn)\d+ .+", op):
-        kind, what = op.split(" ", 1)
-        return f"{kind.rstrip('0123456789')} {what}"
-    return "parameter " + op.rsplit(" ", 1)[1]
-
-
-def collectives_table(comm, arch: str) -> dict:
-    """``arch``'s sharded step on the 2x2 mesh (``comm``: a `COMM_RUNS`
-    rank's ``comm`` record) beside the dry run's charge for the same
-    config, shape (B=4, S=32) and mesh: per kind the count and result
-    bytes of each and their ratios, and each side by site."""
-    from repro_torch import configs
-    from repro_torch.launch import dryrun
-    from repro_torch.launch.mesh import AbstractMesh
-    count, nbytes, sites = comm
-    recs = dryrun.collectives_for(
-        configs.get_smoke(arch), {"batch": B, "seq": S, "kind": "train"},
-        AbstractMesh((2, 2), ("data", "model")), fsdp=True)
-    dry, dry_sites = defaultdict(lambda: [0, 0.0]), defaultdict(
-        lambda: [0, 0.0])
-    for kind, size, _group, op in recs:
-        for rec in (dry[kind], dry_sites[(_dry_run_site(op), kind)]):
-            rec[0] += 1
-            rec[1] += size
+def collectives_table(comm, arch: str, xla: dict | None) -> dict:
+    """``arch``'s step on the 2x2 mesh, three counts per kind: the
+    reference's compiled program (``xla``: ``parse_collectives`` of its
+    HLO), the port's program (``comm``: a `COMM_RUNS` rank's ``comm``
+    record) and the deleted hand model's charge (`MODEL_CHARGE`); each a
+    count and the ring-weighted bytes one device sends (what the
+    roofline's collective term reads).  The port's collectives also by
+    site."""
+    from repro_torch.launch.roofline import collective_stats, ring_cost
+    count, _nbytes, sites, records = comm
+    port = collective_stats(records, N_RANKS).to_json()
+    model = MODEL_CHARGE[arch]
     kinds = {}
-    for k in sorted(set(count) | set(dry)):
-        n, b = count.get(k, 0), nbytes.get(k, 0.0)
-        dn, db = dry[k] if k in dry else (0, 0.0)
-        kinds[k] = {"step_count": n, "step_bytes": b, "dry_run_count": dn,
-                    "dry_run_bytes": db,
-                    "count_ratio": n / dn if dn else None,
-                    "bytes_ratio": b / db if db else None}
+    for k in sorted(set(port["count_by_kind"]) | set(model)
+                    | set((xla or {}).get("count_by_kind", {}))):
+        mn, mb = model.get(k, (0, 0))
+        kinds[k] = {
+            "xla": [(xla or {}).get("count_by_kind", {}).get(k, 0),
+                    (xla or {}).get("bytes_by_kind", {}).get(k, 0.0)],
+            "port": [port["count_by_kind"].get(k, 0),
+                     port["bytes_by_kind"].get(k, 0.0)],
+            "model": [mn, ring_cost(k, mb, 2)]}
     order = sorted(sites.items(), key=lambda kv: -kv[1][1])
     return {"arch": arch, "batch": B, "seq": S,
             "mesh": "data=2,model=2", "kinds": kinds,
             "step_sites": [[phase, site, kind, n, b]
-                           for (phase, site, kind), (n, b) in order],
-            "dry_run_sites": [[site, kind, n, b] for (site, kind), (n, b)
-                              in sorted(dry_sites.items(),
-                                        key=lambda kv: -kv[1][1])]}
+                           for (phase, site, kind), (n, b) in order]}
 
 
 def port_train(rank: int, mesh, run: str, d: dict) -> dict:
@@ -445,8 +413,7 @@ def port_train(rank: int, mesh, run: str, d: dict) -> dict:
     from repro_torch.models.sharding import activation_sharding
     from repro_torch.optim import AdamWConfig, init_state
     from repro_torch.train import TrainConfig, make_train_step
-    arch = split_run(run)[0]
-    cfg = configs.get_smoke(arch)
+    cfg = run_config(run)
     tc = TrainConfig(optimizer=AdamWConfig(**OPT))
     step = make_train_step(cfg, tc, device="cpu")
     batch = {k: torch.from_numpy(v) for k, v in d["batch"].items()}
@@ -481,7 +448,8 @@ def port_train(rank: int, mesh, run: str, d: dict) -> dict:
          "routes": (routes[:n_moe], _route_block(mesh, rules, B, S)),
          "comm": (dict(getattr(comm, "count", {})),
                   dict(getattr(comm, "nbytes", {})),
-                  dict(getattr(comm, "sites", {}))),
+                  dict(getattr(comm, "sites", {})),
+                  list(getattr(comm, "collectives", []))),
          "metrics": {k: (float(v.full_tensor()), [str(p) for p in
                                                    v.placements])
                      for k, v in m.items()}}
@@ -518,8 +486,7 @@ def port_serve(rank: int, mesh, run: str, d: dict) -> dict:
     from repro_torch.models import model as M
     from repro_torch.models.sharding import activation_sharding
     from repro_torch.serve.engine import greedy_generate, pad_prefill_state
-    arch = split_run(run)[0]
-    cfg = configs.get_smoke(arch)
+    cfg = run_config(run)
     tokens = torch.from_numpy(d["batch"]["tokens"])
     steps = torch.from_numpy(d["batch"]["labels"][:, -N_DECODE:])
     # a vision model prefills its patches first, and decodes after them
@@ -633,10 +600,81 @@ def port_attn() -> list:
     return out
 
 
+def _dry_one(job: dict):
+    """One job of `dry_jobs`."""
+    import dataclasses
+    import math
+
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import fake_group, fake_mesh
+    what = job["what"]
+    if what == "lower":          # a production cell, a smoke config in it
+        return dryrun.lower_cell(job["arch"], job["shape"], job["multi"],
+                                 job.get("variant", "base"),
+                                 cfg=configs.get_smoke(job["arch"]),
+                                 periods=job.get("periods"))
+    if what == "cell_full":      # a full config's cell, whole
+        return dryrun.roofline_cell(job["arch"], job["shape"], job["multi"])
+    if what == "matmul":         # one sharded product, (d)
+        from torch.distributed.tensor import DTensor, Replicate, Shard
+        M_, K_, N_ = job["mkn"]
+        with fake_group(4):
+            mesh = fake_mesh((2, 2), ("data", "model"))
+            x = DTensor.from_local(
+                torch.empty(M_ // 2, K_, device="meta"), mesh,
+                [Shard(0), Replicate()], run_check=False, shape=(M_, K_),
+                stride=(K_, 1))
+            w = DTensor.from_local(
+                torch.empty(K_, N_ // 2, device="meta"), mesh,
+                [Replicate(), Shard(1)], run_check=False, shape=(K_, N_),
+                stride=(N_, 1))
+            pc = dryrun.ProgramCounter()
+            with pc:
+                y = x @ w
+            return {"flops": pc.flops, "ops": pc.ops,
+                    "collectives": pc.collectives,
+                    "placements": [str(p) for p in y.placements]}
+    cfg = dataclasses.replace(configs.get_smoke(job["arch"]),
+                              **job.get("fields", {}))
+    shape, names = job["mesh"]
+    kind, b, s = job["kind"], job["B"], job["S"]
+    dtype = getattr(torch, job.get("dtype", "bfloat16"))
+    with fake_group(math.prod(shape)):
+        mesh = fake_mesh(shape, names, job.get("device_type", "cuda"))
+        return dryrun.count_cell(cfg, kind, b, s, mesh, dtype=dtype,
+                                 periods=job.get("periods"))
+
+
+def dry_jobs(tmp) -> None:
+    """The jobs of ``TMP/dry_in.pkl`` (name -> job) counted in turn, each
+    on a mesh over a fake group this process owns: the records (or, for
+    a failing job, its error) to ``TMP/dry_out.pkl``."""
+    import torch
+    torch.set_num_threads(1)
+    jobs = load(tmp, "dry_in.pkl")
+    out = {}
+    for name, job in jobs.items():
+        t0 = time.perf_counter()
+        try:
+            out[name] = _dry_one(job)
+        except Exception:  # noqa: BLE001 - the test reads the error
+            out[name] = {"error": traceback.format_exc()[-3000:]}
+        if isinstance(out[name], dict):
+            out[name]["wall_s"] = time.perf_counter() - t0
+    with open(os.path.join(tmp, "dry_out.pkl"), "wb") as f:
+        pickle.dump(out, f)
+
+
 def main(argv: list) -> None:
     mode = argv[0]
     if mode == "jax":
         jax_train(argv[1], argv[2])
+        return
+    if mode == "dry":
+        dry_jobs(argv[1])
         return
     rank, n, tmp, runs = int(argv[1]), int(argv[2]), argv[3], argv[4]
     import torch
@@ -656,11 +694,10 @@ def main(argv: list) -> None:
             if len(shape) == 2:
                 meshes[shape] = make_debug_mesh(*shape, device_type="cpu")
             else:
-                # DTensor expands an op's strategy over every combination
-                # of its mesh dims' strategies: on three dims an einsum's
-                # first call takes ~145 s here.  A dim of size 1 shards
-                # nothing, so the run takes the mesh's dims of size > 1
-                # (the rules read an absent axis as size 1)
+                # a dim of size 1 shards nothing, so the run takes the
+                # mesh's dims of size > 1 (the rules read an absent axis
+                # as size 1); DTensor's strategy search then has two
+                # dims to cost, not three
                 full = init_device_mesh("cpu", shape, mesh_dim_names=names)
                 meshes[shape] = full[tuple(n for n, k in zip(names, shape)
                                            if k > 1)]
@@ -669,7 +706,8 @@ def main(argv: list) -> None:
         go = {"train": port_train, "serve": port_serve}[mode]
         inputs = load(tmp, "in.pkl")
         runs = runs.split(",")
-        r = {run: go(rank, mesh_of(run), run, inputs[split_run(run)[0]])
+        r = {run: go(rank, mesh_of(run), run,
+                     inputs.get(run) or inputs[split_run(run)[0]])
              for run in runs}
         if mode == "serve" and runs == ARCHS:
             r["attn"] = port_attn()
