@@ -2972,7 +2972,8 @@ def wkv6_bwd_case(label, shape, dtype, with_dsT, seed, timed=True) -> dict:
     # the sums of dr, dk, dv and dw: 14.  Per (b, t, h) the bonus terms:
     # v . dy and sum r u k (2 N + 3 N), dr's u k (v . dy) 3 N, dk's
     # (r u)(v . dy) 2 N, dv's dy (sum r u k) 2 N, du's 3 N: 15 N.
-    # (`ops.MetaWKV6` charges the dry run the kernel's own count, which
+    # (the meta route, `ops._meta_bwd`, charges the dry run the kernel's
+    # own count, which
     # rebuilds S 2.375 times a step: (145 N^2 + 120 N) / 8, 29% more.)
     n_ops = float(B * S * H * (14 * N * N + 15 * N))
     b, by = bound_ms(nbytes(*[t for t in args if t is not None], *got), n_ops,
@@ -3093,10 +3094,12 @@ RWKV_GRAD_TOL = 0.49
 #: the forward kernel is held instead on the pass's own inputs
 #: (`wkv6_path_check`), and its loss against the plain twin's
 GRAD_TWIN = {RWKV_ARCH: "backward"}
-#: rwkv6-7b trains at full width cut to this depth: the deepest that the
-#: dry run's count (``launch/dryrun.py`` ``count_cell`` at phase 15's shape
-#: on a (1, 1) mesh) puts at or below `TRAIN_PEAK_LIMIT` (checked in
-#: `rwkv_train_depth`); all 32 layers need 151.5 GB at 20 bytes a parameter
+#: rwkv6-7b trains at full width cut to this depth: the deepest whose peak
+#: the dry run reads (``launch/dryrun.py`` ``count_cell`` at phase 15's
+#: shape on a (1, 1) mesh) at or below `TRAIN_PEAK_LIMIT` (checked in
+#: `rwkv_train_depth`; phase 15's measured peak is held against the read
+#: in `dryrun_calibration`); all 32 layers need 151.5 GB at 20 bytes a
+#: parameter
 RWKV_TRAIN_LAYERS = 13
 TRAIN_PEAK_LIMIT = 72e9
 
@@ -3108,9 +3111,10 @@ def train_limits(arch: str) -> tuple[float, float]:
     return LOSS_TOL, GRAD_TOL
 
 
-def rwkv_train_depth() -> int:
-    """`RWKV_TRAIN_LAYERS`, checked against the dry run's count: its peak
-    at or below `TRAIN_PEAK_LIMIT`, one layer more above it."""
+def rwkv_train_depth(summary: dict) -> int:
+    """`RWKV_TRAIN_LAYERS`, checked against the dry run's read: its peak
+    at or below `TRAIN_PEAK_LIMIT`, one layer more above it.  The read at
+    `RWKV_TRAIN_LAYERS` goes to ``summary`` for `dryrun_calibration`."""
     import dataclasses
 
     from repro_torch import configs
@@ -3125,6 +3129,8 @@ def rwkv_train_depth() -> int:
                                 AbstractMesh((1, 1), ("data", "model")),
                                 microbatches=TRAIN_MB)
         peaks[n] = rec["memory"]["peak_live_bytes"]
+        if n == RWKV_TRAIN_LAYERS:
+            summary["train_depth_read"] = rec
     say("lm:train_depth", arch=RWKV_ARCH, full_layers=cfg.n_layers,
         layers=RWKV_TRAIN_LAYERS, limit_gb=TRAIN_PEAK_LIMIT / 1e9,
         est_peak_gb=json.dumps({n: round(b / 1e9, 3) for n, b in
@@ -3132,7 +3138,7 @@ def rwkv_train_depth() -> int:
     check(peaks[RWKV_TRAIN_LAYERS] <= TRAIN_PEAK_LIMIT
           < peaks[RWKV_TRAIN_LAYERS + 1],
           f"{RWKV_ARCH}: {RWKV_TRAIN_LAYERS} layers is not the deepest cut "
-          f"the dry run puts at or below {TRAIN_PEAK_LIMIT:.0f} bytes "
+          f"the dry run reads at or below {TRAIN_PEAK_LIMIT:.0f} bytes "
           f"({peaks})")
     return RWKV_TRAIN_LAYERS
 
@@ -3524,9 +3530,9 @@ DRYRUN_SHAPE = "train_4k"
 #: share one part, and the shorter two are scanned
 DRYRUN_STEPS = (25, 50, 100)
 DRYRUN_SLICES = 32
-#: the calibration's estimated peak memory against phase 15's measured
-#: one: within this factor either way
-CALIBRATION_FACTOR = 2.0
+#: the dry run's read peak against phase 15's measured one
+#: (``max_memory_allocated``): within this share either way
+CALIBRATION_TOL = 0.05
 
 
 #: the dry run's child process: its limit in seconds, and the worker
@@ -3585,6 +3591,9 @@ def dryrun_records(out_dir: str) -> list:
         coll_bytes=json.dumps({k: coll[k] for k in sorted(coll)},
                               separators=(",", ":")),
         fits_80g=sum(r["memory"]["fits_80g"] for r in recs),
+        peak_gb=",".join(f"{r['memory']['peak_live_bytes'] / 1e9:.3f}"
+                         for r in recs),
+        memory_depth=",".join(r["memory"]["depth"] for r in recs),
         out=os.path.relpath(out_dir, ROOT))
     return recs
 
@@ -3744,10 +3753,12 @@ def nccl_mesh_psum(summary: dict, mesh) -> None:
 
 
 def dryrun_calibration(summary: dict) -> None:
-    """The dry run's count at phase 15's shape on a (1, 1) abstract mesh:
-    its peak memory beside the peak phase 15 measured (within
-    `CALIBRATION_FACTOR`), its FLOPs over phase 15's mean step wall as
-    achieved TFLOP/s.  Readings, not claims."""
+    """The dry run's read at phase 15's shape on a (1, 1) abstract mesh
+    beside the peak phase 15 measured (``max_memory_allocated``), within
+    `CALIBRATION_TOL`, for both trainings: recurrentgemma-2b (counted
+    here) and rwkv6-7b at `RWKV_TRAIN_LAYERS` (`rwkv_train_depth`'s read);
+    recurrentgemma-2b's FLOPs over phase 15's mean step wall as achieved
+    TFLOP/s, a reading."""
     from repro_torch import configs
     from repro_torch.launch import dryrun
     from repro_torch.launch.mesh import AbstractMesh
@@ -3756,29 +3767,40 @@ def dryrun_calibration(summary: dict) -> None:
     rec = dryrun.count_cell(cfg, "train", TRAIN_B, TRAIN_S,
                             AbstractMesh((1, 1), ("data", "model")),
                             microbatches=TRAIN_MB)
-    train = summary["train"]
-    measured = train["peak_bytes"]
-    est = rec["memory"]["peak_live_bytes"]
-    step_ms = sum(train["step_ms"][1:]) / (len(train["step_ms"]) - 1)
-    flops = rec["roofline"]["flops_per_device"]
-    say("launch:calibration", arch=LM_ARCH, B=TRAIN_B, S=TRAIN_S,
-        microbatches=TRAIN_MB, est_peak_gb=round(est / 1e9, 3),
-        measured_peak_gb=round(measured / 1e9, 3),
-        peak_ratio=round(est / measured, 4),
-        memory=json.dumps({k: v for k, v in rec["memory"].items()
-                           if k.endswith("_bytes")}, separators=(",", ":")),
-        flops=f"{flops:.6e}", step_ms=round(step_ms, 3),
-        achieved_tflops=round(flops / (step_ms / 1e3) / 1e12, 3),
-        est_compute_s=round(rec["roofline"]["compute_s"], 6),
-        est_memory_s=round(rec["roofline"]["memory_s"], 6),
-        count_s=rec["count_s"])
-    summary["launch_calibration"] = dict(
-        est_peak_bytes=est, measured_peak_bytes=measured, flops=flops,
-        step_ms=step_ms, memory=rec["memory"], roofline=rec["roofline"])
-    check(measured / CALIBRATION_FACTOR <= est
-          <= measured * CALIBRATION_FACTOR,
-          f"dry-run peak {est} bytes is not within {CALIBRATION_FACTOR}x of "
-          f"the measured {measured}")
+    out = {}
+    for arch, rec, train in (
+            (LM_ARCH, rec, summary["train"]),
+            (RWKV_ARCH, summary["train_depth_read"],
+             summary[f"train_{RWKV_ARCH}"])):
+        measured = train["peak_bytes"]
+        mem = rec["memory"]
+        est = mem["peak_live_bytes"]
+        step_ms = sum(train["step_ms"][1:]) / (len(train["step_ms"]) - 1)
+        flops = rec["roofline"]["flops_per_device"]
+        say("launch:calibration", arch=arch, layers=train["layers"],
+            B=TRAIN_B, S=TRAIN_S, microbatches=TRAIN_MB,
+            read_peak_gb=round(est / 1e9, 3),
+            measured_peak_gb=round(measured / 1e9, 3),
+            peak_ratio=round(est / measured, 4), tol=CALIBRATION_TOL,
+            memory=json.dumps({k: v for k, v in mem.items()
+                               if k.endswith("_bytes")}, separators=(",", ":")),
+            peak_at=json.dumps(mem["peak_at"], separators=(",", ":")),
+            largest=json.dumps([[b["bytes"], b["shape"], b["dtype"],
+                                 b["site"] or b["node"]]
+                                for b in mem["largest"][:3]],
+                               separators=(",", ":")),
+            flops=f"{flops:.6e}", step_ms=round(step_ms, 3),
+            achieved_tflops=round(flops / (step_ms / 1e3) / 1e12, 3),
+            count_s=rec["count_s"])
+        out[arch] = dict(read_peak_bytes=est, measured_peak_bytes=measured,
+                         flops=flops, step_ms=step_ms, memory=mem,
+                         roofline=rec["roofline"])
+    summary["launch_calibration"] = out
+    for arch, row in out.items():
+        est, measured = row["read_peak_bytes"], row["measured_peak_bytes"]
+        check(abs(est - measured) <= CALIBRATION_TOL * measured,
+              f"{arch}: the dry run reads a peak of {est} bytes, not within "
+              f"{CALIBRATION_TOL:.0%} of the measured {measured}")
 
 
 def launch_phase(summary: dict, mesh) -> dict:
@@ -3957,17 +3979,20 @@ def sharded_grads(mesh, cfg, params, batch, arch: str,
 
 
 def sharded_pair_bytes(cfg) -> tuple[float, float]:
-    """(the dry run's peak of gemma2-2b's step at phase 15's shape on a
-    (1, 1) mesh, plus the parameters kept from the mesh's steps while the
-    plain-tensor steps run; the step's own peak)."""
+    """(the dry run's read peak of gemma2-2b's step at phase 15's shape on
+    a (1, 1) mesh, plus the parameters kept from the mesh's steps while
+    the plain-tensor steps run; the step's own peak)."""
     from repro_torch.launch import dryrun
     from repro_torch.launch.mesh import AbstractMesh
+    from repro_torch.optim import tree_leaves
 
     rec = dryrun.count_cell(cfg, "train", TRAIN_B, TRAIN_S,
                             AbstractMesh((1, 1), ("data", "model")),
                             microbatches=TRAIN_MB)
-    mem = rec["memory"]
-    return mem["peak_live_bytes"] + mem["param_bytes"], mem["peak_live_bytes"]
+    peak = rec["memory"]["peak_live_bytes"]
+    params = sum(t.numel() * t.element_size()
+                 for t in tree_leaves(dryrun.meta_params(cfg)))
+    return peak + params, peak
 
 
 def sharded_train(mesh, summary: dict) -> dict:
@@ -4297,7 +4322,8 @@ def main() -> int:
             kernel_ms[r["name"]] = r["ms"]
             kernel_ms[r["name"][:-len("_bwd")]] = r["cases"][0]["fwd_ms"]
     train_runs = [lm_train(summary, kernel_ms),
-                  lm_train(summary, kernel_ms, RWKV_ARCH, rwkv_train_depth()),
+                  lm_train(summary, kernel_ms, RWKV_ARCH,
+                           rwkv_train_depth(summary)),
                   ckpt_resume(summary)]
     for k in lm_launches():
         launches[k] += sum(run[k] for run in train_runs)

@@ -13,7 +13,9 @@ log-sum-exp, and its backward is the backward kernel on a CUDA tensor and
 call is the forward alone, which writes no log-sum-exp.
 
 A meta tensor takes the shape-only route (`pin.py`): outputs of the right
-shapes, each call charged with the kernel's work, 4 hd operations a live
+shapes and the scratch the kernels allocate (the backward's row sums D
+and, under GQA, its float32 partials of each query head's dK and dV),
+each call charged with the kernel's work, 4 hd operations a live
 (query, key) pair and head forward, 10 hd backward (recomputing S, then
 dP, dV, dQ, dK), and q, k, v, o (and lse, do, dq, dk, dv) moved once.
 The plain version would instead count the masked pairs and move the full
@@ -42,25 +44,32 @@ def _meta_fwd(q, k, v, *, causal=True, window=None, cap=None, scale=None,
               return_lse=False):
     B, Sq, H, hd = q.shape
     o = torch.empty_like(q)
-    lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    lse = (torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     pairs = live_pairs(Sq, k.shape[1], causal=causal, window=window)
     pin.charge("flash_attention", 4.0 * hd * pairs * B * H,
-               pin.nbytes(q, k, v, o, lse if return_lse else None))
+               pin.nbytes(q, k, v, o, lse))
     return (o, lse) if return_lse else o
 
 
 def _meta_bwd(q, k, v, o, lse, do, *, causal=True, window=None, cap=None,
               scale=None):
     B, Sq, H, hd = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
     grads = tuple(torch.empty_like(t) for t in (q, k, v))
-    pairs = live_pairs(Sq, k.shape[1], causal=causal, window=window)
+    f32 = dict(dtype=torch.float32, device=q.device)
+    scratch = [torch.empty((B, H, Sq), **f32)]                    # D
+    if H != KV:
+        scratch.append(torch.empty((2, B, Sk, H, hd), **f32))
+    pairs = live_pairs(Sq, Sk, causal=causal, window=window)
     pin.charge("flash_attention_bwd", 10.0 * hd * pairs * B * H,
                pin.nbytes(q, k, v, o, lse, do, *grads))
+    del scratch
     return grads
 
 
 def _impl(q):
-    if q.device.type == "meta":
+    if pin.shape_only(q):
         return _meta_fwd, _meta_bwd
     if pin.use_kernel("flash_attention", q):
         from . import kernel

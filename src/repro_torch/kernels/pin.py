@@ -9,9 +9,13 @@ tensor always launches the kernel.  The pin never moves work to the CPU.
 
 A meta tensor holds no data and computes nothing: the ops take it through
 a shape-only route (outputs of the right shapes and dtypes, under autograd
-too), and each call charges the operations and bytes its kernel would do
-to the meters that `meta_charges` opened; the dry run
-(``launch/dryrun.py``) counts a step that way.
+too, and the scratch their kernels allocate), and each call charges the
+operations and bytes its kernel would do to the meters that
+`meta_charges` opened; the dry run (``launch/dryrun.py``) counts a step
+that way.  Inside `shape_route` the ops take that route on tensors of any
+device (their outputs uninitialized): a program on real tensors then
+allocates what it would on the card, which is how the dry run's memory
+read on meta is held against the same program's on CPU tensors.
 
 A DTensor is refused (`refuse_dtensor`): a sharded program reaches the
 ops through its kernel regions (``models.sharding.local_region``), which
@@ -44,6 +48,28 @@ def refuse_dtensor(op: str, *ts) -> None:
         raise TypeError(f"{op} takes plain tensors, got a DTensor: a sharded "
                         "program calls it on local shards through its kernel "
                         "region (models.sharding.local_region)")
+
+
+_SHAPE_ROUTE = [0]
+
+
+@contextlib.contextmanager
+def shape_route():
+    """The LM ops take their shape-only route on every device inside the
+    block (on any thread: autograd may run a backward on its own)."""
+    with _METERS_LOCK:
+        _SHAPE_ROUTE[0] += 1
+    try:
+        yield
+    finally:
+        with _METERS_LOCK:
+            _SHAPE_ROUTE[0] -= 1
+
+
+def shape_only(t) -> bool:
+    """True to take the shape-only route on ``t``: a meta tensor, or any
+    inside `shape_route`."""
+    return t.device.type == "meta" or _SHAPE_ROUTE[0] > 0
 
 
 def use_kernel(op: str, t) -> bool:

@@ -12,9 +12,10 @@ When an operand requires grad (and grad mode is on) the call goes through
 tensor (or under the pin); it saves the operands, the initial state among
 them, and the backward rebuilds the states from them.
 
-A meta tensor takes the shape-only route (`pin.py`, `MetaWKV6`, an
-autograd Function so that gradients reach r, k, v, w, u and the state),
-each call charged with the kernel's work: forward, 5 operations per state
+A meta tensor takes the shape-only route (`pin.py`): outputs of the
+right shapes and the scratch the backward kernel allocates (every 16th
+state of its first pass, and du's partials), each call charged with the
+kernel's work: forward, 5 operations per state
 element and step plus 5 N per (b, t, h) for the bonus (the count of
 ``chip_smoke.py``'s ``wkv_case``), each operand and result moved once;
 backward, the kernel's reverse recurrence: S = w S + k v (3 operations)
@@ -34,30 +35,35 @@ from .. import pin
 from . import ref
 
 
-class MetaWKV6(torch.autograd.Function):
-    """The shape-only route on meta tensors, forward and backward."""
+#: the backward kernel keeps every BWD_CHUNK-th state of its first pass
+#: (``wkv6.cu``'s ``kBwdK``)
+BWD_CHUNK = 16
 
-    @staticmethod
-    def forward(ctx, r, k, v, w, u, state):
-        B, S, H, N = r.shape
-        y = torch.empty_like(r)
-        sT = torch.empty(state.shape, dtype=torch.float32, device=r.device)
-        pin.charge("wkv6", 5.0 * B * S * H * (N * N + N),
-                   pin.nbytes(r, k, v, w, u, state, y, sT))
-        ctx.save_for_backward(r, k, v, w, u, state)
-        return y, sT
 
-    @staticmethod
-    def backward(ctx, dy, dsT):
-        r, k, v, w, u, state = ctx.saved_tensors
-        B, S, H, N = r.shape
-        grads = tuple(torch.empty_like(t) for t in (r, k, v, w, u, state))
-        pin.charge("wkv6_bwd", B * S * H * (145.0 * N * N + 120.0 * N) / 8,
-                   pin.nbytes(r, k, v, w, u, state, dy, dsT, *grads))
-        return grads
+def _meta_fwd(r, k, v, w, u, state):
+    B, S, H, N = r.shape
+    y = torch.empty_like(r)
+    sT = torch.empty(state.shape, dtype=torch.float32, device=r.device)
+    pin.charge("wkv6", 5.0 * B * S * H * (N * N + N),
+               pin.nbytes(r, k, v, w, u, state, y, sT))
+    return y, sT
+
+
+def _meta_bwd(r, k, v, w, u, state, dy, dsT=None):
+    B, S, H, N = r.shape
+    f32 = dict(dtype=torch.float32, device=r.device)
+    grads = tuple(torch.empty(t.shape, **f32) for t in (r, k, v, w, u, state))
+    scratch = (torch.empty(B * H * -(-S // BWD_CHUNK) * N * N, **f32),
+               torch.empty((B, H, N), **f32))             # du's partials
+    pin.charge("wkv6_bwd", B * S * H * (145.0 * N * N + 120.0 * N) / 8,
+               pin.nbytes(r, k, v, w, u, state, dy, dsT, *grads))
+    del scratch
+    return grads
 
 
 def _impl(r):
+    if pin.shape_only(r):
+        return _meta_fwd, _meta_bwd
     if pin.use_kernel("wkv6", r):
         from . import kernel
         return kernel.wkv6, kernel.wkv6_bwd
@@ -89,8 +95,6 @@ def wkv6(r, k, v, w, u, state):
     """r, k, v, w (B, S, H, N); u (H, N); state (B, H, N, N) f32 ->
     (y (B, S, H, N) in r's dtype, final state f32)."""
     pin.refuse_dtensor("wkv6", r, k, v, w, u, state)
-    if r.device.type == "meta":
-        return MetaWKV6.apply(r, k, v, w, u, state)
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (r, k, v, w, u, state)):
         return WKV6.apply(r, k, v, w, u, state)

@@ -38,19 +38,20 @@ device:
     (``launch/roofline.py`` `collective_record`: kind, result bytes, its
     group's size), weighted by the ring cost of `collective_stats`; the
     counterpart of the reference's ``parse_collectives``.
-  * **Peak memory** is modelled, not read (the reference reads
-    ``memory_analysis``): the exact local bytes, by the specs, of the
-    parameters, AdamW's m, v and float32 master, the gradients (the
-    parameters' dtype; with microbatches, float32 accumulators besides),
-    the batch shard (and for serving the decode state), plus the
-    activations the step keeps: each layer's checkpointed input, the
-    residual stream's local shard (by `logical_spec` of ("batch", "seq",
-    "embed")), n_layers + 1 of them, and one working set: the bytes
-    autograd saves in one layer's forward (the largest layer kind) or in
-    one loss chunk, whichever is more, measured on meta at a microbatch's
-    global shape and split evenly over the devices.  Serving keeps no
-    checkpoints; its working set is the same one-layer measure, an upper
-    bound of what one layer's forward holds at once.
+  * **Peak memory** is read, as the reference reads ``memory_analysis``:
+    `MemoryReader` follows rank 0's local storages through the step.  The
+    step's inputs (parameters, AdamW state, batch, decode state) are its
+    arguments; every storage a local op allocates is live from that op
+    until its last reference drops (a finalizer on the storage), rounded
+    up to the caching allocator's 512-byte block; the LM ops' meta route
+    allocates what their kernels allocate, scratch included.  The record
+    keeps the reference's keys (``argument_bytes``, ``output_bytes``,
+    ``temp_bytes``, ``alias_bytes``: the outputs that are arguments updated
+    in place, as the reference donates them; ``peak_live_bytes``, the
+    arguments plus ``temp_bytes``, the most that was live beside them) and
+    ``fits_80g``, ``peak_at`` (phase, op, the innermost frame of the port,
+    the autograd node) and ``largest`` (the five largest buffers live at
+    the peak).
 
 On a mesh of one device `count_cell` counts the plain program on meta
 tensors (the program the card runs at world size 1), in the calling
@@ -61,7 +62,9 @@ A DTensor gradient pass costs about a second a layer on the host, so
 (``ArchConfig.n_body``, its head and tail layers kept) and extrapolates
 to its G periods, T(1) + (G - 1) (T(2) - T(1)), as the reference does
 with its scan's unroll; the port has no scan, so there is no odd-G
-remainder copy to correct for.
+remainder copy to correct for.  The peak memory is extrapolated the same
+way where the peak falls at the same site at both depths; elsewhere the
+cell is walked at its full depth (``memory.depth``).
 
 Usage:
   python -m repro_torch.launch.dryrun --all [--mesh both] [--out artifacts/dryrun]
@@ -75,12 +78,12 @@ import argparse
 import contextlib
 import dataclasses
 import json
-import math
 import os
 import re
 import sys
 import time
 import traceback
+import weakref
 from collections import defaultdict
 
 import torch
@@ -90,13 +93,12 @@ from .. import configs
 from ..data import batch_specs
 from ..kernels import pin
 from ..models import model as M
-from ..models.sharding import activation_sharding, logical_spec
+from ..models.sharding import activation_sharding
 from . import roofline as RL
 from .mesh import AbstractMesh, fake_group, fake_mesh, make_production_mesh, \
     n_devices
-from .sharding import (tree_items, activation_rules, batch_shardings,
-                       distribute_batch, distribute_state, distribute_tree,
-                       local_shape, state_shardings, tree_shardings)
+from .sharding import (tree_items, activation_rules, distribute_batch,
+                       distribute_state, distribute_tree)
 
 #: ops that move no bytes: they allocate without writing, or wrap or wait
 #: for a tensor another op wrote
@@ -108,6 +110,11 @@ _NO_BYTES = {"empty", "empty_like", "empty_strided", "new_empty",
 def _tensors(tree) -> list:
     from torch.utils._pytree import tree_leaves
     return [t for t in tree_leaves(tree) if isinstance(t, torch.Tensor)]
+
+
+def _local(t):
+    """The local shard of a DTensor, a plain tensor as it is."""
+    return getattr(t, "_local_tensor", t)
 
 
 def _nbytes(t) -> int:
@@ -148,6 +155,171 @@ def _site(frames) -> str | None:
     return None
 
 
+#: the caching allocator rounds every allocation up to a multiple of this
+ALLOC_BLOCK = 512
+#: ops that rewrap a collective's result (in a storage of their own)
+_REWRAP = {"_wrap_tensor_autograd"}
+#: the module whose frames recompute a checkpointed function
+_CHECKPOINT = os.path.join("torch", "utils", "checkpoint.py")
+
+
+def _block(n: int) -> int:
+    return -(-n // ALLOC_BLOCK) * ALLOC_BLOCK
+
+
+def _where() -> tuple:
+    """(phase, site, autograd node) of the op being dispatched: the site
+    the innermost frame of the port outside `_NOT_SITES`; the phase
+    "forward", "recompute" (under an autograd node, a checkpointed
+    function rerun), "backward" (under a node otherwise, or the step's
+    gradient handling) or "optimizer" (AdamW)."""
+    node = torch._C._current_autograd_node()
+    f, site, ckpt = sys._getframe(3), None, False
+    while f is not None:
+        name = f.f_code.co_filename
+        if site is None and "repro_torch" in name and not \
+                name.replace(os.sep, "/").endswith(_NOT_SITES):
+            site = f"{os.path.basename(name)}:{f.f_lineno} {f.f_code.co_name}"
+            if node is None:
+                break
+        if node is not None and name.endswith(_CHECKPOINT):
+            ckpt = True
+            break
+        f = f.f_back
+    if node is not None:
+        return ("recompute" if ckpt else "backward"), site, node.name()
+    if site is not None and site.startswith("adamw.py"):
+        return "optimizer", site, None
+    if site is not None and site.startswith("step.py"):
+        return "backward", site, None
+    return "forward", site, None
+
+
+class MemoryReader:
+    """The live storages of one device type (``device``: "meta" for the dry
+    run's local shards) through a program, as a caching allocator holds
+    them.  `arguments` takes the program's inputs, live throughout;
+    `note` sees each op's outputs and counts a storage that no input of
+    the op holds and that is not known yet, rounded up to `ALLOC_BLOCK`,
+    live until its last reference drops (a weak reference's callback: no
+    sweep).  A collective's result that an op rewraps in a storage of its
+    own (the data stays in the collective's on a real backend and moves to
+    the wrapper's under the fake one) is the one buffer, live while either
+    storage is.  ``peak``
+    is the most live beside the arguments, reached at the allocation
+    ``peak_rec``; every allocation is kept as a row (bytes, shape, dtype,
+    op, phase, site, node, born, died) so that `largest` can list the
+    buffers live at the peak."""
+
+    def __init__(self, device: str = "meta"):
+        self.device = device
+        self.argument_bytes = 0
+        self.live = 0
+        self.peak = 0
+        self.peak_rec = None
+        self.rows: list = []
+        self._args: set = set()
+        self._known: dict = {}
+        self._holders: dict = {}
+        self._clock = 0
+
+    def arguments(self, tree) -> None:
+        """The program's inputs: the tensors of ``tree`` (a DTensor's local
+        shard)."""
+        for t in map(_local, _tensors(tree)):
+            key = t.untyped_storage()._cdata
+            if key not in self._args:
+                self._args.add(key)
+                self.argument_bytes += _nbytes(t)
+
+    def is_argument(self, t) -> bool:
+        return t.untyped_storage()._cdata in self._args
+
+    def note(self, func, args, kwargs, out) -> None:
+        ins = None
+        for t in _tensors(out):
+            if t.device.type != self.device:
+                continue
+            s = t.untyped_storage()
+            key = s._cdata
+            if key in self._known or key in self._args:
+                continue
+            if ins is None:
+                ins = [x.untyped_storage()._cdata
+                       for x in _tensors((args, kwargs))
+                       if x.device.type == self.device]
+            if key in ins:
+                continue
+            if func.overloadpacket.__name__ in _REWRAP and ins \
+                    and ins[0] in self._known:
+                self._follow(s, key, self._known[ins[0]][0])
+            else:
+                self._alloc(s, key, t, func)
+
+    def _follow(self, s, key, i: int) -> None:
+        """Follow the storage ``s`` as (one of) the buffer of row ``i``."""
+        self._known[key] = (i, weakref.ref(
+            s, lambda _ref, key=key: self._freed(key)))
+        self._holders[i] = self._holders.get(i, 0) + 1
+
+    def _alloc(self, s, key, t, func) -> None:
+        n = _block(s.nbytes())
+        self._clock += 1
+        phase, site, node = _where()
+        i = len(self.rows)
+        self.rows.append([n, tuple(t.shape), str(t.dtype).split(".")[-1],
+                          func.overloadpacket.__name__, phase, site, node,
+                          self._clock, None])
+        self._follow(s, key, i)
+        self.live += n
+        if self.live > self.peak:
+            self.peak, self.peak_rec = self.live, i
+
+    def _freed(self, key) -> None:
+        entry = self._known.pop(key, None)
+        if entry is None:
+            return
+        i = entry[0]
+        self._holders[i] -= 1
+        if self._holders[i]:
+            return
+        del self._holders[i]
+        row = self.rows[i]
+        self._clock += 1
+        row[8] = self._clock
+        self.live -= row[0]
+
+    def close(self) -> None:
+        """Stop following the storages still live."""
+        self._known.clear()
+        self._holders.clear()
+
+    def largest(self, n: int = 5) -> list:
+        """The ``n`` largest buffers live at the peak."""
+        if self.peak_rec is None:
+            return []
+        at = self.rows[self.peak_rec][7]
+        live = [r for r in self.rows
+                if r[7] <= at and (r[8] is None or r[8] > at)]
+        live.sort(key=lambda r: -r[0])
+        return [_row_json(r) for r in live[:n]]
+
+    def largest_allocation(self) -> dict | None:
+        """The largest buffer allocated at any time."""
+        return _row_json(max(self.rows, key=lambda r: r[0])) \
+            if self.rows else None
+
+    def peak_at(self) -> dict | None:
+        return None if self.peak_rec is None else {
+            k: v for k, v in _row_json(self.rows[self.peak_rec]).items()
+            if k in ("op", "phase", "site", "node")}
+
+
+def _row_json(r) -> dict:
+    return dict(bytes=r[0], shape=list(r[1]), dtype=r[2], op=r[3],
+                phase=r[4], site=r[5], node=r[6])
+
+
 class ProgramCounter(TorchDispatchMode):
     """Counts one rank's program: its local aten ops on the meta device
     (the dry run's tensors; ``ops``), their bytes (``bytes``: tensor
@@ -172,10 +344,14 @@ class ProgramCounter(TorchDispatchMode):
     op whose gradient issued it when anomaly mode recorded its stack
     (``torch.autograd.detect_anomaly``), else None.  The phase is
     "forward", "recompute" (a checkpointed layer rerun in the backward)
-    or "backward"."""
+    or "backward".
 
-    def __init__(self):
+    With ``memory`` (a device type), a `MemoryReader` of that device's
+    storages (``reader``) sees every op of the program as well."""
+
+    def __init__(self, memory: str | None = None):
         super().__init__()
+        self.reader = None if memory is None else MemoryReader(memory)
         from torch.utils.flop_counter import flop_registry
         self._flop_registry = flop_registry
         self.ops = 0
@@ -204,6 +380,8 @@ class ProgramCounter(TorchDispatchMode):
         rec = RL.collective_record(func, args, out)
         if rec is not None:
             self._book(*rec)
+        if self.reader is not None:
+            self.reader.note(func, args, kwargs, out)
         tensors = _tensors((args, kwargs)) + _tensors(out)
         if not any(t.is_meta for t in tensors):
             return out
@@ -235,152 +413,45 @@ class ProgramCounter(TorchDispatchMode):
         rec[1] += nbytes
 
 
-def meta_params(cfg, dtype=torch.bfloat16) -> dict:
-    """The model's parameter tree (bf16, or ``dtype``) on the meta
-    device."""
-    return M.init_params(cfg, torch.Generator(), device="meta", dtype=dtype)
+def meta_params(cfg, dtype=torch.bfloat16, device="meta") -> dict:
+    """The model's parameter tree (bf16, or ``dtype``) on the meta device
+    (or drawn on ``device``)."""
+    return M.init_params(cfg, torch.Generator().manual_seed(0),
+                         device=device, dtype=dtype)
 
 
-def meta_batch(cfg, B: int, S: int, labels: bool = True) -> dict:
+def meta_batch(cfg, B: int, S: int, labels: bool = True,
+               device="meta") -> dict:
+    """A batch of (B, S) on the meta device (or zeros on ``device``)."""
     specs = batch_specs(cfg, B, S)
     if not labels:
         specs.pop("labels")
-    return {k: torch.empty(shape, dtype=dt, device="meta")
+    make = torch.empty if device == "meta" else torch.zeros
+    return {k: make(shape, dtype=dt, device=device)
             for k, (shape, dt) in specs.items()}
 
 
-def _seq(cfg, S: int) -> int:
-    """Positions the backbone sees: a vision model's patches come first."""
-    return S + cfg.vlm_patches
-
-
-def _saved_bytes(fn, exclude) -> int:
-    """Bytes of the distinct storages autograd saves while ``fn()`` runs,
-    those of ``exclude`` (parameters, the input) left out."""
-    skip = {t.untyped_storage()._cdata for t in exclude}
-    seen: dict = {}
-
-    def pack(t):
-        s = t.untyped_storage()
-        if s._cdata not in skip:
-            seen[s._cdata] = s.nbytes()
-        return t
-    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
-        fn()
-    return sum(seen.values())
-
-
-def working_set(cfg, params, B: int, S_eff: int,
-                loss_S: int | None = None) -> int:
-    """Global bytes autograd saves in one layer's forward over (B, S_eff)
-    (the largest layer kind) or, given the loss's ``loss_S`` positions,
-    one loss chunk, whichever is more."""
-    leaves = [t for _, t in tree_items(params)]
-    dtype = params["embed"].dtype
-    positions = M._positions(cfg, B, S_eff, "meta")
-    best = 0
-    done = set()
-    with torch.enable_grad():
-        for t in leaves:
-            t.requires_grad_(True)
-        try:
-            for bp, plan in zip(params["layers"], cfg.layer_plan):
-                if plan in done:
-                    continue
-                done.add(plan)
-                x = torch.empty((B, S_eff, cfg.d_model), dtype=dtype,
-                                device="meta", requires_grad=True)
-                best = max(best, _saved_bytes(
-                    lambda: M._train_block(bp, x, cfg, *plan, positions),
-                    leaves + [x]))
-            if loss_S:
-                chunk = 512
-                while loss_S % chunk:
-                    chunk //= 2
-                x = torch.empty((B, chunk, cfg.d_model), dtype=dtype,
-                                device="meta", requires_grad=True)
-                tok = meta_batch(cfg, B, chunk)["labels"]
-                best = max(best, _saved_bytes(
-                    lambda: M._chunk_loss(params, cfg, x, tok), leaves + [x]))
-        finally:
-            for t in leaves:
-                t.requires_grad_(False)
-    return best
-
-
-def _tree_local_bytes(tree, specs, mesh, itemsize=None) -> int:
-    """Bytes of one device's shards of ``tree`` (``itemsize`` overrides the
-    leaves' own)."""
-    flat = dict(tree_items(specs))
-    return sum(math.prod(local_shape(tuple(t.shape), flat[p], mesh))
-               * (itemsize or t.element_size()) for p, t in tree_items(tree))
-
-
-def memory_model(cfg, kind: str, B: int, S: int, mesh, rules: dict,
-                 params, microbatches: int = 1) -> dict:
-    """Peak live bytes per device, by component (the module docstring)."""
-    train = kind == "train"
-    specs = tree_shardings(params, mesh, cfg, fsdp=train)
-    mem = {"param_bytes": _tree_local_bytes(params, specs, mesh)}
-    n_dev = n_devices(mesh)
-    if train:
-        mem["opt_bytes"] = 3 * _tree_local_bytes(params, specs, mesh, 4)
-        grads = mem["param_bytes"]
-        if microbatches > 1:
-            grads += _tree_local_bytes(params, specs, mesh, 4)
-        mem["grad_bytes"] = grads
-        bspec = batch_shardings(batch_specs(cfg, B, S), mesh)
-        mem["batch_bytes"] = sum(
-            math.prod(local_shape(shape, bspec[k], mesh)) * dt.itemsize
-            for k, (shape, dt) in batch_specs(cfg, B, S).items())
-        Bm = B // microbatches
-        resid = (Bm, _seq(cfg, S), cfg.d_model)
-        loc = local_shape(resid, logical_spec(resid, ("batch", "seq", "embed"),
-                                              rules, mesh), mesh)
-        mem["checkpoint_bytes"] = (cfg.n_layers + 1) * math.prod(loc) * 2
-        mem["working_set_bytes"] = working_set(
-            cfg, params, Bm, _seq(cfg, S), loss_S=S) // n_dev
-    else:
-        decode = kind == "decode"
-        state = M.init_decode_state(cfg, B, S if decode else _seq(cfg, S),
-                                    device="meta")
-        sspec = state_shardings(state, mesh, B)
-        mem["state_bytes"] = _tree_local_bytes(state, sspec, mesh)
-        specs = batch_specs(cfg, B, 1 if decode else S)
-        keep = ("tokens",) if decode else ("tokens", "patches")
-        bspec = batch_shardings(specs, mesh)
-        mem["batch_bytes"] = sum(
-            math.prod(local_shape(shape, bspec[k], mesh)) * dt.itemsize
-            for k, (shape, dt) in specs.items() if k in keep)
-        # decode steps text alone: its patches sit in the cache already
-        wcfg = dataclasses.replace(cfg, vlm_patches=0) if decode else cfg
-        mem["working_set_bytes"] = working_set(
-            wcfg, params, B, 1 if decode else _seq(cfg, S)) // n_dev
-    mem["peak_live_bytes"] = int(sum(mem.values()))
-    mem["fits_80g"] = bool(mem["peak_live_bytes"] <= RL.HBM_PER_DEVICE)
-    return mem
-
-
-def _step_inputs(cfg, kind: str, B: int, S: int, mesh, dtype, depth):
-    """The meta inputs of one step of ``kind``: (params, AdamW state or
-    None, batch, decode state or None), distributed by their specs (the
-    body stacked ``depth`` deep) when ``mesh`` is a `DeviceMesh` (meta
-    local shards)."""
+def _step_inputs(cfg, kind: str, B: int, S: int, mesh, dtype, depth,
+                 device="meta"):
+    """The inputs of one step of ``kind`` on the meta device (or drawn on
+    ``device``): (params, AdamW state or None, batch, decode state or
+    None), distributed by their specs (the body stacked ``depth`` deep)
+    when ``mesh`` is a `DeviceMesh` (meta local shards)."""
     from ..optim import AdamWConfig, init_state
 
-    params = meta_params(cfg, dtype)
+    params = meta_params(cfg, dtype, device)
     opt = state = None
     if kind == "train":
-        batch = meta_batch(cfg, B, S)
+        batch = meta_batch(cfg, B, S, device=device)
         opt = init_state(AdamWConfig(), params)
     elif kind == "prefill":
-        batch = meta_batch(cfg, B, S, labels=False)
+        batch = meta_batch(cfg, B, S, labels=False, device=device)
     else:
-        state = M.init_decode_state(cfg, B, S, device="meta")
+        state = M.init_decode_state(cfg, B, S, device=device)
         K = cfg.n_codebooks
-        batch = {"tokens": torch.empty((B, 1, K) if K > 1 else (B, 1),
-                                       dtype=torch.int32, device="meta"),
-                 "pos": torch.empty((B,), dtype=torch.int32, device="meta")}
+        batch = {"tokens": torch.zeros((B, 1, K) if K > 1 else (B, 1),
+                                       dtype=torch.int32, device=device),
+                 "pos": torch.zeros((B,), dtype=torch.int32, device=device)}
     if isinstance(mesh, AbstractMesh):
         return params, opt, batch, state
     train = kind == "train"
@@ -393,16 +464,39 @@ def _step_inputs(cfg, kind: str, B: int, S: int, mesh, dtype, depth):
     return params, opt, batch, state
 
 
+def read_memory(reader: MemoryReader, outputs) -> dict:
+    """The memory record of a program that ``reader`` followed and that
+    returned ``outputs`` (those among them that are its arguments,
+    updated in place, are aliased as the reference donates them)."""
+    keys, out_b, alias_b = set(), 0, 0
+    for t in map(_local, _tensors(outputs)):
+        key = t.untyped_storage()._cdata
+        if key in keys:
+            continue
+        keys.add(key)
+        out_b += _nbytes(t)
+        if reader.is_argument(t):
+            alias_b += _nbytes(t)
+    peak = reader.argument_bytes + reader.peak
+    return {"argument_bytes": reader.argument_bytes, "output_bytes": out_b,
+            "temp_bytes": reader.peak, "alias_bytes": alias_b,
+            "peak_live_bytes": peak,
+            "fits_80g": bool(peak <= RL.HBM_PER_DEVICE),
+            "peak_at": reader.peak_at(), "largest": reader.largest()}
+
+
 def count_program(cfg, kind: str, B: int, S: int, mesh,
                   microbatches: int = 1, dtype=torch.bfloat16,
-                  depth: int | None = None) -> dict:
-    """FLOPs, bytes, aten ops and collectives of one step of ``kind`` at
-    (B, S) as rank 0 of ``mesh`` runs it (`ProgramCounter`), the LM ops'
-    meta charges included: the sharded program on a `DeviceMesh`, the
-    plain program on an `AbstractMesh` of one device; parameters in
-    ``dtype``, laid out with the body stacked ``depth`` deep (a cut
-    model's: the whole model's, `cut_to_periods`).  The caller opens the
-    mesh's activation rules."""
+                  depth: int | None = None, device: str = "meta") -> dict:
+    """FLOPs, bytes, aten ops, collectives and memory of one step of
+    ``kind`` at (B, S) as rank 0 of ``mesh`` runs it (`ProgramCounter`,
+    its `MemoryReader` on ``device``), the LM ops' meta charges included:
+    the sharded program on a `DeviceMesh`, the plain program on an
+    `AbstractMesh` of one device; parameters in ``dtype``, laid out with
+    the body stacked ``depth`` deep (a cut model's: the whole model's,
+    `cut_to_periods`).  The inputs are meta tensors, or drawn on
+    ``device`` (FLOPs and bytes are then not counted; memory is).  The
+    caller opens the mesh's activation rules."""
     from ..optim import AdamWConfig, apply_updates
     from ..train import loss_and_grads
 
@@ -410,16 +504,24 @@ def count_program(cfg, kind: str, B: int, S: int, mesh,
         raise ValueError(f"{mesh}: a mesh of several devices is counted on "
                          "a DeviceMesh (`fake_mesh`)")
     params, opt, batch, state = _step_inputs(cfg, kind, B, S, mesh, dtype,
-                                             depth)
-    pc = ProgramCounter()
+                                             depth, device)
+    pc = ProgramCounter(memory=device)
+    pc.reader.arguments((params, opt, batch, state))
     with pc, pin.meta_charges() as charges:
         if kind == "train":
-            _, grads = loss_and_grads(params, cfg, batch, microbatches)
-            apply_updates(AdamWConfig(), params, grads, opt)
+            # as `train.make_train_step`'s step
+            loss, grads = loss_and_grads(params, cfg, batch, microbatches)
+            params, opt, om = apply_updates(AdamWConfig(), params, grads,
+                                            opt)
+            outputs = (params, opt, {"loss": loss, **om})
+            del grads
         elif kind == "prefill":
-            M.prefill(params, cfg, batch, last_only=True)
+            outputs = M.prefill(params, cfg, batch, last_only=True)
         else:
-            M.decode_step(params, cfg, state, batch["tokens"], batch["pos"])
+            outputs = M.decode_step(params, cfg, state, batch["tokens"],
+                                    batch["pos"])
+    memory = read_memory(pc.reader, outputs)
+    pc.reader.close()
     by_op: dict = {}
     for op, flops, nb in charges:
         row = by_op.setdefault(op, {"calls": 0, "flops": 0.0, "bytes": 0.0})
@@ -436,7 +538,8 @@ def count_program(cfg, kind: str, B: int, S: int, mesh,
             "result_bytes_by_kind": dict(pc.nbytes),
             "sites": [[phase, site, kind, n, b] for (phase, site, kind),
                       (n, b) in sorted(pc.sites.items(),
-                                       key=lambda kv: -kv[1][1])]}
+                                       key=lambda kv: -kv[1][1])],
+            "memory": memory}
 
 
 @contextlib.contextmanager
@@ -450,11 +553,6 @@ def program_mesh(mesh):
         return
     with fake_group(n_devices(mesh)):
         yield fake_mesh(mesh.shape, mesh.mesh_dim_names)
-
-
-def _abstract(mesh) -> AbstractMesh:
-    return mesh if isinstance(mesh, AbstractMesh) else AbstractMesh(
-        mesh.shape, mesh.mesh_dim_names)
 
 
 def _model_flops(cfg, kind: str, B: int, S: int) -> float:
@@ -472,10 +570,11 @@ def count_cell(cfg, kind: str, B: int, S: int, mesh,
     """The record's counted part for ``cfg`` at (B, S) on ``mesh`` (an
     `AbstractMesh`, counted on its `program_mesh`, or a `DeviceMesh`),
     parameters in ``dtype``; the program of the model cut to ``periods``
-    body periods if given (`cut_to_periods`), the memory and parameter
-    counts the whole model's: ``roofline``, ``collectives``, ``memory``,
-    ``counts``, ``count_s``, ``aten_ops``, ``model_flops``, ``n_params``,
-    ``n_active_params``, ``torch`` (the version that ran the program)."""
+    body periods if given (`cut_to_periods`; the parameter counts stay the
+    whole model's): ``roofline``, ``collectives``, ``memory`` (the cut
+    program's read), ``counts``, ``count_s``, ``aten_ops``,
+    ``model_flops``, ``n_params``, ``n_active_params``, ``torch`` (the
+    version that ran the program)."""
     n_dev = n_devices(mesh)
     rules = activation_rules(mesh, B, n_kv=cfg.n_kv_heads)
     t0 = time.perf_counter()
@@ -483,16 +582,15 @@ def count_cell(cfg, kind: str, B: int, S: int, mesh,
     with program_mesh(mesh) as pmesh, activation_sharding(pmesh, rules):
         counts = count_program(run, kind, B, S, pmesh, microbatches, dtype,
                                depth=cfg.n_body)
-    params = meta_params(cfg, dtype)
-    with activation_sharding(_abstract(mesh), rules):
-        mem = memory_model(cfg, kind, B, S, _abstract(mesh), rules, params,
-                           microbatches)
+    mem = counts.pop("memory")
     coll = RL.collective_stats(counts["collectives"], n_dev)
     model_flops = _model_flops(cfg, kind, B, S)
     rl = RL.roofline_terms({"flops": counts["flops"],
                             "bytes accessed": counts["bytes"]}, coll, n_dev,
                            model_flops)
-    return {"n_params": sum(t.numel() for _, t in tree_items(params)),
+    n_params = sum(t.numel() for _, t in tree_items(
+        M.init_params(cfg, torch.Generator(), device="meta")))
+    return {"n_params": n_params,
             "n_active_params": cfg.n_active_params(),
             # the torch whose DTensor chose the program's collectives
             "torch": torch.__version__,
@@ -560,8 +658,8 @@ def lower_cell(arch_id: str, shape_name: str, multi_pod: bool,
                perf_variant: str = "base", cfg=None,
                periods: int | None = None) -> dict:
     """Count one cell, its model cut to ``periods`` body periods if given
-    (`cut_to_periods`; the memory and parameter counts stay the whole
-    model's); returns the JSON record."""
+    (`cut_to_periods`; the parameter counts stay the whole model's);
+    returns the JSON record."""
     cfg, mesh, rec = _cell(arch_id, shape_name, multi_pod, perf_variant, cfg)
     rec.update(count_cell(cfg, rec["kind"], rec["batch"], rec["seq"], mesh,
                           periods=periods))
@@ -569,19 +667,47 @@ def lower_cell(arch_id: str, shape_name: str, multi_pod: bool,
     return rec
 
 
+#: the memory terms that grow with depth
+_MEMORY_TERMS = ("argument_bytes", "output_bytes", "temp_bytes",
+                 "alias_bytes", "peak_live_bytes")
+
+
+def extrapolate_memory(m1: dict, m2: dict, G: int) -> dict | None:
+    """The memory of a model of ``G`` body periods from its reads at one
+    (``m1``) and two (``m2``) periods, each term linear in G, where the
+    peak falls at the same site at both depths (``peak_at``); else None.
+    ``peak_at`` and ``largest`` are ``m2``'s."""
+    if m1["peak_at"] != m2["peak_at"]:
+        return None
+    out = dict(m2, **{k: _lin(m1[k], m2[k], G) for k in _MEMORY_TERMS})
+    out["fits_80g"] = bool(out["peak_live_bytes"] <= RL.HBM_PER_DEVICE)
+    return out
+
+
 def roofline_cell(arch_id: str, shape_name: str, multi_pod: bool,
                   perf_variant: str = "base", cfg=None) -> dict:
     """The full cell record.  A model of G > 2 body periods is counted at
     one and at two (`lower_cell` with ``periods``) and its counts, FLOPs,
-    bytes and collectives extrapolated to G (`extrapolate_counts`); the
-    memory and the parameter counts are the whole model's."""
+    bytes, collectives and memory extrapolated to G (`extrapolate_counts`,
+    `extrapolate_memory`); where the peak memory falls at another site at
+    the two depths the cell is walked at its full depth instead
+    (``memory.depth``: "extrapolated" or "walked")."""
     if cfg is None:
         cfg = configs.get(arch_id)
     G = cfg.n_body
     if G <= 2:
-        return lower_cell(arch_id, shape_name, multi_pod, perf_variant, cfg)
+        rec = lower_cell(arch_id, shape_name, multi_pod, perf_variant, cfg)
+        rec["memory"]["depth"] = "walked"
+        return rec
     one = lower_cell(arch_id, shape_name, multi_pod, perf_variant, cfg, 1)
     two = lower_cell(arch_id, shape_name, multi_pod, perf_variant, cfg, 2)
+    mem = extrapolate_memory(one["memory"], two["memory"], G)
+    if mem is None:
+        rec = lower_cell(arch_id, shape_name, multi_pod, perf_variant, cfg)
+        rec["memory"]["depth"] = "walked"
+        rec["count_s"] = round(rec["count_s"] + one["count_s"]
+                               + two["count_s"], 3)
+        return rec
     counts = extrapolate_counts(one["counts"], two["counts"], G)
     coll = RL.CollectiveStats(**{k: counts["collectives"][k] for k in (
         "bytes_by_kind", "total_bytes", "count_by_kind", "top")})
@@ -590,6 +716,7 @@ def roofline_cell(arch_id: str, shape_name: str, multi_pod: bool,
                            one["n_devices"], one["model_flops"])
     rec = dict(one, counts=counts, aten_ops=counts["aten_ops"],
                collectives=coll.to_json(), periods=G,
+               memory=dict(mem, depth="extrapolated"),
                count_s=round(one["count_s"] + two["count_s"], 3))
     rec["roofline"] = dict(rl.to_json(), extrapolated=True)
     rec["roofline_probe_periods2"] = two["roofline"]

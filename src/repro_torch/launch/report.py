@@ -1,6 +1,7 @@
 """Render the dry-run and roofline tables from the dry run's records (a
 port of ``repro.launch.report``, on the port's record keys: ``count_s``,
-``aten_ops`` and ``memory.fits_80g``).
+``aten_ops`` and ``memory.fits_80g``), and the memory read of each
+(``--what memory``: peak, where it falls, the largest buffer there).
 
   PYTHONPATH=src python -m repro_torch.launch.report [--dir artifacts/dryrun]
 """
@@ -71,6 +72,33 @@ def dryrun_table(recs: list[dict]) -> str:
     return "\n".join(rows)
 
 
+def _buffer(b: dict) -> str:
+    shape = "x".join(map(str, b["shape"]))
+    return (f"{b['bytes'] / 1e9:.3f} GB {b['dtype']} ({shape}) "
+            f"{b['op']} at {b['site'] or '-'} {b['node'] or ''}").rstrip()
+
+
+def memory_table(recs: list[dict]) -> str:
+    """Each record's memory read: the peak, whether it fits, how its depth
+    was reached, where the peak falls and the largest buffer live there."""
+    hdr = ("| arch | shape | mesh | peak GB | fits 80G | depth | peak at | "
+           "largest buffer |")
+    rows = [hdr, "|" + "---|" * 8]
+    for r in recs:
+        if "error" in r:
+            continue
+        m = r["memory"]
+        at = m["peak_at"] or {}
+        where = f"{at.get('phase')} {at.get('op')} {at.get('site') or '-'}"
+        top = _buffer(m["largest"][0]) if m["largest"] else "-"
+        rows.append(
+            f"| {r['arch']} | {r['shape']} | {r['mesh']} | "
+            f"{m['peak_live_bytes'] / 1e9:.3f} | "
+            f"{'yes' if m['fits_80g'] else 'NO'} | {m.get('depth', '-')} | "
+            f"{where} | {top} |")
+    return "\n".join(rows)
+
+
 def pick_hillclimb(recs: list[dict]) -> list[str]:
     """Worst roofline fraction / most collective-bound / most
     paper-representative."""
@@ -92,7 +120,7 @@ def main() -> None:
     ap.add_argument("--mesh", default="single")
     ap.add_argument("--variant", default="")
     ap.add_argument("--what", default="roofline",
-                    choices=["roofline", "dryrun", "pick"])
+                    choices=["roofline", "dryrun", "memory", "pick"])
     args = ap.parse_args()
     recs = load(args.dir, args.mesh, args.variant)
     if args.what != "pick":
@@ -103,6 +131,8 @@ def main() -> None:
         print(roofline_table(recs))
     elif args.what == "dryrun":
         print(dryrun_table(recs))
+    elif args.what == "memory":
+        print(memory_table(recs))
     else:
         print("\n".join(pick_hillclimb(recs)))
 

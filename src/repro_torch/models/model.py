@@ -45,7 +45,7 @@ from torch.utils.checkpoint import checkpoint
 from ..core.engine.kernels import check_device
 from . import layers as L
 from .sharding import (is_dtensor, logical, lookup, project, replicated_like,
-                       under_current_rules)
+                       under_current_rules, vocab_parallel)
 
 Params = dict
 
@@ -413,7 +413,11 @@ def _positions(cfg: ArchConfig, B: int, S: int, device) -> torch.Tensor:
     return pos[:, None, :].expand(3, B, S)
 
 
-def _lm_logits(params: Params, cfg: ArchConfig, x: torch.Tensor):
+def _head(params: Params, cfg: ArchConfig, x: torch.Tensor):
+    """The LM head's product on the final-normed ``x``: (B, S, V), or
+    (B, S, K, V) for codebooks.  On DTensors a region of its own
+    (`project`): the batch stays split on the data axes, the vocab on the
+    TP axes, the weight gathered over FSDP and ``x`` over the sequence."""
     x = _norm(x, params["final_ln"], cfg)
     if cfg.n_codebooks > 1:
         # (K, d, V), or the tied (K, V, d) embedding transposed
@@ -423,25 +427,85 @@ def _lm_logits(params: Params, cfg: ArchConfig, x: torch.Tensor):
         else:
             term = ("bsd,kdv->bskv", params["lm_head"],
                     lambda x, w: torch.einsum("bsd,kdv->bskv", x, w))
-        logits = project(x, term)
+    elif cfg.tie_embeddings:
+        term = ("bsd,vd->bsv", params["embed"], lambda x, w: x @ w.T)
     else:
-        # the vocab-parallel head reads the sequence whole, gathered
-        # first: DTensor would flatten it split over mesh dims with the
-        # batch (a strided shard: minutes to plan over three, refused
-        # before torch 2.13)
-        if is_dtensor(x):
-            x = logical(x, "batch")
-        logits = x @ (params["embed"].T if cfg.tie_embeddings
-                      else params["lm_head"])
+        term = ("bsd,dv->bsv", params["lm_head"], lambda x, w: x @ w)
+    return project(x, term)
+
+
+def _cap_and_mask(cfg: ArchConfig, logits: torch.Tensor, pad):
+    """The logit softcap, then the padded vocab slots (``pad`` True) moved
+    to -1e9, out of softmax and argmax."""
     if cfg.logit_cap is not None:
         logits = L.softcap(logits.float(), cfg.logit_cap)
-    if cfg.vocab_padded != cfg.vocab:
-        # mask padded vocab slots out of softmax/argmax
-        pad = replicated_like(
-            torch.arange(cfg.vocab_padded, device=x.device) >= cfg.vocab, x)
+    if pad is not None:
         logits = logits + pad * torch.tensor(-1e9, dtype=logits.dtype,
-                                             device=x.device)
-    return logical(logits, "batch", None, "vocab")
+                                             device=logits.device)
+    return logits
+
+
+def _lm_logits(params: Params, cfg: ArchConfig, x: torch.Tensor):
+    logits = _head(params, cfg, x)
+    pad = None
+    if cfg.vocab_padded != cfg.vocab:
+        pad = replicated_like(torch.arange(cfg.vocab_padded,
+                                           device=x.device) >= cfg.vocab, x)
+    return logical(_cap_and_mask(cfg, logits, pad), "batch", None, "vocab")
+
+
+class _VocabParallelCE(torch.autograd.Function):
+    """Per-token cross entropy of local logits (..., V/n) float32 whose
+    vocab shard starts at ``lo``, the shards combined over ``groups`` (a
+    (mesh, dim) each): each shard's logsumexp, their max M and the sum of
+    exp(lse_s - M) all-reduced, M + log of it; the gold logit a masked
+    local gather, summed.  One shard (no group) keeps its own logsumexp,
+    which the combination would give bit for bit (M + log(exp(lse - M))
+    = lse), so a world-size-1 mesh equals the plain call.  The backward
+    is local: softmax minus one-hot on the shard (Megatron's
+    vocab-parallel cross entropy)."""
+
+    @staticmethod
+    def forward(ctx, lg, labels, lo: int, groups: tuple):
+        from torch.distributed import _functional_collectives as fc
+
+        def reduce(t, op):
+            for g in groups:
+                t = fc.wait_tensor(fc.all_reduce(t, op, g))
+            return t
+        lse = torch.logsumexp(lg, dim=-1)
+        if groups:
+            m = reduce(lse, "max")
+            lse = m + torch.log(reduce(torch.exp(lse - m), "sum"))
+        local = labels.long() - lo
+        hit = (local >= 0) & (local < lg.shape[-1])
+        idx = local.clamp(0, lg.shape[-1] - 1)[..., None]
+        gold = reduce(torch.gather(lg, -1, idx)[..., 0] * hit, "sum")
+        ctx.save_for_backward(lg, lse, idx, hit)
+        return lse - gold
+
+    @staticmethod
+    def backward(ctx, g):
+        lg, lse, idx, hit = ctx.saved_tensors
+        d = g[..., None] * torch.exp(lg - lse[..., None])
+        d.scatter_add_(-1, idx, (-g * hit)[..., None])
+        return d, None, None, None
+
+
+def _token_losses(cfg: ArchConfig, logits, labels):
+    """Per-token cross entropy of raw head logits (DTensors, the vocab
+    split on the TP axes) on local shards: `vocab_parallel` hands each
+    rank its (B/dp, chunk, V/tp) logits, softcapped and masked there, and
+    `_VocabParallelCE` combines the shards; no rank holds more than its
+    own shard of a chunk's logits."""
+    def body(lg, lab, lo, groups):
+        pad = None
+        if cfg.vocab_padded != cfg.vocab:
+            pad = torch.arange(lo, lo + lg.shape[-1],
+                               device=lg.device) >= cfg.vocab
+        lg = _cap_and_mask(cfg, lg, pad).float()
+        return _VocabParallelCE.apply(lg, lab, lo, groups)
+    return vocab_parallel(body, logits, labels)
 
 
 # ----------------------------------------------------------------------
@@ -485,17 +549,13 @@ def forward_hidden(params: Params, cfg: ArchConfig, batch: dict):
 def _chunk_loss(params: Params, cfg: ArchConfig, x: torch.Tensor,
                 labels: torch.Tensor) -> torch.Tensor:
     """Summed next-token cross entropy of one sequence chunk: the LM head,
-    the float32 logsumexp, minus the gold logit."""
-    # DTensor's masked gather of the gold logit takes a vocab sharded on
-    # one mesh axis: on an expert-factorized mesh, whose TP axes shard the
-    # vocab twice, it leaves the "expert" axis first ("ffn" is "model")
-    logits = logical(_lm_logits(params, cfg, x).float(), "batch", None,
-                     "ffn")
+    the float32 logsumexp, minus the gold logit; on DTensors the
+    vocab-parallel cross entropy (`_token_losses`)."""
+    if is_dtensor(x):
+        return torch.sum(_token_losses(cfg, _head(params, cfg, x), labels))
+    logits = _lm_logits(params, cfg, x).float()
     lse = torch.logsumexp(logits, dim=-1)
-    # on a vocab-sharded DTensor the gather's masked partial sums are
-    # reduced while the tensor keeps their shape
-    gold = logical(torch.gather(logits, -1, labels.long()[..., None]),
-                   "batch")[..., 0]
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
     return torch.sum(lse - gold)
 
 

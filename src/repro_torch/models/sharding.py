@@ -19,8 +19,9 @@ runs a hand-written kernel's op on the local shards in the layout the
 kernel needs (``local_map``), so the kernel never sees a DTensor and never
 a gathered whole tensor.  A plain tensor passes both unchanged.  The
 products of a split activation with its weights (`project`,
-`project_out`, `local_einsum`) and the embedding lookup (`lookup`) run
-the same way, on every torch and mesh, where DTensor's own op may not: a
+`project_out`, `local_einsum`), the embedding lookup (`lookup`) and the
+loss's cross entropy over a split vocab (`vocab_parallel`) run the same
+way, on every torch and mesh, where DTensor's own op may not: a
 head count that does not divide the TP axes, a mesh of three split dims,
 a torch before 2.13.
 """
@@ -425,6 +426,36 @@ def lookup(table, ids):
         return (rows * hit[..., None].to(rows.dtype),)
     return _local_call(body, (table, ids), (t_lay, tuple(ids.placements)),
                        (tuple(out_lay),), mesh)[0]
+
+
+def vocab_parallel(fn, logits, labels):
+    """``fn(logits, labels, lo, groups)``, a per-token function of logits
+    (..., V) whose last dim is the vocab and of labels (...), on local
+    shards: the logits as they are laid out (sharded or replicated), the
+    labels split as the logits' leading dims are and whole elsewhere;
+    ``lo`` the first vocab slot of this rank's shard and ``groups`` the
+    (mesh, dim) of each mesh dim above one device that splits the vocab,
+    for ``fn`` to combine over.  The result is laid out as the labels.
+    On plain tensors ``fn(logits, labels, 0, ())``."""
+    if not is_dtensor(logits):
+        return fn(logits, labels, 0, ())
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh, vdim = logits.device_mesh, logits.ndim - 1
+    lg_lay = tuple(logits.placements)
+    lab_lay = tuple(p if isinstance(p, Shard) and p.dim < vdim
+                    else Replicate() for p in lg_lay)
+    lo, n, groups = 0, 1, []
+    for i, p in enumerate(lg_lay):
+        if p.is_shard(vdim):
+            lo = lo * mesh.size(i) + mesh.get_local_rank(i)
+            n *= mesh.size(i)
+            if mesh.size(i) > 1:
+                groups.append((mesh, i))
+    lo *= logits.shape[-1] // n
+    return _local_call(lambda lg, lab: (fn(lg, lab, lo, tuple(groups)),),
+                       (logits, labels), (lg_lay, lab_lay), (lab_lay,),
+                       mesh)[0]
 
 
 def _local_call(fn, args: tuple, in_layouts: tuple, out_layouts: tuple,

@@ -534,16 +534,16 @@ def test_dry_run_counts_the_smoke_configs(dry, arch, kind):
     S=64 on a 2x4 mesh (a fake group's, local shards on meta): finite,
     positive terms; the LM ops' meta route charged on local shards (the
     scans and flash, forward and, for train, backward, once a layer a
-    pass, as on one device); peak memory the sum of its parts."""
+    pass, as on one device); the peak memory read from the program: the
+    arguments plus the most live beside them."""
     cfg = tconfigs.get_smoke(arch)
     rec = dry[f"smoke/{arch}/{kind}"]
     rl, mem, ops = rec["roofline"], rec["memory"], rec["counts"]["kernel_ops"]
     for key in ("compute_s", "memory_s", "collective_s"):
         assert 0 < rl[key] < float("inf"), key
     assert rl["n_devices"] == 8
-    assert mem["peak_live_bytes"] == sum(
-        v for k, v in mem.items() if k.endswith("_bytes")
-        and k != "peak_live_bytes")
+    assert mem["peak_live_bytes"] == mem["argument_bytes"] + mem["temp_bytes"]
+    assert mem["peak_live_bytes"] >= mem["argument_bytes"]
     plan = [m for m, _ in cfg.layer_plan]
     n = {"flash_attention": sum(m in ("attn", "local") for m in plan),
          "rglru_scan": plan.count("rglru"), "wkv6": plan.count("rwkv")}
@@ -613,6 +613,23 @@ def test_report_renders_as_the_reference(dry, tmp_path):
     assert treport.roofline_table(recs) == jreport.roofline_table(theirs)
     assert treport.pick_hillclimb(recs) == jreport.pick_hillclimb(theirs)
     assert len(treport.dryrun_table(recs).splitlines()) == 2 + len(recs)
+
+
+def test_memory_table_lists_each_read(dry, tmp_path):
+    """``memory_table`` gives one row per record: its read peak in GB,
+    whether it fits, how its depth was reached, where the peak falls and
+    the largest buffer live there."""
+    recs = _records(dry, tmp_path)
+    rows = treport.memory_table(recs).splitlines()
+    assert len(rows) == 2 + len(recs)
+    for r, row in zip(recs, rows[2:]):
+        m = r["memory"]
+        cells = [c.strip() for c in row.strip("|").split("|")]
+        assert cells[:3] == [r["arch"], r["shape"], r["mesh"]]
+        assert cells[3] == f"{m['peak_live_bytes'] / 1e9:.3f}"
+        assert cells[4] == ("yes" if m["fits_80g"] else "NO")
+        assert cells[6].startswith(m["peak_at"]["phase"])
+        assert cells[7].startswith(f"{m['largest'][0]['bytes'] / 1e9:.3f} GB")
 
 
 def test_jobs_from_port_records_and_schedules(dry, tmp_path):

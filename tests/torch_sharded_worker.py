@@ -14,7 +14,11 @@ its family's smoke config with those fields changed, on both sides:
     (``tree_shardings``, ``batch_shardings``, inside ``activation_sharding``)
     at XLA's backend optimization level 0.  The mesh is built here with
     ``AxisType.Auto`` axes: jax's default Explicit axes refuse the
-    ``with_sharding_constraint`` of the reference's ``logical``.
+    ``with_sharding_constraint`` of the reference's ``logical``.  Its
+    ``memory_analysis`` (argument and temp bytes) is kept beside.
+  * ``jaxmem TMP ARCHS``: the JAX package's train step of each smoke
+    config in ARCHS (comma-separated) on one device, compiled for its
+    ``memory_analysis`` alone (`jax_memory`).
   * ``train RANK N TMP RUNS`` and ``serve RANK N TMP RUNS``: one rank of
     the port's sharded program on gloo (a FileStore in TMP) on the run's
     mesh (``make_debug_mesh`` for the 2x2 one): the train step (``make_train_step`` on DTensors
@@ -25,7 +29,8 @@ its family's smoke config with those fields changed, on both sides:
     runs also runs ``layers.attention`` on DTensors, forward and
     backward, on (1, 4) and (2, 2) meshes (`ATTN_CASES`).  Rank 0 also
     runs the unsharded twin on plain tensors.  For an MoE family both
-    sides record each MoE layer's routing (`ROUTED`).
+    sides record each MoE layer's routing (`ROUTED`).  A `COMM_RUNS`
+    train run also reads its step's memory on rank 0 (`read_memory`).
   * ``dry TMP``: the dry run's counts of the jobs in ``TMP/dry_in.pkl``
     (`dry_jobs`), each on a mesh over a fake process group this process
     owns, as ``launch/dryrun.py`` counts a cell.
@@ -129,7 +134,7 @@ def start(mode: str, tmp, runs=ARCHS) -> list:
     env = dict(os.environ, PYTHONPATH=SRC, JAX_PLATFORMS="cpu",
                OMP_NUM_THREADS="1")
     me = os.path.abspath(__file__)
-    if mode == "jax":
+    if mode in ("jax", "jaxmem"):
         argvs = [[mode, str(tmp), run] for run in runs]
     elif mode == "dry":
         argvs = [[mode, str(tmp)]]
@@ -259,7 +264,10 @@ def jax_train(tmp, run: str) -> None:
         # the reference's own count: its compiled program's collectives
         from repro.launch.roofline import parse_collectives
         xla = parse_collectives(compiled.as_text(), 4).to_json()
+    mem = compiled.memory_analysis()
     out = {"xla_collectives": xla,
+           "memory": {"argument_bytes": int(mem.argument_size_in_bytes),
+                      "temp_bytes": int(mem.temp_size_in_bytes)},
            "params": jax.tree.map(np.asarray, p2),
            **{k: jax.tree.map(np.asarray, o2[k])
               for k in ("m", "v", "master")},
@@ -267,6 +275,40 @@ def jax_train(tmp, run: str) -> None:
            "n_devices": len(p2["embed"].sharding.device_set),
            "routes": routes}
     with open(os.path.join(tmp, f"jax_{run}.pkl"), "wb") as f:
+        pickle.dump(out, f)
+
+
+def jax_memory(tmp, archs: str) -> None:
+    """The JAX package's train step of each smoke config of ``archs`` on
+    one device at (B, S), its parameters in the reference's default dtype,
+    compiled at XLA's backend optimization level 0 (without remat, which
+    moves no argument): ``memory_analysis``'s argument and temp bytes, to
+    ``TMP/jaxmem_{archs}.pkl``."""
+    import dataclasses
+
+    import jax
+    import jax.numpy as jnp
+
+    from repro import configs
+    from repro.data import batch_specs
+    from repro.models import model as JM
+    from repro.optim import AdamWConfig, init_state
+    from repro.train import TrainConfig, make_train_step
+    out = {}
+    for arch in archs.split(","):
+        cfg = dataclasses.replace(configs.get_smoke(arch), remat=False)
+        tcfg = TrainConfig(optimizer=AdamWConfig())
+        params = jax.eval_shape(lambda k: JM.init_params(cfg, k),
+                                jax.ShapeDtypeStruct((2,), jnp.uint32))
+        opt = jax.eval_shape(lambda p: init_state(tcfg.optimizer, p), params)
+        step = jax.jit(make_train_step(cfg, tcfg), donate_argnums=(0, 1))
+        mem = step.lower(params, opt, batch_specs(cfg, B, S)).compile(
+            compiler_options={"xla_backend_optimization_level": 0,
+                              "xla_llvm_disable_expensive_passes": True}
+        ).memory_analysis()
+        out[arch] = {"argument_bytes": int(mem.argument_size_in_bytes),
+                     "temp_bytes": int(mem.temp_size_in_bytes)}
+    with open(os.path.join(tmp, f"jaxmem_{archs}.pkl"), "wb") as f:
         pickle.dump(out, f)
 
 
@@ -453,6 +495,8 @@ def port_train(rank: int, mesh, run: str, d: dict) -> dict:
          "metrics": {k: (float(v.full_tensor()), [str(p) for p in
                                                    v.placements])
                      for k, v in m.items()}}
+    if booked:
+        r["memory"] = read_memory(mesh, cfg, step, fresh, batch, rules)
     trees = {"params": params, **{k: opt[k] for k in ("m", "v", "master")}}
     r["placements"] = {
         key: {"/".join(map(str, p)): ([str(x) for x in placements(s, mesh)],
@@ -473,6 +517,28 @@ def port_train(rank: int, mesh, run: str, d: dict) -> dict:
         r["plain_metrics"] = {k: float(v) for k, v in m.items()}
         r["refused"] = _refusals(mesh)
     return r
+
+
+def read_memory(mesh, cfg, step, fresh, batch, rules) -> dict:
+    """This rank's memory read (``launch.dryrun.MemoryReader`` on the CPU's
+    storages) of one more train step from fresh weights, the LM ops on
+    their shape-only route (``kernels.pin.shape_route``), so that they
+    allocate what their kernels would, as the dry run's meta count does."""
+    from repro_torch.kernels import pin
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.sharding import distribute_batch, distribute_tree
+    from repro_torch.models.sharding import activation_sharding
+    params, opt = fresh()
+    params, opt = (distribute_tree(params, mesh, cfg),
+                   distribute_tree(opt, mesh, cfg))
+    dbatch = distribute_batch(batch, mesh)
+    pc = dryrun.ProgramCounter(memory="cpu")
+    pc.reader.arguments((params, opt, dbatch))
+    with activation_sharding(mesh, rules), pin.shape_route(), pc:
+        out = step(params, opt, dbatch)
+    mem = dryrun.read_memory(pc.reader, out)
+    pc.reader.close()
+    return mem
 
 
 def port_serve(rank: int, mesh, run: str, d: dict) -> dict:
@@ -639,6 +705,12 @@ def _dry_one(job: dict):
                     "placements": [str(p) for p in y.placements]}
     cfg = dataclasses.replace(configs.get_smoke(job["arch"]),
                               **job.get("fields", {}))
+    if what == "plain":          # the plain program on one device
+        from repro_torch.launch.mesh import AbstractMesh
+        return dryrun.count_cell(cfg, "train", job["B"], job["S"],
+                                 AbstractMesh((1, 1), ("data", "model")))
+    if what == "loss_chunk":
+        return _loss_chunk(cfg, job["mesh"])
     shape, names = job["mesh"]
     kind, b, s = job["kind"], job["B"], job["S"]
     dtype = getattr(torch, job.get("dtype", "bfloat16"))
@@ -646,6 +718,46 @@ def _dry_one(job: dict):
         mesh = fake_mesh(shape, names, job.get("device_type", "cuda"))
         return dryrun.count_cell(cfg, kind, b, s, mesh, dtype=dtype,
                                  periods=job.get("periods"))
+
+
+def _loss_chunk(cfg, mesh_spec) -> dict:
+    """One loss chunk of (B, S) (``model._chunk_loss``, forward and
+    backward) on rank 0 of a cuda-typed fake mesh ``mesh_spec`` (shape,
+    names), bfloat16 parameters on meta, the hidden states a leaf laid out
+    as the embedding leaves them: the largest buffer the reader saw it
+    allocate, and the chunk's local logits shard in float32 (B over the
+    batch's axes, the vocab over the TP axes)."""
+    import math
+
+    import torch
+
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import fake_group, fake_mesh
+    from repro_torch.launch.sharding import (activation_rules,
+                                             distribute_batch,
+                                             distribute_tree)
+    from repro_torch.models import model as M
+    from repro_torch.models.sharding import activation_sharding, axis_prod
+    from repro_torch.optim import tree_leaves
+    shape, names = mesh_spec
+    with fake_group(math.prod(shape)):
+        mesh = fake_mesh(shape, names, "cuda")
+        rules = activation_rules(mesh, B, n_kv=cfg.n_kv_heads)
+        with activation_sharding(mesh, rules):
+            params = distribute_tree(dryrun.meta_params(cfg), mesh, cfg)
+            batch = distribute_batch(dryrun.meta_batch(cfg, B, S), mesh)
+            x = M._embed(params, cfg, batch)[0][:, cfg.vlm_patches:]
+            x = x.detach().requires_grad_(True)
+            for p in tree_leaves(params):
+                p.requires_grad_(True)
+            pc = dryrun.ProgramCounter(memory="meta")
+            with pc:
+                M._chunk_loss(params, cfg, x, batch["labels"]).backward()
+            pc.reader.close()
+        K = max(cfg.n_codebooks, 1)
+        bound = (B // axis_prod(mesh, rules["batch"]) * S * K
+                 * cfg.vocab_padded // axis_prod(mesh, rules["vocab"]) * 4)
+    return {"largest": pc.reader.largest_allocation(), "bound": bound}
 
 
 def dry_jobs(tmp) -> None:
@@ -672,6 +784,9 @@ def main(argv: list) -> None:
     mode = argv[0]
     if mode == "jax":
         jax_train(argv[1], argv[2])
+        return
+    if mode == "jaxmem":
+        jax_memory(argv[1], argv[2])
         return
     if mode == "dry":
         dry_jobs(argv[1])
